@@ -1,0 +1,242 @@
+"""Batched closest-hit / any-hit traversal.
+
+Counterpart of aten_tpu/accel/traverse.py (the reference's
+BvhTraverser::Traverse, threaded_bvh_traverser.h:99-304).  Three
+implementations return the same {t, prim, u, v, hit}:
+
+* `_traverse_dense`: every ray against every prim, for scenes of at most
+  DENSE_MAX_PRIMS prims (the Cornell box), in the reference's prim order
+  with a strict `<` so ties break the same way.
+* `_traverse_plain`: the reference oracle's lane-parallel stackless walk
+  of the threaded hit/miss links (`traverse(impl="jax")`), in plain
+  torch.  It is the CUDA kernel's plain version: the CPU path, and on a
+  card reached only through impl="plain".
+* the CUDA kernel `ops/traverse_cuda.py::bvh_traverse`, one thread per
+  ray walking the same links with the same arithmetic.
+
+Traversal is discrete structure: it reads its rays without gradients,
+as the reference stops them (traverse.py:169).
+"""
+from __future__ import annotations
+
+import torch
+
+from aten_tpu_torch.accel.build import LEAF_MAX
+from aten_tpu_torch.core import vecmath as vm
+
+# Below this primitive count every ray tests every prim (reference :34).
+DENSE_MAX_PRIMS = 512
+
+
+def _safe_inv(rd):
+    return torch.where(rd.abs() > 1e-12, 1.0 / rd, torch.sign(rd) * 1e12 + 1e12)
+
+
+def _t0_of(t_max, n, device):
+    if t_max is None:
+        return torch.full((n,), vm.INF, dtype=torch.float32, device=device)
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=device)
+    return torch.broadcast_to(t_max, (n,)).contiguous()
+
+
+def _moller_trumbore(rdx, rdy, rdz, ox, oy, oz, v0, e1, e2, t_min):
+    """Component-form Möller-Trumbore in the reference's op order
+    (traverse.py:304-323).  Returns (t, u, v, hit)."""
+    v0x, v0y, v0z = v0
+    e1x, e1y, e1z = e1
+    e2x, e2y, e2z = e2
+    px = rdy * e2z - rdz * e2y
+    py = rdz * e2x - rdx * e2z
+    pz = rdx * e2y - rdy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    ok = det.abs() > 1e-12
+    inv = torch.where(ok, 1.0 / det, 0.0)
+    dx, dy, dz = ox - v0x, oy - v0y, oz - v0z
+    tu = (dx * px + dy * py + dz * pz) * inv
+    qx = dy * e1z - dz * e1y
+    qy = dz * e1x - dx * e1z
+    qz = dx * e1y - dy * e1x
+    tv = (rdx * qx + rdy * qy + rdz * qz) * inv
+    tt = (e2x * qx + e2y * qy + e2z * qz) * inv
+    hit = ok & (tu >= 0.0) & (tv >= 0.0) & (tu + tv <= 1.0) & (tt > t_min)
+    return tt, tu, tv, hit
+
+
+def _sphere(rdx, rdy, rdz, ox, oy, oz, c, r, t_min):
+    """Nearest root past t_min in the reference's op order.  (t, hit)."""
+    cx, cy, cz = c
+    sx, sy, sz = ox - cx, oy - cy, oz - cz
+    b = sx * rdx + sy * rdy + sz * rdz
+    cq = sx * sx + sy * sy + sz * sz - r * r
+    disc = b * b - cq
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    ta = -b - sq
+    tb = -b + sq
+    ts = torch.where(ta > t_min, ta, tb)
+    return ts, (disc > 0.0) & (ts > t_min)
+
+
+def _traverse_dense(scene, ro, rd, t0, t_min):
+    """All-prims test: triangles in id order, then spheres (ref :38)."""
+    num_tris = scene["num_tris"]
+    num_sph = scene["num_spheres"]
+    ox, oy, oz = ro[:, 0], ro[:, 1], ro[:, 2]
+    rdx, rdy, rdz = rd[:, 0], rd[:, 1], rd[:, 2]
+    t_best = t0.clone()
+    prim = torch.full_like(t0, -1, dtype=torch.int32)
+    ub = torch.zeros_like(t0)
+    vb = torch.zeros_like(t0)
+    # prim data as host floats: exact float32 values, one transfer
+    v0 = scene["tri_v0"].tolist()
+    e1 = scene["tri_e1"].tolist()
+    e2 = scene["tri_e2"].tolist()
+    cen = scene["sph_center"].tolist()
+    rad = scene["sph_radius"].tolist()
+    for i in range(num_tris):
+        tt, tu, tv, h = _moller_trumbore(
+            rdx, rdy, rdz, ox, oy, oz, v0[i], e1[i], e2[i], t_min)
+        h = h & (tt < t_best)
+        t_best = torch.where(h, tt, t_best)
+        prim = torch.where(h, i, prim)
+        ub = torch.where(h, tu, ub)
+        vb = torch.where(h, tv, vb)
+    for i in range(num_sph):
+        ts, h = _sphere(rdx, rdy, rdz, ox, oy, oz, cen[i], rad[i], t_min)
+        h = h & (ts < t_best)
+        t_best = torch.where(h, ts, t_best)
+        prim = torch.where(h, num_tris + i, prim)
+    hit = t_best < t0
+    prim = torch.where(hit, prim, -1)
+    return {"t": t_best, "prim": prim, "u": ub, "v": vb, "hit": hit}
+
+
+def _traverse_plain(scene, ro, rd, t0, any_hit, t_min):
+    """The oracle's threaded walk (reference :189-351, without LOD) over
+    the lanes still walking.  Each lane runs exactly the reference's
+    per-lane steps; finished lanes are compacted away, which changes no
+    result.  Any-hit lanes stop after the leaf that found a hit."""
+    dev = ro.device
+    N = ro.shape[0]
+    num_tris = scene["num_tris"]
+    T = scene["tri_v0"].shape[0]
+    S = scene["sph_center"].shape[0]
+    nbmin, nbmax = scene["nodes_bmin"], scene["nodes_bmax"]
+    nhit, nmiss = scene["nodes_hit"].long(), scene["nodes_miss"].long()
+    nps, npc = scene["nodes_prim_start"].long(), scene["nodes_prim_count"]
+    order = scene["prim_order"].long()
+    P = order.shape[0]
+    tv0, te1, te2 = scene["tri_v0"], scene["tri_e1"], scene["tri_e2"]
+    scen, srad = scene["sph_center"], scene["sph_radius"]
+
+    t_out = t0.clone()
+    prim_out = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    u_out = torch.zeros((N,), dtype=torch.float32, device=dev)
+    v_out = torch.zeros((N,), dtype=torch.float32, device=dev)
+
+    # lanes with t0 <= t_min can never hit; they keep (t0, -1, 0, 0)
+    lane = torch.nonzero(t0 > t_min).squeeze(1)
+    o = ro[lane]
+    d = rd[lane]
+    inv = _safe_inv(d)
+    t = t0[lane]
+    cur = torch.zeros_like(lane)
+    prim = torch.full_like(lane, -1, dtype=torch.int32)
+    u = torch.zeros_like(t)
+    v = torch.zeros_like(t)
+    while lane.numel():
+        ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+        rdx, rdy, rdz = d[:, 0], d[:, 1], d[:, 2]
+        b0 = nbmin[cur]
+        b1 = nbmax[cur]
+        tlo = (b0 - o) * inv
+        thi = (b1 - o) * inv
+        tsmall = torch.minimum(tlo, thi)
+        tbig = torch.maximum(tlo, thi)
+        t_enter = torch.maximum(torch.maximum(tsmall[:, 0], tsmall[:, 1]), tsmall[:, 2])
+        t_exit = torch.minimum(torch.minimum(tbig[:, 0], tbig[:, 1]), tbig[:, 2])
+        ahit = (t_enter <= t_exit) & (t_exit > 0.0) & (t_enter < t)
+        ps = nps[cur]
+        pc = npc[cur]
+        do_leaf = ahit & (ps >= 0)
+        for k in range(LEAF_MAX):
+            valid = do_leaf & (k < pc)
+            if not bool(valid.any()):
+                break
+            pid = order[torch.clamp(ps + k, 0, P - 1)]
+            is_tri = pid < num_tris
+            tid = torch.clamp(pid, 0, T - 1)
+            sid = torch.clamp(pid - num_tris, 0, S - 1)
+            a0, a1, a2 = tv0[tid], te1[tid], te2[tid]
+            t_t, tu, tv, h_t = _moller_trumbore(
+                rdx, rdy, rdz, ox, oy, oz,
+                (a0[:, 0], a0[:, 1], a0[:, 2]),
+                (a1[:, 0], a1[:, 1], a1[:, 2]),
+                (a2[:, 0], a2[:, 1], a2[:, 2]), t_min)
+            c = scen[sid]
+            t_s, h_s = _sphere(rdx, rdy, rdz, ox, oy, oz,
+                               (c[:, 0], c[:, 1], c[:, 2]), srad[sid], t_min)
+            t_p = torch.where(is_tri, t_t, t_s)
+            closer = torch.where(is_tri, h_t, h_s) & valid & (t_p < t)
+            t = torch.where(closer, t_p, t)
+            prim = torch.where(closer, pid.to(torch.int32), prim)
+            u = torch.where(closer, torch.where(is_tri, tu, 0.0), u)
+            v = torch.where(closer, torch.where(is_tri, tv, 0.0), v)
+        cur = torch.where(ahit, nhit[cur], nmiss[cur])
+        if any_hit:
+            cur = torch.where(prim >= 0, -1, cur)
+        done = cur < 0
+        if bool(done.any()):
+            fin = lane[done]
+            t_out[fin] = t[done]
+            prim_out[fin] = prim[done]
+            u_out[fin] = u[done]
+            v_out[fin] = v[done]
+            keep = ~done
+            lane, o, d, inv = lane[keep], o[keep], d[keep], inv[keep]
+            t, cur, prim, u, v = t[keep], cur[keep], prim[keep], u[keep], v[keep]
+    return {"t": t_out, "prim": prim_out, "u": u_out, "v": v_out,
+            "hit": prim_out >= 0}
+
+
+def traverse(scene, ro, rd, t_max=None, any_hit=False, t_min=1e-4, impl="auto"):
+    """Closest (or any) hit for rays ro, rd [N, 3] (unit directions).
+
+    Returns {t, prim, u, v, hit}, each [N]; prim is the global id
+    (triangles first, then spheres), -1 on a miss, where t is t_max.
+
+    impl: "auto" takes the dense test for scenes of at most
+    DENSE_MAX_PRIMS prims and otherwise the CUDA kernel (its plain
+    version for CPU tensors); "dense", "plain" and "cuda" force one.
+    """
+    if impl not in ("auto", "dense", "plain", "cuda"):
+        raise ValueError(f"unknown traversal impl {impl!r}")
+    ro = ro.detach().contiguous()
+    rd = rd.detach().contiguous()
+    t0 = _t0_of(t_max, ro.shape[0], ro.device)
+    num_prims = scene["num_tris"] + scene["num_spheres"]
+    if impl == "dense" or (impl == "auto" and num_prims <= DENSE_MAX_PRIMS):
+        return _traverse_dense(scene, ro, rd, t0, t_min)
+    if impl == "plain":
+        return _traverse_plain(scene, ro, rd, t0, any_hit, t_min)
+    from aten_tpu_torch.ops.traverse_cuda import bvh_traverse
+
+    t, prim, u, v = bvh_traverse(scene, ro, rd, t0, any_hit=any_hit, t_min=t_min)
+    return {"t": t, "prim": prim, "u": u, "v": v, "hit": prim >= 0}
+
+
+def traverse_sorted(scene, ro, rd, t_max=None, any_hit=False, t_min=1e-4,
+                    impl="auto"):
+    """`traverse`.  The reference sorts rays here only to tighten TPU tile
+    votes (traverse.py:364-390); whether a sort pays on a GPU is still to
+    be measured, so the port does not sort."""
+    return traverse(scene, ro, rd, t_max=t_max, any_hit=any_hit,
+                    t_min=t_min, impl=impl)
+
+
+def occluded(scene, ro, rd, dist, eps=1e-3, impl="auto"):
+    """Shadow-ray visibility: True where something blocks [eps, dist-eps].
+    Lanes with dist <= eps never hit (pass dist = 0 for dead lanes)."""
+    res = traverse_sorted(
+        scene, ro, rd, t_max=dist - eps, any_hit=True, t_min=eps, impl=impl
+    )
+    return res["hit"] & (dist > eps)

@@ -1,0 +1,255 @@
+"""NEE path-tracing integrator, batched over (sample, pixel) lanes.
+
+Counterpart of aten_tpu/integrator/pathtracer.py (the reference's
+GeneratePath, ShadeMiss, HitImplicitLight, FillShadowRay, Russian
+roulette and PrepareForNextBounce).  Every lane is one pixel sample;
+terminated lanes are masked, not compacted.  Lanes are in scan order:
+the reference's lane->pixel block swizzle only groups rays for TPU tile
+votes and permutes nothing per pixel, so it is left out.
+
+Seeding uses global pixel ids and the (frame, sample, bounce) of each
+draw, exactly as the reference, so the port draws the reference's
+random numbers bit for bit.
+
+Not ported yet (a scene that needs them raises NotImplementedError):
+toon and stylized materials, car-paint flakes, alpha and stencil
+punch-through, textures, envmaps, voxel LOD, blue-noise sampling and the
+AOV outputs.
+"""
+from __future__ import annotations
+
+import torch
+
+from aten_tpu_torch.accel.traverse import occluded, traverse_sorted
+from aten_tpu_torch.core import camera as cam_mod
+from aten_tpu_torch.core import sampler as smp
+from aten_tpu_torch.core import vecmath as vm
+from aten_tpu_torch.integrator.film import Film
+from aten_tpu_torch.scene.materials import MaterialType, gather_material
+from aten_tpu_torch.shading import brdf as brdf_mod
+from aten_tpu_torch.shading import nee
+
+_EMISSIVE = int(MaterialType.EMISSIVE)
+_SPECULAR = int(MaterialType.SPECULAR)
+_REFRACTION = int(MaterialType.REFRACTION)
+
+# lanes per dispatch: 512x512x16 keeps the path state to a few hundred MB
+MAX_LANES = 4 << 20
+
+
+def check_scene(scene):
+    """Raise NotImplementedError for scene features the port lacks."""
+    for flag, what in (("has_alpha", "alpha punch-through"),
+                       ("has_stencil", "stencil punch-through"),
+                       ("has_voxel_lod", "voxel LOD")):
+        if scene.get(flag):
+            raise NotImplementedError(f"{what} is not ported yet")
+    brdf_mod.check_used_types(scene.get("used_mtl_types"))
+
+
+def eval_hit(scene, ro, rd, hit):
+    """Hit attributes (EvaluateHitResult.h:10-72): position, shading and
+    geometric normals, material and light id.  The reference's uv and
+    mesh id feed textures and SVGF, which are not ported yet."""
+    prim = hit["prim"]
+    num_tris = scene["num_tris"]
+    T = scene["tri_v0"].shape[0]
+    S = scene["sph_center"].shape[0]
+    is_tri = prim < num_tris
+    tid = torch.clamp(prim, 0, T - 1).long()
+    sid = torch.clamp(prim - num_tris, 0, S - 1).long()
+    # missed lanes carry t = INF; clamp so masked-out shading stays finite
+    t_safe = torch.where(hit["hit"], hit["t"], 1.0)
+    p = ro + t_safe[..., None] * rd
+
+    u = hit["u"][..., None]
+    v = hit["v"][..., None]
+    w = 1.0 - u - v
+    n0, n1, n2 = scene["tri_n0"][tid], scene["tri_n1"][tid], scene["tri_n2"][tid]
+    e1, e2 = scene["tri_e1"][tid], scene["tri_e2"][tid]
+    ns_tri = vm.normalize(w * n0 + u * n1 + v * n2)
+    ng_tri = vm.normalize(vm.cross(e1, e2))
+
+    c = scene["sph_center"][sid]
+    r = scene["sph_radius"][sid][..., None]
+    ns_sph = (p - c) / torch.clamp(r, min=1e-12)
+
+    m3 = is_tri[..., None]
+    return {
+        "p": p,
+        "ns": torch.where(m3, ns_tri, ns_sph),
+        "ng": torch.where(m3, ng_tri, ns_sph),
+        "mtl": torch.where(is_tri, scene["tri_mtl"][tid], scene["sph_mtl"][sid]),
+        "light": torch.where(is_tri, scene["tri_light"][tid], scene["sph_light"][sid]),
+    }
+
+
+def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
+                 max_depth, rr_depth, spp_chunk=1, impl="auto"):
+    """Radiance [width*height, 3] averaged over samples
+    [sample, sample + spp_chunk); lane c*Npix + p traces sample
+    `sample + c` of pixel p."""
+    dev = scene.device
+    used = scene["used_mtl_types"]
+    n_pix = width * height
+    N = n_pix * spp_chunk
+    lane = torch.arange(N, dtype=torch.int64, device=dev)
+    pix = lane % n_pix
+    samp_idx = sample + lane // n_pix
+    px = (pix % width).to(torch.float32)
+    py = (pix // width).to(torch.float32)
+    pixel_seed = smp.wang_hash(pix + 1)
+
+    state = smp.make_state(pixel_seed, frame, samp_idx, spp, bounce=0)
+    ju, jv, state = smp.next_2d(state)
+    s = (px + ju) / width
+    t = (float(height - 1) - py + jv) / height
+    ro, rd = cam_mod.generate_ray(cam_arrays, s, t)
+
+    radiance = torch.zeros((N, 3), dtype=torch.float32, device=dev)
+    throughput = torch.ones((N, 3), dtype=torch.float32, device=dev)
+    alive = torch.ones((N,), dtype=torch.bool, device=dev)
+    pdf_prev = torch.ones((N,), dtype=torch.float32, device=dev)
+    prev_singular = torch.ones((N,), dtype=torch.bool, device=dev)
+
+    def occluded_fn(o, d, dist):
+        return occluded(scene, o, d, dist, impl=impl)
+
+    for bounce in range(max_depth):
+        hit = traverse_sorted(
+            scene, ro, rd, t_max=torch.where(alive, vm.INF, 0.0), impl=impl)
+        h = eval_hit(scene, ro, rd, hit)
+        mat = gather_material(scene["materials"], h["mtl"])
+
+        # miss: background
+        miss = alive & ~hit["hit"]
+        radiance = radiance + torch.where(
+            miss[..., None], throughput * scene["bg"], 0.0)
+
+        # per-bounce sampler re-seed (reference bounce-dim offset)
+        state = smp.make_state(pixel_seed, frame, samp_idx, spp, bounce=bounce + 1)
+
+        # implicit emitter hit (HitImplicitLight)
+        is_emis = mat["type"] == _EMISSIVE
+        cos_l = vm.dot(h["ng"], -rd, keepdims=False)
+        hit_emit = alive & hit["hit"] & is_emis
+        w_imp = nee.implicit_light_weight(
+            scene, h["light"], pdf_prev, prev_singular, hit["t"], cos_l)
+        w_imp = torch.where(h["light"] >= 0, w_imp, 1.0)
+        front = cos_l > 0.0
+        radiance = radiance + torch.where(
+            (hit_emit & front)[..., None],
+            throughput * mat["base_color"] * w_imp[..., None],
+            0.0,
+        )
+        alive = alive & hit["hit"] & ~is_emis
+
+        wo = -rd
+        # NEE, skipped for singular BSDFs; dead lanes pass dist 0
+        contrib, state = nee.nee_contribution(
+            scene, mat, h["p"], h["ns"], wo, state,
+            lambda o, d, dist, a=alive: occluded_fn(o, d, torch.where(a, dist, 0.0)),
+            used,
+        )
+        is_singular_mat = (mat["type"] == _SPECULAR) | (mat["type"] == _REFRACTION)
+        nee_ok = alive & ~is_singular_mat
+        radiance = radiance + torch.where(nee_ok[..., None], throughput * contrib, 0.0)
+
+        # Russian roulette (ComputeRussianProbability)
+        u_rr, state = smp.next_1d(state)
+        if bounce >= rr_depth:
+            rr_p = torch.clamp(torch.amax(throughput, dim=-1), 0.01, 0.95)
+        else:
+            rr_p = torch.ones_like(u_rr)
+        alive = alive & (u_rr < rr_p)
+        throughput = throughput / rr_p[..., None]
+
+        # BSDF sample + next ray (PrepareForNextBounce)
+        u1, u2, state = smp.next_2d(state)
+        u3, state = smp.next_1d(state)
+        samp = brdf_mod.sample_brdf(mat, h["ns"], wo, u1, u2, u3, used)
+        n_or = brdf_mod.orient_normal(h["ns"], wo)
+        cos_wi = torch.abs(vm.dot(n_or, samp["wi"], keepdims=False))
+        good = (samp["pdf"] > 1e-9) & (cos_wi > 1e-9)
+        pdf_det = torch.clamp(samp["pdf"], min=1e-9)
+        weight = samp["bsdf"] * (cos_wi / pdf_det)[..., None]
+        throughput = torch.where(
+            (alive & good)[..., None], throughput * weight, throughput)
+        alive = alive & good
+
+        off_n = torch.where(samp["transmission"][..., None], -n_or, n_or)
+        ro = h["p"] + off_n * 1e-3
+        rd = samp["wi"]
+        pdf_prev = samp["pdf"]
+        prev_singular = samp["singular"]
+
+    # invalid-radiance guard (Renderer::isInvalidColor)
+    bad = ~torch.all(torch.isfinite(radiance), dim=-1) | torch.any(radiance < 0, dim=-1)
+    radiance = torch.where(bad[..., None], 0.0, radiance)
+    if spp_chunk > 1:
+        radiance = radiance.reshape(spp_chunk, n_pix, 3).mean(dim=0)
+    return radiance
+
+
+def render_sample(scene, cam_arrays, width, height, frame, sample, spp=1,
+                  max_depth=5, rr_depth=3, spp_chunk=1, impl="auto",
+                  sampler="cmj"):
+    """Mean radiance [height, width, 3] of samples [sample, sample+spp_chunk)."""
+    if sampler != "cmj":
+        raise NotImplementedError(f"sampler {sampler!r} is not ported yet (cmj only)")
+    check_scene(scene)
+    rad = _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
+                       max_depth, rr_depth, spp_chunk=spp_chunk, impl=impl)
+    return rad.reshape(height, width, 3)
+
+
+def render_image(scene, cam, spp=16, max_depth=5, rr_depth=3, frame=0,
+                 spp_chunk=None, impl="auto"):
+    """Accumulate spp samples of camera `cam` on the scene's device,
+    spp_chunk samples per dispatch (default: all of spp, capped at
+    MAX_LANES lanes), lowered to a divisor of spp so every chunk weighs
+    the same.  impl selects the traversal (see accel/traverse.py)."""
+    cam_mod.camera_type_of(cam)
+    cam_arrays = cam.arrays(scene.device)
+    if spp_chunk is None:
+        spp_chunk = max(1, min(spp, MAX_LANES // (cam.width * cam.height)))
+    while spp % spp_chunk:
+        spp_chunk -= 1
+    acc = torch.zeros((cam.height, cam.width, 3), dtype=torch.float32,
+                      device=scene.device)
+    for s in range(0, spp, spp_chunk):
+        acc = acc + render_sample(
+            scene, cam_arrays, cam.width, cam.height, frame, s, spp,
+            max_depth, rr_depth, spp_chunk=spp_chunk, impl=impl,
+        ) * spp_chunk
+    return acc / spp
+
+
+class PathTracer:
+    """Progressive renderer (Renderer::render + FilmProgressive)."""
+
+    def __init__(self, scene, cam, spp_per_frame=1, max_depth=5, rr_depth=3):
+        cam_mod.camera_type_of(cam)
+        self.scene = scene
+        self.cam = cam
+        self.cam_arrays = cam.arrays(scene.device)
+        self.spp_per_frame = spp_per_frame
+        self.max_depth = max_depth
+        self.rr_depth = rr_depth
+        self.frame = 0
+        self.film = Film(cam.height, cam.width, scene.device)
+
+    def render_frame(self):
+        for s in range(self.spp_per_frame):
+            img = render_sample(
+                self.scene, self.cam_arrays, self.cam.width, self.cam.height,
+                self.frame, s, self.spp_per_frame, self.max_depth,
+                self.rr_depth,
+            )
+            self.film.accumulate(img)
+        self.frame += 1
+        return self.film.image()
+
+    def reset(self):
+        self.film.clear()
+        self.frame = 0

@@ -1,0 +1,44 @@
+// Plain C interface of the traversal kernel, loaded from Python with
+// ctypes (aten_tpu_torch/ops/traverse_cuda.py).  It includes no PyTorch
+// header, so the whole library builds in seconds.  Pointers are device
+// addresses of contiguous tensors the caller has checked; `stream` is
+// the caller's current CUDA stream.
+#include <cstdint>
+
+#include "bvh_traverse.h"
+
+extern "C" {
+
+// Returns 0, a cudaError_t of the launch (> 0), or -1 for bad arguments.
+int aten_bvh_traverse(const float* nodes_bmin, const float* nodes_bmax,
+                      const int32_t* nodes_hit, const int32_t* nodes_miss,
+                      const int32_t* nodes_prim_start,
+                      const int32_t* nodes_prim_count,
+                      const int32_t* prim_order, const float* tri_v0,
+                      const float* tri_e1, const float* tri_e2,
+                      const float* sph_center, const float* sph_radius,
+                      int32_t num_tris, const float* ro, const float* rd,
+                      const float* t0, float* t, int32_t* prim, float* u,
+                      float* v, int64_t n, float t_min, int32_t any_hit,
+                      void* stream) {
+  if (n < 0 || num_tris < 0) return -1;
+  if (n > 0 && (!ro || !rd || !t0 || !t || !prim || !u || !v)) return -1;
+  if (!nodes_bmin || !nodes_bmax || !nodes_hit || !nodes_miss ||
+      !nodes_prim_start || !nodes_prim_count || !prim_order || !tri_v0 ||
+      !tri_e1 || !tri_e2 || !sph_center || !sph_radius)
+    return -1;
+  const aten_tpu_torch::BvhView bvh{nodes_bmin,       nodes_bmax, nodes_hit,
+                                    nodes_miss,       nodes_prim_start,
+                                    nodes_prim_count, prim_order, tri_v0,
+                                    tri_e1,           tri_e2,     sph_center,
+                                    sph_radius,       num_tris};
+  const aten_tpu_torch::RayView rays{ro, rd, t0, t, prim, u, v, n};
+  return aten_tpu_torch::launch_bvh_traverse(bvh, rays, t_min, any_hit != 0,
+                                             stream);
+}
+
+const char* aten_cuda_error_string(int code) {
+  return aten_tpu_torch::cuda_error_string(code);
+}
+
+}  // extern "C"

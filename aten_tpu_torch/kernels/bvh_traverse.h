@@ -1,0 +1,44 @@
+// Shared declarations of the threaded-BVH traversal kernel
+// (bvh_traverse.cu) and its C interface (bindings.cpp).
+#pragma once
+
+#include <cstdint>
+
+namespace aten_tpu_torch {
+
+// The scene arrays the walk reads; all device pointers, row-major.
+struct BvhView {
+  const float* nodes_bmin;        // [K,3]
+  const float* nodes_bmax;        // [K,3]
+  const int32_t* nodes_hit;       // [K]  next node when the box is hit
+  const int32_t* nodes_miss;      // [K]  next node when it is missed
+  const int32_t* nodes_prim_start;  // [K] -1 for internal nodes
+  const int32_t* nodes_prim_count;  // [K] <= LEAF_MAX
+  const int32_t* prim_order;      // [P] leaf ranges -> global prim id
+  const float* tri_v0;            // [T,3]
+  const float* tri_e1;            // [T,3]
+  const float* tri_e2;            // [T,3]
+  const float* sph_center;        // [S,3]
+  const float* sph_radius;        // [S]
+  int32_t num_tris;               // prims below this id are triangles
+};
+
+// Rays in, hits out; all device pointers, n entries each.
+struct RayView {
+  const float* ro;   // [n,3]
+  const float* rd;   // [n,3] unit directions
+  const float* t0;   // [n]   t_max per ray
+  float* t;          // [n]   out: closest t (t0 on a miss)
+  int32_t* prim;     // [n]   out: global prim id, -1 on a miss
+  float* u;          // [n]   out: barycentric u of the winner (0 else)
+  float* v;          // [n]   out: barycentric v of the winner (0 else)
+  int64_t n;
+};
+
+// Enqueues the walk on `stream`; returns the cudaError_t of the launch.
+int launch_bvh_traverse(const BvhView& bvh, const RayView& rays,
+                        float t_min, bool any_hit, void* stream);
+
+const char* cuda_error_string(int code);
+
+}  // namespace aten_tpu_torch

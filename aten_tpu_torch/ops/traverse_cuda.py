@@ -1,0 +1,134 @@
+"""Wrapper of the hand-written CUDA traversal kernel.
+
+`bvh_traverse` runs the threaded-BVH walk of kernels/bvh_traverse.cu
+(closest-hit and any-hit instantiations) on CUDA tensors.  It replaces
+the TPU treelet kernel `_make_treelet_kernel`
+(aten_tpu/ops/traverse_pallas.py:785, with `_recompute_uv` :1573) and
+serves the uncut-tree case of `_make_kernel` (:102) with the same code.
+For tensors on the CPU it runs the kernel's plain version,
+accel/traverse.py::_traverse_plain; on a CUDA tensor it launches the
+kernel or raises, never falling back.
+
+The library is built at first use from the repository's sources with
+torch.utils.cpp_extension.load into build/aten_tpu_torch/, for sm_90a,
+with --fmad=false, under a file lock.  Its interface is plain C
+(kernels/bindings.cpp), loaded with ctypes.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from aten_tpu_torch import native
+
+KERNEL_DIR = os.path.join(native.REPO_ROOT, "aten_tpu_torch", "kernels")
+SOURCES = (os.path.join(KERNEL_DIR, "bvh_traverse.cu"),
+           os.path.join(KERNEL_DIR, "bindings.cpp"))
+CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
+              "-Xptxas=-v")
+KERNELS = ("bvh_traverse_closest", "bvh_traverse_any")
+
+# Launches per kernel instantiation since the last reset: the one place
+# that adds to a count is the line after a successful launch below.
+launch_counts = dict.fromkeys(KERNELS, 0)
+
+_lib = None
+
+
+def reset_launch_counts():
+    for k in KERNELS:
+        launch_counts[k] = 0
+
+
+def load_library(verbose=False):
+    """Build (if its sources changed) and load the kernel library."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    from torch.utils.cpp_extension import load
+
+    build_dir = os.path.join(native.BUILD_DIR, "bvh_traverse")
+    os.makedirs(build_dir, exist_ok=True)
+    with native.build_lock("bvh_traverse"):
+        path = load(
+            name="aten_tpu_torch_bvh",
+            sources=list(SOURCES),
+            build_directory=build_dir,
+            extra_cflags=["-O3"],
+            extra_cuda_cflags=list(CUDA_FLAGS),
+            extra_include_paths=[KERNEL_DIR],
+            is_python_module=False,
+            verbose=verbose,
+        )
+    lib = ctypes.CDLL(path)
+    vp = ctypes.c_void_p
+    lib.aten_bvh_traverse.restype = ctypes.c_int
+    lib.aten_bvh_traverse.argtypes = (
+        [vp] * 12 + [ctypes.c_int32] + [vp] * 7
+        + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp])
+    lib.aten_cuda_error_string.restype = ctypes.c_char_p
+    lib.aten_cuda_error_string.argtypes = [ctypes.c_int]
+    _lib = lib
+    return lib
+
+
+_SCENE_FIELDS = (
+    ("nodes_bmin", torch.float32, 2), ("nodes_bmax", torch.float32, 2),
+    ("nodes_hit", torch.int32, 1), ("nodes_miss", torch.int32, 1),
+    ("nodes_prim_start", torch.int32, 1), ("nodes_prim_count", torch.int32, 1),
+    ("prim_order", torch.int32, 1), ("tri_v0", torch.float32, 2),
+    ("tri_e1", torch.float32, 2), ("tri_e2", torch.float32, 2),
+    ("sph_center", torch.float32, 2), ("sph_radius", torch.float32, 1),
+)
+
+
+def _checked(name, x, dtype, ndim, device):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, rays are on {device}")
+    if x.dtype != dtype or x.dim() != ndim or (ndim == 2 and x.shape[1] != 3):
+        raise ValueError(f"{name}: expected {dtype} with {ndim} dims "
+                         f"(rows of 3), got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return x.data_ptr()
+
+
+def bvh_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
+    """Closest (or any) hit of rays ro, rd [N,3] with t_max t0 [N] against
+    the scene's threaded BVH.  Returns (t, prim, u, v), each [N]."""
+    if ro.device.type == "cpu":
+        from aten_tpu_torch.accel.traverse import _traverse_plain
+
+        h = _traverse_plain(scene, ro, rd, t0, any_hit, t_min)
+        return h["t"], h["prim"], h["u"], h["v"]
+    if ro.device.type != "cuda":
+        raise ValueError(f"bvh_traverse: unsupported device {ro.device}")
+    dev = ro.device
+    n = ro.shape[0]
+    ptrs = [_checked(k, scene[k], dt, nd, dev) for k, dt, nd in _SCENE_FIELDS]
+    ro_p = _checked("ro", ro, torch.float32, 2, dev)
+    rd_p = _checked("rd", rd, torch.float32, 2, dev)
+    t0_p = _checked("t0", t0, torch.float32, 1, dev)
+    if rd.shape[0] != n or t0.shape[0] != n:
+        raise ValueError(f"ray counts differ: {n}, {rd.shape[0]}, {t0.shape[0]}")
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    u = torch.empty(n, dtype=torch.float32, device=dev)
+    v = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return t, prim, u, v
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.aten_bvh_traverse(
+            *ptrs, int(scene["num_tris"]), ro_p, rd_p, t0_p,
+            t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
+            n, float(t_min), int(any_hit), stream)
+    if rc != 0:
+        what = ("bad arguments" if rc < 0
+                else lib.aten_cuda_error_string(rc).decode())
+        raise RuntimeError(f"bvh_traverse launch failed ({rc}): {what}")
+    launch_counts[KERNELS[1] if any_hit else KERNELS[0]] += 1
+    return t, prim, u, v

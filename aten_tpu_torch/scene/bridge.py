@@ -1,0 +1,49 @@
+"""Bring a reference scene's arrays into the port.
+
+`from_numpy` takes the arrays of an `aten_tpu` SceneData, already turned
+into numpy by the caller (nested dicts for the material and light
+tables), and its static dict, and returns the port's Scene on `device`.
+It is how a test holds both packages to the identical scene without the
+port importing JAX.  The reference's TPU kernel layouts are dropped;
+features the port has not ported yet raise NotImplementedError.
+"""
+from __future__ import annotations
+
+from aten_tpu_torch.device import resolve_device
+from aten_tpu_torch.scene.scene import Scene, check_leaf_sizes, to_tensors
+
+# arrays the port uses
+PORT_KEYS = (
+    "tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
+    "tri_uv0", "tri_uv1", "tri_uv2", "tri_mtl", "tri_light", "tri_mesh",
+    "tri_area", "sph_center", "sph_radius", "sph_mtl", "sph_light",
+    "materials", "lights", "bg",
+    "nodes_bmin", "nodes_bmax", "nodes_hit", "nodes_miss",
+    "nodes_prim_start", "nodes_prim_count", "prim_order",
+)
+# TPU layouts (Pallas node/prim rows, the packed tri_attr gather table)
+TPU_LAYOUT_PREFIXES = ("pl_", "trl_", "tri_attr")
+STATIC_KEYS = (
+    "num_tris", "num_spheres", "num_lights", "num_instances", "has_alpha",
+    "has_stencil", "has_albedo_maps", "has_roughness_maps",
+    "has_normal_maps", "used_mtl_types",
+)
+
+
+def from_numpy(arrays: dict, static: dict, device) -> Scene:
+    dev = resolve_device(device)
+    unported = sorted(
+        k for k in arrays
+        if k not in PORT_KEYS and not k.startswith(TPU_LAYOUT_PREFIXES))
+    if unported:
+        raise NotImplementedError(f"scene arrays not ported yet: {unported}")
+    if static.get("has_voxel_lod"):
+        raise NotImplementedError("voxel LOD is not ported yet")
+    if static.get("num_instances", 0):
+        raise NotImplementedError("instanced scenes are not ported yet")
+    check_leaf_sizes(arrays["nodes_prim_count"])
+    lights = {k: v for k, v in arrays["lights"].items() if k != "num"}
+    picked = {k: arrays[k] for k in PORT_KEYS}
+    picked["lights"] = lights
+    return Scene(to_tensors(picked, dev),
+                 {k: static[k] for k in STATIC_KEYS}, dev)

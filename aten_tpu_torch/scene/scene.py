@@ -1,0 +1,317 @@
+"""Scene registry and the flat tensor scene.
+
+Counterpart of aten_tpu/scene/scene.py: `SceneBuilder` is the mutable
+host-side registry and `SceneBuilder.build(device)` freezes it into a
+`Scene` of torch tensors on one device plus static host fields, with the
+same keys, values and static flags as the reference's `SceneData`
+(minus the TPU kernel layouts, which the port does not use).
+
+Not ported yet (they raise NotImplementedError): envmaps, textures,
+participating media, instancing, and voxel LOD.  Alpha and stencil
+materials build, but the path tracer refuses scenes that use them.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from aten_tpu_torch.accel.build import LEAF_MAX, build_bvh
+from aten_tpu_torch.device import resolve_device
+from aten_tpu_torch.scene.lights import LightTable, LightType
+from aten_tpu_torch.scene.materials import MaterialTable, MaterialType
+
+
+class Scene:
+    """Frozen scene: dict-like access over tensors on `device` and
+    static host values (counts and feature flags)."""
+
+    def __init__(self, arrays: dict, static: dict, device: torch.device):
+        self._arrays = arrays
+        self._static = static
+        self.device = device
+
+    def __getitem__(self, k):
+        if k in self._arrays:
+            return self._arrays[k]
+        return self._static[k]
+
+    def get(self, k, default=None):
+        if k in self._arrays:
+            return self._arrays[k]
+        return self._static.get(k, default)
+
+    @property
+    def arrays(self):
+        return self._arrays
+
+    @property
+    def static(self):
+        return self._static
+
+
+def to_tensors(arrays: dict, device):
+    """numpy (possibly nested) dict -> the same dict of tensors on device."""
+    out = {}
+    for k, v in arrays.items():
+        if isinstance(v, dict):
+            out[k] = to_tensors(v, device)
+        else:
+            out[k] = torch.tensor(np.asarray(v), device=device)
+    return out
+
+
+def check_leaf_sizes(prim_count):
+    """The traversers test at most LEAF_MAX prims per leaf."""
+    if int(np.max(prim_count)) > LEAF_MAX:
+        raise ValueError(
+            f"BVH leaf holds {int(np.max(prim_count))} prims > LEAF_MAX={LEAF_MAX}")
+
+
+class SceneBuilder:
+    def __init__(self):
+        self.materials = MaterialTable()
+        self.lights = LightTable()
+        self._vpos = []  # per-mesh [V,3] float32 chunks
+        self._vnml = []
+        self._vuv = []
+        self._nverts = 0
+        self._faces = []  # per-mesh [F,4] int64 chunks (i0, i1, i2, mtl)
+        self._nfaces = 0
+        self._face_mesh = []  # per-mesh [F] mesh id chunks
+        self._tri_light = {}  # face index -> light id (default -1)
+        self._spheres = []  # (cx, cy, cz, r, mtl_id)
+        self._sph_light = []
+        self._mesh_counter = 0
+        self._bg = (0.0, 0.0, 0.0)
+
+    # -- materials ---------------------------------------------------------
+    def add_material(self, mtype: MaterialType, **kw) -> int:
+        return self.materials.add(mtype, **kw)
+
+    def add_texture(self, img) -> int:
+        raise NotImplementedError("textures are not ported yet")
+
+    def add_medium(self, **kw) -> int:
+        raise NotImplementedError("participating media are not ported yet")
+
+    def create_object(self) -> int:
+        raise NotImplementedError("instanced objects are not ported yet")
+
+    def add_instance(self, obj_id: int, l2w) -> int:
+        raise NotImplementedError("instanced objects are not ported yet")
+
+    # -- geometry ----------------------------------------------------------
+    def add_sphere(self, center, radius, mtl_id: int) -> int:
+        self._spheres.append((*map(float, center), float(radius), int(mtl_id)))
+        self._sph_light.append(-1)
+        return len(self._spheres) - 1
+
+    def add_mesh(self, pos, faces, mtl_id, nml=None, uv=None):
+        """Add an indexed triangle mesh. Returns (tri_start, tri_count).
+
+        pos [V,3]; faces [F,3] int; mtl_id scalar or [F]; nml [V,3] or
+        None (area-weighted from the faces); uv [V,2] or None.
+        """
+        pos = np.asarray(pos, np.float32).reshape(-1, 3)
+        faces = np.asarray(faces, np.int64).reshape(-1, 3)
+        if nml is None:
+            nml = np.zeros_like(pos)
+            fn = np.cross(
+                pos[faces[:, 1]] - pos[faces[:, 0]],
+                pos[faces[:, 2]] - pos[faces[:, 0]],
+            )
+            fl = np.linalg.norm(fn, axis=1, keepdims=True)
+            fn = fn / np.maximum(fl, 1e-20)
+            for a in range(3):
+                np.add.at(nml, faces[:, a], fn)
+            nml = nml / np.maximum(np.linalg.norm(nml, axis=1, keepdims=True), 1e-20)
+        nml = np.asarray(nml, np.float32).reshape(-1, 3)
+        if uv is None:
+            uv = np.zeros((len(pos), 2), np.float32)
+        uv = np.asarray(uv, np.float32).reshape(-1, 2)
+        base = self._nverts
+        self._vpos.append(pos)
+        self._vnml.append(nml)
+        self._vuv.append(uv)
+        self._nverts += len(pos)
+        mtl = np.broadcast_to(np.asarray(mtl_id, np.int64), (len(faces),))
+        self._faces.append(np.concatenate([faces + base, mtl[:, None]], axis=1))
+        self._face_mesh.append(np.full(len(faces), self._mesh_counter, np.int32))
+        self._mesh_counter += 1
+        tri_start = self._nfaces
+        self._nfaces += len(faces)
+        return tri_start, len(faces)
+
+    def add_quad(self, p0, p1, p2, p3, mtl_id: int):
+        """Two-triangle quad from 4 corners (ccw). Returns (tri_start, 2)."""
+        pos = np.asarray([p0, p1, p2, p3], np.float32)
+        return self.add_mesh(pos, [[0, 1, 2], [0, 2, 3]], mtl_id)
+
+    def _positions(self):
+        return (np.concatenate(self._vpos) if self._vpos
+                else np.zeros((0, 3), np.float32))
+
+    def _face_array(self):
+        return (np.concatenate(self._faces) if self._faces
+                else np.zeros((0, 4), np.int64))
+
+    # -- lights ------------------------------------------------------------
+    def add_area_light_tris(self, tri_start, tri_count, le) -> int:
+        pos = self._positions()
+        faces = self._face_array()
+        area = 0.0
+        for t in range(tri_start, tri_start + tri_count):
+            i0, i1, i2, _ = faces[t]
+            area += 0.5 * np.linalg.norm(
+                np.cross(pos[i1] - pos[i0], pos[i2] - pos[i0])
+            )
+        lid = self.lights.add(
+            LightType.AREA, le=le, obj_kind=0, tri_start=tri_start,
+            tri_count=tri_count, area=float(area),
+        )
+        for t in range(tri_start, tri_start + tri_count):
+            self._tri_light[t] = lid
+        return lid
+
+    def add_area_light_sphere(self, sphere_id, le) -> int:
+        r = self._spheres[sphere_id][3]
+        lid = self.lights.add(
+            LightType.AREA, le=le, obj_kind=1, sphere_id=sphere_id,
+            area=float(4.0 * np.pi * r * r),
+        )
+        self._sph_light[sphere_id] = lid
+        return lid
+
+    def add_point_light(self, pos, le) -> int:
+        return self.lights.add(LightType.POINT, le=le, pos=pos)
+
+    def add_spot_light(self, pos, dir, le, inner_angle, outer_angle) -> int:
+        return self.lights.add(
+            LightType.SPOT, le=le, pos=pos, dir=dir,
+            inner_angle=inner_angle, outer_angle=outer_angle,
+        )
+
+    def add_directional_light(self, dir, le) -> int:
+        return self.lights.add(LightType.DIRECTIONAL, le=le, dir=dir)
+
+    def set_envmap(self, img, add_light=True) -> None:
+        raise NotImplementedError("envmaps and IBL are not ported yet")
+
+    def set_background(self, color) -> None:
+        self._bg = tuple(float(c) for c in color)
+
+    # -- freeze ------------------------------------------------------------
+    def numpy_arrays(self):
+        """(arrays, static): the scene as numpy arrays (nested dicts for
+        the material and light tables) and static host values."""
+        vpos = self._positions()
+        vnml = (np.concatenate(self._vnml) if self._vnml
+                else np.zeros((0, 3), np.float32))
+        vuv = (np.concatenate(self._vuv) if self._vuv
+               else np.zeros((0, 2), np.float32))
+        faces = self._face_array()
+        num_tris = len(faces)
+        num_sph = len(self._spheres)
+        if num_tris + num_sph == 0:
+            raise ValueError("empty scene")
+
+        if num_tris > 0:
+            i0, i1, i2 = faces[:, 0], faces[:, 1], faces[:, 2]
+            tv0 = vpos[i0]
+            te1 = vpos[i1] - vpos[i0]
+            te2 = vpos[i2] - vpos[i0]
+            tn0, tn1, tn2 = vnml[i0], vnml[i1], vnml[i2]
+            tuv0, tuv1, tuv2 = vuv[i0], vuv[i1], vuv[i2]
+            tmtl = faces[:, 3].astype(np.int32)
+            tlight = np.full(num_tris, -1, np.int32)
+            for t, lid in self._tri_light.items():
+                tlight[t] = lid
+            tmesh = np.concatenate(self._face_mesh)
+            tarea = 0.5 * np.linalg.norm(np.cross(te1, te2), axis=1)
+        else:  # dummy row so indexing stays shaped
+            tv0 = np.zeros((1, 3), np.float32)
+            te1 = np.array([[1e-12, 0, 0]], np.float32)
+            te2 = np.array([[0, 1e-12, 0]], np.float32)
+            tn0 = tn1 = tn2 = np.array([[0, 0, 1]], np.float32)
+            tuv0 = tuv1 = tuv2 = np.zeros((1, 2), np.float32)
+            tmtl = np.zeros(1, np.int32)
+            tlight = np.full(1, -1, np.int32)
+            tmesh = np.full(1, -1, np.int32)
+            tarea = np.zeros(1, np.float32)
+
+        if num_sph > 0:
+            sc = np.asarray([s[:3] for s in self._spheres], np.float32)
+            sr = np.asarray([s[3] for s in self._spheres], np.float32)
+            smtl = np.asarray([s[4] for s in self._spheres], np.int32)
+            slight = np.asarray(self._sph_light, np.int32)
+        else:
+            sc = np.zeros((1, 3), np.float32)
+            sr = np.zeros(1, np.float32)
+            smtl = np.zeros(1, np.int32)
+            slight = np.full(1, -1, np.int32)
+
+        # primitive boxes: triangles, then spheres (global prim id space)
+        boxes_min, boxes_max = [], []
+        if num_tris > 0:
+            p0 = tv0
+            p1 = tv0 + te1
+            p2 = tv0 + te2
+            boxes_min.append(np.minimum(np.minimum(p0, p1), p2) - 1e-5)
+            boxes_max.append(np.maximum(np.maximum(p0, p1), p2) + 1e-5)
+        if num_sph > 0:
+            boxes_min.append(sc - sr[:, None] - 1e-5)
+            boxes_max.append(sc + sr[:, None] + 1e-5)
+        bvh = build_bvh(np.concatenate(boxes_min), np.concatenate(boxes_max))
+        check_leaf_sizes(bvh["nodes_prim_count"])
+
+        tri_areas = tarea[:num_tris] if num_tris else np.zeros(0, np.float32)
+        arrays = {
+            "tri_v0": tv0,
+            "tri_e1": te1,
+            "tri_e2": te2,
+            "tri_n0": tn0,
+            "tri_n1": tn1,
+            "tri_n2": tn2,
+            "tri_uv0": tuv0,
+            "tri_uv1": tuv1,
+            "tri_uv2": tuv2,
+            "tri_mtl": tmtl,
+            "tri_light": tlight,
+            "tri_mesh": tmesh,
+            "tri_area": tarea.astype(np.float32),
+            "sph_center": sc,
+            "sph_radius": sr,
+            "sph_mtl": smtl,
+            "sph_light": slight,
+            "materials": self.materials.numpy_arrays(),
+            "lights": self.lights.numpy_arrays(tri_areas),
+            "bg": np.asarray(self._bg, np.float32),
+            **bvh,
+        }
+        rows = self.materials.rows
+        if any(r[k] >= 0 for r in rows
+               for k in ("albedo_map", "normal_map", "roughness_map")):
+            raise NotImplementedError("texture maps are not ported yet")
+        if any(r["medium"] >= 0 for r in rows):
+            raise NotImplementedError("participating media are not ported yet")
+        static = {
+            "num_tris": num_tris,
+            "num_spheres": num_sph,
+            "num_lights": len(self.lights.rows),
+            "num_instances": 0,
+            "has_alpha": any(r["alpha"] < 1.0 for r in rows),
+            "has_stencil": any(r["stencil"] != 0.0 for r in rows),
+            "has_albedo_maps": False,
+            "has_roughness_maps": False,
+            "has_normal_maps": False,
+            "used_mtl_types": tuple(sorted(
+                {r["type"] for r in rows} | {int(MaterialType.DIFFUSE)}
+            )),
+        }
+        return arrays, static
+
+    def build(self, device) -> Scene:
+        """Freeze into a Scene on `device` (named explicitly)."""
+        dev = resolve_device(device)
+        arrays, static = self.numpy_arrays()
+        return Scene(to_tensors(arrays, dev), static, dev)

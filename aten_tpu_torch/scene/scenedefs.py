@@ -1,0 +1,125 @@
+"""Built-in test scenes.
+
+Counterpart of aten_tpu/scene/scenedefs.py.  Each scene is a `populate_*`
+function that fills any builder with the reference builder's interface
+(add_material, add_mesh, add_quad, add_sphere, add_area_light_tris,
+set_background) and returns the camera, plus a wrapper that builds the
+port's Scene on an explicit device.  The tests hand the same populate
+functions the reference `aten_tpu` builder, so both packages hold the
+identical scene.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from aten_tpu_torch.core.camera import PinholeCamera
+from aten_tpu_torch.scene.materials import MaterialType
+from aten_tpu_torch.scene.scene import SceneBuilder
+
+
+def populate_cornell_box(b, width, height, use_spheres=True):
+    """The classic Cornell box (reference scenedefs.py:17)."""
+    white = b.add_material(MaterialType.DIFFUSE, base_color=(0.73, 0.73, 0.73))
+    red = b.add_material(MaterialType.DIFFUSE, base_color=(0.65, 0.05, 0.05))
+    green = b.add_material(MaterialType.DIFFUSE, base_color=(0.12, 0.45, 0.15))
+    emit = b.add_material(MaterialType.EMISSIVE, base_color=(36.0, 33.0, 26.0))
+    mirror = b.add_material(MaterialType.SPECULAR, base_color=(0.99, 0.99, 0.99))
+    glass = b.add_material(MaterialType.REFRACTION, base_color=(0.99, 0.99, 0.99), ior=1.5)
+
+    s = 1.0  # half-size
+    b.add_quad([-s, -s, s], [s, -s, s], [s, -s, -s], [-s, -s, -s], white)
+    b.add_quad([-s, s, -s], [s, s, -s], [s, s, s], [-s, s, s], white)
+    b.add_quad([-s, -s, -s], [s, -s, -s], [s, s, -s], [-s, s, -s], white)
+    b.add_quad([-s, -s, s], [-s, -s, -s], [-s, s, -s], [-s, s, s], red)
+    b.add_quad([s, -s, -s], [s, -s, s], [s, s, s], [s, s, -s], green)
+    l = 0.35
+    ls, lc = b.add_quad(
+        [-l, s - 1e-3, l], [-l, s - 1e-3, -l], [l, s - 1e-3, -l], [l, s - 1e-3, l], emit
+    )
+    b.add_area_light_tris(ls, lc, le=(36.0, 33.0, 26.0))
+    if use_spheres:
+        b.add_sphere((-0.42, -0.65, -0.30), 0.35, mirror)
+        b.add_sphere((0.45, -0.65, 0.30), 0.35, glass)
+    return PinholeCamera(
+        origin=(0.0, 0.0, 3.45), lookat=(0.0, 0.0, 0.0), vfov_deg=45.0,
+        width=width, height=height,
+    )
+
+
+def cornell_box(width=512, height=512, use_spheres=True, *, device):
+    b = SceneBuilder()
+    cam = populate_cornell_box(b, width, height, use_spheres)
+    return b.build(device), cam
+
+
+def torus_knot_mesh(n_u=400, n_v=128, p=2, q=3, scale=0.65, tube=0.25,
+                    center=(0.0, 1.7, 0.0)):
+    """Closed (p, q) torus-knot tube: n_u rings of n_v vertices around the
+    knot curve, 2*n_u*n_v triangles.  Returns float32 pos [V,3], normals
+    [V,3], uv [V,2] and int64 faces [F,3], all from closed forms.
+
+    The knot lies in the xy plane (facing a camera on +z); its frame is
+    the curve's Frenet frame, well defined because a torus knot has no
+    point of zero curvature.
+    """
+    t = np.arange(n_u, dtype=np.float64) * (2.0 * np.pi / n_u)
+    r = 2.0 + np.cos(q * t)
+    c = np.stack([r * np.cos(p * t), r * np.sin(p * t), -np.sin(q * t)], -1)
+    dr = -q * np.sin(q * t)
+    d1 = np.stack([dr * np.cos(p * t) - p * r * np.sin(p * t),
+                   dr * np.sin(p * t) + p * r * np.cos(p * t),
+                   -q * np.cos(q * t)], -1)
+    ddr = -q * q * np.cos(q * t)
+    d2 = np.stack([ddr * np.cos(p * t) - 2 * p * dr * np.sin(p * t) - p * p * r * np.cos(p * t),
+                   ddr * np.sin(p * t) + 2 * p * dr * np.cos(p * t) - p * p * r * np.sin(p * t),
+                   q * q * np.sin(q * t)], -1)
+    tan = d1 / np.linalg.norm(d1, axis=1, keepdims=True)
+    nrm = d2 - np.sum(d2 * tan, axis=1, keepdims=True) * tan
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    bin_ = np.cross(tan, nrm)
+    phi = np.arange(n_v, dtype=np.float64) * (2.0 * np.pi / n_v)
+    ring = (np.cos(phi)[None, :, None] * nrm[:, None, :]
+            + np.sin(phi)[None, :, None] * bin_[:, None, :])  # [n_u, n_v, 3]
+    pos = (c[:, None, :] * scale + tube * ring) + np.asarray(center)
+    iu, iv = np.meshgrid(np.arange(n_u), np.arange(n_v), indexing="ij")
+    a = iu * n_v + iv
+    b = ((iu + 1) % n_u) * n_v + iv
+    cc = ((iu + 1) % n_u) * n_v + (iv + 1) % n_v
+    d = iu * n_v + (iv + 1) % n_v
+    faces = np.concatenate([
+        np.stack([a, b, cc], -1).reshape(-1, 3),
+        np.stack([a, cc, d], -1).reshape(-1, 3),
+    ]).astype(np.int64)
+    uv = np.stack([iu / n_u, iv / n_v], -1).reshape(-1, 2)
+    return (pos.reshape(-1, 3).astype(np.float32),
+            ring.reshape(-1, 3).astype(np.float32),
+            uv.astype(np.float32), faces)
+
+
+def populate_procedural_mesh_scene(b, width, height, n_u=400, n_v=128):
+    """The reference's dragon_scene (scenedefs.py:142-167) with the dragon
+    replaced by a torus-knot tube of 2*n_u*n_v triangles: GGX gold mesh,
+    grey floor, one quad area light, dim background."""
+    gold = b.add_material(
+        MaterialType.GGX, base_color=(0.95, 0.75, 0.35), roughness=0.25, ior=2.5
+    )
+    floor = b.add_material(MaterialType.DIFFUSE, base_color=(0.55, 0.55, 0.55))
+    emit = b.add_material(MaterialType.EMISSIVE, base_color=(26.0, 25.0, 23.0))
+    pos, nml, uv, faces = torus_knot_mesh(n_u, n_v)
+    b.add_mesh(pos, faces, gold, nml=nml, uv=uv)
+    ext = 30.0
+    b.add_quad([-ext, -0.6, ext], [ext, -0.6, ext], [ext, -0.6, -ext], [-ext, -0.6, -ext], floor)
+    ls, lc = b.add_quad([-4, 14, 4], [-4, 14, -4], [4, 14, -4], [4, 14, 4], emit)
+    b.add_area_light_tris(ls, lc, le=(26.0, 25.0, 23.0))
+    b.set_background((0.12, 0.14, 0.18))
+    return PinholeCamera(
+        origin=(0.0, 4.0, 14.0), lookat=(0.0, 1.5, 0.0), vfov_deg=40.0,
+        width=width, height=height,
+    )
+
+
+def procedural_mesh_scene(width=512, height=512, n_u=400, n_v=128, *, device):
+    """The slice fixture: 2*n_u*n_v + 4 prims (102,404 at the default)."""
+    b = SceneBuilder()
+    cam = populate_procedural_mesh_scene(b, width, height, n_u, n_v)
+    return b.build(device), cam

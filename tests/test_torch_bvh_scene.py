@@ -1,0 +1,129 @@
+"""aten_tpu_torch BVH build, scene build and bridge against aten_tpu.
+
+`build_bvh` must return the reference's arrays exactly (NumPy path up to
+512 prims, the C++ builder above), and `SceneBuilder.build()` /
+`bridge.from_numpy` must hold the same tables as the reference SceneData.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from aten_tpu.accel import build as jbuild
+from aten_tpu.scene import scenedefs as jdefs
+from aten_tpu.scene.scene import SceneBuilder as JaxSceneBuilder
+from aten_tpu_torch.accel import build as tbuild
+from aten_tpu_torch.scene import bridge
+from aten_tpu_torch.scene import scenedefs as tdefs
+from aten_tpu_torch.scene.materials import MaterialType
+from aten_tpu_torch.scene.scene import SceneBuilder
+
+# Tier-1 runs these files in parallel workers; torch's default of one
+# intra-op thread per core makes the workers' small ops contend.
+torch.set_num_threads(1)
+
+
+def _boxes(rng, n):
+    c = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    h = rng.uniform(0.01, 0.5, (n, 3)).astype(np.float32)
+    return c - h, c + h
+
+
+@pytest.mark.parametrize("n", [1, 5, 300, 512, 513, 3000])
+def test_build_bvh_matches_reference(n):
+    bmin, bmax = _boxes(np.random.default_rng(n), n)
+    ref = jbuild.build_bvh(bmin, bmax)
+    got = tbuild.build_bvh(bmin, bmax)
+    assert sorted(ref) == sorted(got)
+    for k in ref:
+        assert ref[k].dtype == got[k].dtype, k
+        np.testing.assert_array_equal(ref[k], got[k], err_msg=k)
+    assert got["nodes_prim_count"].max() <= tbuild.LEAF_MAX
+
+
+def _reference_scene(name):
+    """(reference SceneData, populate function args) for each scene."""
+    if name == "cornell":
+        return jdefs.cornell_box(64, 64)[0]
+    b = JaxSceneBuilder()
+    tdefs.populate_procedural_mesh_scene(b, 64, 64, n_u=48, n_v=16)
+    return b.build()
+
+
+def _port_scene(name):
+    if name == "cornell":
+        return tdefs.cornell_box(64, 64, device="cpu")[0]
+    return tdefs.procedural_mesh_scene(64, 64, n_u=48, n_v=16, device="cpu")[0]
+
+
+def _assert_tables_equal(ref_arrays, port_arrays, prefix=""):
+    for k, v in port_arrays.items():
+        r = ref_arrays[k]
+        if isinstance(v, dict):
+            _assert_tables_equal(r, v, prefix + k + ".")
+            continue
+        r = np.asarray(r)
+        got = v.numpy()
+        assert got.shape == r.shape, prefix + k
+        assert got.dtype == r.dtype, prefix + k
+        np.testing.assert_array_equal(got, r, err_msg=prefix + k)
+
+
+@pytest.mark.parametrize("name", ["cornell", "mesh1536"])
+def test_scene_build_matches_reference(name):
+    ref = _reference_scene(name)
+    port = _port_scene(name)
+    if name == "mesh1536":
+        assert port["num_tris"] == 1536 + 4  # knot + floor and light quads
+    _assert_tables_equal(ref.arrays, port.arrays)
+    for k, v in port.static.items():
+        assert ref.static[k] == v, k
+
+
+@pytest.mark.parametrize("name", ["cornell", "mesh1536"])
+def test_bridge_matches_reference_and_builder(name):
+    ref = _reference_scene(name)
+    arrays = jax.tree_util.tree_map(np.asarray, ref.arrays)
+    via_bridge = bridge.from_numpy(arrays, ref.static, "cpu")
+    _assert_tables_equal(ref.arrays, via_bridge.arrays)
+    port = _port_scene(name)
+    assert sorted(via_bridge.arrays) == sorted(port.arrays)
+    assert via_bridge.static == port.static
+    assert via_bridge.device == torch.device("cpu")
+
+
+def test_bridge_rejects_unported_features():
+    ref = jdefs.cornell_box(16, 16)[0]
+    arrays = jax.tree_util.tree_map(np.asarray, ref.arrays)
+    with pytest.raises(NotImplementedError):
+        bridge.from_numpy({**arrays, "envmap": np.zeros((2, 4, 3), np.float32)},
+                          ref.static, "cpu")
+    with pytest.raises(NotImplementedError):
+        bridge.from_numpy(arrays, {**ref.static, "has_voxel_lod": True}, "cpu")
+
+
+def test_builder_rejects_unported_features():
+    b = SceneBuilder()
+    for call in (lambda: b.set_envmap(np.ones((4, 8, 3), np.float32)),
+                 lambda: b.add_texture(np.ones((4, 4, 4), np.float32)),
+                 lambda: b.create_object(),
+                 lambda: b.add_medium(sigma_a=1.0)):
+        with pytest.raises(NotImplementedError):
+            call()
+    b.add_material(MaterialType.DIFFUSE, albedo_map=0)
+    b.add_quad([0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], 0)
+    with pytest.raises(NotImplementedError):
+        b.build("cpu")
+
+
+def test_cuda_device_without_card_raises():
+    from aten_tpu_torch.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device(None)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            resolve_device("cuda")
+        with pytest.raises(RuntimeError):
+            tdefs.cornell_box(8, 8, device="cuda")
