@@ -134,8 +134,12 @@ def _sah_split(bmin, bmax, cent, idx):
     return idx[lmask], idx[~lmask]
 
 
-def build_bvh(bmin: np.ndarray, bmax: np.ndarray, leaf_max: int = LEAF_MAX):
+def build_bvh(bmin: np.ndarray, bmax: np.ndarray, leaf_max: int = LEAF_MAX,
+              use_native: bool = True):
     """Threaded BVH arrays over P primitive boxes.
+
+    use_native=False keeps the NumPy build at any size, as the reference
+    builds its instance-level tree (accel/tlas.py).
 
     Returns numpy arrays: nodes_bmin/bmax [K,3] f32, nodes_hit/miss [K]
     i32, nodes_prim_start [K] i32 (-1 internal), nodes_prim_count [K]
@@ -146,7 +150,7 @@ def build_bvh(bmin: np.ndarray, bmax: np.ndarray, leaf_max: int = LEAF_MAX):
     P = bmin.shape[0]
     if P == 0:
         raise ValueError("build_bvh needs at least one primitive")
-    if P > NATIVE_MIN_PRIMS:
+    if use_native and P > NATIVE_MIN_PRIMS:
         return _build_bvh_native(bmin, bmax, leaf_max)
     cent = (bmin + bmax) * 0.5
 

@@ -14,6 +14,9 @@ implementations return the same {t, prim, u, v, hit}:
 * the CUDA kernel `ops/traverse_cuda.py::bvh_traverse`, one thread per
   ray walking the same links with the same arithmetic.
 
+Instanced scenes (those that carry `tl_bmin`) go to the two-level walk
+of accel/tlas.py before any of these, as in the reference (:153-158).
+
 Traversal is discrete structure: it reads its rays without gradients,
 as the reference stops them (traverse.py:169).
 """
@@ -110,11 +113,15 @@ def _traverse_dense(scene, ro, rd, t0, t_min):
     return {"t": t_best, "prim": prim, "u": ub, "v": vb, "hit": hit}
 
 
-def _traverse_plain(scene, ro, rd, t0, any_hit, t_min):
+def _traverse_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
     """The oracle's threaded walk (reference :189-351, without LOD) over
     the lanes still walking.  Each lane runs exactly the reference's
     per-lane steps; finished lanes are compacted away, which changes no
-    result.  Any-hit lanes stop after the leaf that found a hit."""
+    result.  Any-hit lanes stop after the leaf that found a hit.
+
+    With stats=True also returns {"node_steps", "prim_tests"}: box tests
+    and primitive tests summed over the lanes, the work these rays need
+    (the counterpart of the reference kernel's `stats` variant)."""
     dev = ro.device
     N = ro.shape[0]
     num_tris = scene["num_tris"]
@@ -143,7 +150,10 @@ def _traverse_plain(scene, ro, rd, t0, any_hit, t_min):
     prim = torch.full_like(lane, -1, dtype=torch.int32)
     u = torch.zeros_like(t)
     v = torch.zeros_like(t)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
     while lane.numel():
+        if stats:
+            counts[0] += lane.numel()
         ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
         rdx, rdy, rdz = d[:, 0], d[:, 1], d[:, 2]
         b0 = nbmin[cur]
@@ -162,6 +172,8 @@ def _traverse_plain(scene, ro, rd, t0, any_hit, t_min):
             valid = do_leaf & (k < pc)
             if not bool(valid.any()):
                 break
+            if stats:
+                counts[1] += valid.sum()
             pid = order[torch.clamp(ps + k, 0, P - 1)]
             is_tri = pid < num_tris
             tid = torch.clamp(pid, 0, T - 1)
@@ -194,8 +206,12 @@ def _traverse_plain(scene, ro, rd, t0, any_hit, t_min):
             keep = ~done
             lane, o, d, inv = lane[keep], o[keep], d[keep], inv[keep]
             t, cur, prim, u, v = t[keep], cur[keep], prim[keep], u[keep], v[keep]
-    return {"t": t_out, "prim": prim_out, "u": u_out, "v": v_out,
-            "hit": prim_out >= 0}
+    out = {"t": t_out, "prim": prim_out, "u": u_out, "v": v_out,
+           "hit": prim_out >= 0}
+    if stats:
+        n = counts.tolist()
+        return out, {"node_steps": n[0], "prim_tests": n[1]}
+    return out
 
 
 def traverse(scene, ro, rd, t_max=None, any_hit=False, t_min=1e-4, impl="auto"):
@@ -203,6 +219,7 @@ def traverse(scene, ro, rd, t_max=None, any_hit=False, t_min=1e-4, impl="auto"):
 
     Returns {t, prim, u, v, hit}, each [N]; prim is the global id
     (triangles first, then spheres), -1 on a miss, where t is t_max.
+    Instanced scenes add `inst` (accel/tlas.py::traverse_two_level).
 
     impl: "auto" takes the dense test for scenes of at most
     DENSE_MAX_PRIMS prims and otherwise the CUDA kernel (its plain
@@ -210,6 +227,11 @@ def traverse(scene, ro, rd, t_max=None, any_hit=False, t_min=1e-4, impl="auto"):
     """
     if impl not in ("auto", "dense", "plain", "cuda"):
         raise ValueError(f"unknown traversal impl {impl!r}")
+    if "tl_bmin" in scene:
+        from aten_tpu_torch.accel.tlas import traverse_two_level
+
+        return traverse_two_level(scene, ro, rd, t_max=t_max, any_hit=any_hit,
+                                  t_min=t_min, impl=impl)
     ro = ro.detach().contiguous()
     rd = rd.detach().contiguous()
     t0 = _t0_of(t_max, ro.shape[0], ro.device)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from aten_tpu_torch.accel.tlas import apply_affine
 from aten_tpu_torch.accel.traverse import occluded, traverse_sorted
 from aten_tpu_torch.core import camera as cam_mod
 from aten_tpu_torch.core import sampler as smp
@@ -50,7 +51,11 @@ def check_scene(scene):
 def eval_hit(scene, ro, rd, hit):
     """Hit attributes (EvaluateHitResult.h:10-72): position, shading and
     geometric normals, material and light id.  The reference's uv and
-    mesh id feed textures and SVGF, which are not ported yet."""
+    mesh id feed textures and SVGF, which are not ported yet.
+
+    On an instanced hit the prim data is object-local: the sphere normal
+    comes from the local position W2L*p, and both normals go to world
+    space through the instance's normal matrix (W2L^T), renormalised."""
     prim = hit["prim"]
     num_tris = scene["num_tris"]
     T = scene["tri_v0"].shape[0]
@@ -61,6 +66,13 @@ def eval_hit(scene, ro, rd, hit):
     # missed lanes carry t = INF; clamp so masked-out shading stays finite
     t_safe = torch.where(hit["hit"], hit["t"], 1.0)
     p = ro + t_safe[..., None] * rd
+    instanced = "inst_nmtx" in scene and hit.get("inst") is not None
+    if instanced:
+        iid = torch.where(hit["inst"] >= 0, hit["inst"], scene["num_instances"]).long()
+        p_loc = apply_affine(scene["inst_w2l"][iid], p[:, 0], p[:, 1], p[:, 2],
+                             translate=True)
+    else:
+        p_loc = p
 
     u = hit["u"][..., None]
     v = hit["v"][..., None]
@@ -72,13 +84,19 @@ def eval_hit(scene, ro, rd, hit):
 
     c = scene["sph_center"][sid]
     r = scene["sph_radius"][sid][..., None]
-    ns_sph = (p - c) / torch.clamp(r, min=1e-12)
+    ns_sph = (p_loc - c) / torch.clamp(r, min=1e-12)
 
     m3 = is_tri[..., None]
+    ns = torch.where(m3, ns_tri, ns_sph)
+    ng = torch.where(m3, ng_tri, ns_sph)
+    if instanced:
+        nmtx = scene["inst_nmtx"][iid]
+        ns = vm.normalize(apply_affine(nmtx, ns[:, 0], ns[:, 1], ns[:, 2], translate=False))
+        ng = vm.normalize(apply_affine(nmtx, ng[:, 0], ng[:, 1], ng[:, 2], translate=False))
     return {
         "p": p,
-        "ns": torch.where(m3, ns_tri, ns_sph),
-        "ng": torch.where(m3, ng_tri, ns_sph),
+        "ns": ns,
+        "ng": ng,
         "mtl": torch.where(is_tri, scene["tri_mtl"][tid], scene["sph_mtl"][sid]),
         "light": torch.where(is_tri, scene["tri_light"][tid], scene["sph_light"][sid]),
     }

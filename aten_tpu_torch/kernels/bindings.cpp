@@ -1,5 +1,5 @@
-// Plain C interface of the traversal kernel, loaded from Python with
-// ctypes (aten_tpu_torch/ops/traverse_cuda.py).  It includes no PyTorch
+// Plain C interface of the traversal kernels, loaded from Python with
+// ctypes (aten_tpu_torch/ops/traverse_cuda.py, ops/tlas_cuda.py).  It includes no PyTorch
 // header, so the whole library builds in seconds.  Pointers are device
 // addresses of contiguous tensors the caller has checked; `stream` is
 // the caller's current CUDA stream.
@@ -35,6 +35,35 @@ int aten_bvh_traverse(const float* nodes_bmin, const float* nodes_bmax,
   const aten_tpu_torch::RayView rays{ro, rd, t0, t, prim, u, v, n};
   return aten_tpu_torch::launch_bvh_traverse(bvh, rays, t_min, any_hit != 0,
                                              stream);
+}
+
+// The two-level walk; returns as aten_bvh_traverse does.
+int aten_tlas_traverse(const float* tl_bmin, const float* tl_bmax,
+                       const int32_t* tl_hit, const int32_t* tl_miss,
+                       const int32_t* tl_ps, const int32_t* tl_pc,
+                       const int32_t* tl_inst, const int32_t* tl_prim_order,
+                       const float* inst_w2l, const float* tri_v0,
+                       const float* tri_e1, const float* tri_e2,
+                       const float* sph_center, const float* sph_radius,
+                       int32_t num_tris, int32_t num_instances,
+                       const float* ro, const float* rd, const float* t0,
+                       float* t, int32_t* prim, int32_t* inst, float* u,
+                       float* v, int64_t n, float t_min, int32_t any_hit,
+                       void* stream) {
+  if (n < 0 || num_tris < 0 || num_instances <= 0) return -1;
+  if (n > 0 && (!ro || !rd || !t0 || !t || !prim || !inst || !u || !v))
+    return -1;
+  if (!tl_bmin || !tl_bmax || !tl_hit || !tl_miss || !tl_ps || !tl_pc ||
+      !tl_inst || !tl_prim_order || !inst_w2l || !tri_v0 || !tri_e1 ||
+      !tri_e2 || !sph_center || !sph_radius)
+    return -1;
+  const aten_tpu_torch::TlasView tlas{
+      tl_bmin, tl_bmax,  tl_hit, tl_miss, tl_ps,      tl_pc,
+      tl_inst, tl_prim_order, inst_w2l, tri_v0, tri_e1, tri_e2,
+      sph_center, sph_radius, num_tris, num_instances};
+  const aten_tpu_torch::TlasRayView rays{{ro, rd, t0, t, prim, u, v, n}, inst};
+  return aten_tpu_torch::launch_tlas_traverse(tlas, rays, t_min, any_hit != 0,
+                                              stream);
 }
 
 const char* aten_cuda_error_string(int code) {

@@ -26,55 +26,12 @@
 #include <cuda_runtime.h>
 
 #include "bvh_traverse.h"
+#include "traverse_device.cuh"
 
 namespace aten_tpu_torch {
 namespace {
 
 constexpr int kBlock = 128;
-
-// _safe_inv of the oracle: 1/d, or sign(d)*1e12 + 1e12 for |d| <= 1e-12.
-__device__ __forceinline__ float safe_inv(float d) {
-  if (fabsf(d) > 1e-12f) return 1.0f / d;
-  const float s = d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
-  return s * 1e12f + 1e12f;
-}
-
-__device__ __forceinline__ bool moller_trumbore(
-    const float* __restrict__ v0, const float* __restrict__ e1,
-    const float* __restrict__ e2, float ox, float oy, float oz, float dx,
-    float dy, float dz, float t_min, float& t, float& u, float& v) {
-  const float e1x = __ldg(e1), e1y = __ldg(e1 + 1), e1z = __ldg(e1 + 2);
-  const float e2x = __ldg(e2), e2y = __ldg(e2 + 1), e2z = __ldg(e2 + 2);
-  const float px = dy * e2z - dz * e2y;
-  const float py = dz * e2x - dx * e2z;
-  const float pz = dx * e2y - dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  if (!(fabsf(det) > 1e-12f)) return false;
-  const float inv = 1.0f / det;
-  const float sx = ox - __ldg(v0), sy = oy - __ldg(v0 + 1), sz = oz - __ldg(v0 + 2);
-  u = (sx * px + sy * py + sz * pz) * inv;
-  const float qx = sy * e1z - sz * e1y;
-  const float qy = sz * e1x - sx * e1z;
-  const float qz = sx * e1y - sy * e1x;
-  v = (dx * qx + dy * qy + dz * qz) * inv;
-  t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min;
-}
-
-__device__ __forceinline__ bool sphere(const float* __restrict__ c, float r,
-                                       float ox, float oy, float oz, float dx,
-                                       float dy, float dz, float t_min,
-                                       float& t) {
-  const float sx = ox - __ldg(c), sy = oy - __ldg(c + 1), sz = oz - __ldg(c + 2);
-  const float b = sx * dx + sy * dy + sz * dz;
-  const float cq = sx * sx + sy * sy + sz * sz - r * r;
-  const float disc = b * b - cq;
-  const float sq = sqrtf(fmaxf(disc, 0.0f));
-  const float ta = -b - sq;
-  const float tb = -b + sq;
-  t = ta > t_min ? ta : tb;
-  return disc > 0.0f && t > t_min;
-}
 
 template <bool kAnyHit>
 __global__ void __launch_bounds__(kBlock)
@@ -91,16 +48,7 @@ __global__ void __launch_bounds__(kBlock)
   // a ray with t0 <= t_min can never hit (any prim needs t_min < t < t0)
   int32_t cur = t0 > t_min ? 0 : -1;
   while (cur >= 0) {
-    const float* lo = b.nodes_bmin + 3 * cur;
-    const float* hi = b.nodes_bmax + 3 * cur;
-    const float tx0 = (__ldg(lo) - ox) * ix, tx1 = (__ldg(hi) - ox) * ix;
-    const float ty0 = (__ldg(lo + 1) - oy) * iy, ty1 = (__ldg(hi + 1) - oy) * iy;
-    const float tz0 = (__ldg(lo + 2) - oz) * iz, tz1 = (__ldg(hi + 2) - oz) * iz;
-    const float t_enter =
-        fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
-    const float t_exit =
-        fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
-    if (!(t_enter <= t_exit && t_exit > 0.0f && t_enter < t)) {
+    if (!slab_hit(b.nodes_bmin, b.nodes_bmax, cur, ox, oy, oz, ix, iy, iz, t)) {
       cur = __ldg(b.nodes_miss + cur);
       continue;
     }

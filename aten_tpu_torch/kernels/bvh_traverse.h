@@ -1,5 +1,6 @@
-// Shared declarations of the threaded-BVH traversal kernel
-// (bvh_traverse.cu) and its C interface (bindings.cpp).
+// Shared declarations of the traversal kernels (bvh_traverse.cu, the
+// threaded BVH; tlas_traverse.cu, the two-level instanced pool) and
+// their C interface (bindings.cpp).
 #pragma once
 
 #include <cstdint>
@@ -38,6 +39,36 @@ struct RayView {
 // Enqueues the walk on `stream`; returns the cudaError_t of the launch.
 int launch_bvh_traverse(const BvhView& bvh, const RayView& rays,
                         float t_min, bool any_hit, void* stream);
+
+// The two-level pool of accel/tlas.py::build_two_level; device pointers.
+struct TlasView {
+  const float* tl_bmin;         // [K,3]
+  const float* tl_bmax;         // [K,3]
+  const int32_t* tl_hit;        // [K] next node when the box is hit; -1
+                                //     done, -2 back to the top level
+  const int32_t* tl_miss;       // [K] next node when it is missed
+  const int32_t* tl_ps;         // [K] BLAS leaf range start, else -1
+  const int32_t* tl_pc;         // [K] <= LEAF_MAX
+  const int32_t* tl_inst;       // [K] instance at TLAS leaves, else -1
+  const int32_t* tl_prim_order;  // [P] leaf ranges -> global prim id
+  const float* inst_w2l;        // [I+1,3,4] world-to-local rows
+  const float* tri_v0;          // [T,3] object-local
+  const float* tri_e1;          // [T,3]
+  const float* tri_e2;          // [T,3]
+  const float* sph_center;      // [S,3]
+  const float* sph_radius;      // [S]
+  int32_t num_tris;             // prims below this id are triangles
+  int32_t num_instances;        // I
+};
+
+// RayView plus the instance of each hit.
+struct TlasRayView {
+  RayView ray;
+  int32_t* inst;  // [n] out: instance of the winner, -1 on a miss
+};
+
+int launch_tlas_traverse(const TlasView& tlas, const TlasRayView& rays,
+                         float t_min, bool any_hit, void* stream);
 
 const char* cuda_error_string(int code);
 

@@ -1,0 +1,85 @@
+"""Wrapper of the hand-written CUDA two-level traversal kernel.
+
+`tlas_traverse` runs the instanced walk of kernels/tlas_traverse.cu
+(closest-hit and any-hit instantiations) on CUDA tensors.  It replaces
+the TPU instanced-treelet kernel `_make_tlas_treelet_kernel`
+(aten_tpu/ops/traverse_pallas.py:1750, entry `traverse_pallas_tlas`).
+Its arguments are checked on every device; for tensors on the CPU it
+then runs the kernel's plain version,
+accel/tlas.py::_traverse_two_level_plain, and on a CUDA tensor it
+launches the kernel or raises, never falling back.  The kernel lives in
+the library of ops/traverse_cuda.py.
+"""
+from __future__ import annotations
+
+import torch
+
+from aten_tpu_torch.ops.traverse_cuda import _checked, load_library
+
+KERNELS = ("tlas_traverse_closest", "tlas_traverse_any")
+
+# Launches per kernel instantiation since the last reset: the one place
+# that adds to a count is the line after a successful launch below.
+launch_counts = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launch_counts():
+    for k in KERNELS:
+        launch_counts[k] = 0
+
+
+# (name, dtype, trailing shape) of each scene array the kernel reads
+_SCENE_FIELDS = (
+    ("tl_bmin", torch.float32, (3,)), ("tl_bmax", torch.float32, (3,)),
+    ("tl_hit", torch.int32, ()), ("tl_miss", torch.int32, ()),
+    ("tl_ps", torch.int32, ()), ("tl_pc", torch.int32, ()),
+    ("tl_inst", torch.int32, ()), ("tl_prim_order", torch.int32, ()),
+    ("inst_w2l", torch.float32, (3, 4)), ("tri_v0", torch.float32, (3,)),
+    ("tri_e1", torch.float32, (3,)), ("tri_e2", torch.float32, (3,)),
+    ("sph_center", torch.float32, (3,)), ("sph_radius", torch.float32, ()),
+)
+
+
+def tlas_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
+    """Closest (or any) hit of rays ro, rd [N,3] with t_max t0 [N]
+    against the scene's two-level pool.  Returns (t, prim, inst, u, v),
+    each [N]."""
+    dev = ro.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"tlas_traverse: unsupported device {dev}")
+    n = ro.shape[0]
+    ptrs = [_checked(k, scene[k], dt, tail, dev) for k, dt, tail in _SCENE_FIELDS]
+    ro_p = _checked("ro", ro, torch.float32, (3,), dev)
+    rd_p = _checked("rd", rd, torch.float32, (3,), dev)
+    t0_p = _checked("t0", t0, torch.float32, (), dev)
+    if rd.shape[0] != n or t0.shape[0] != n:
+        raise ValueError(f"ray counts differ: {n}, {rd.shape[0]}, {t0.shape[0]}")
+    n_inst = int(scene["num_instances"])
+    if n_inst <= 0 or scene["inst_w2l"].shape[0] != n_inst + 1:
+        raise ValueError(f"inst_w2l holds {scene['inst_w2l'].shape[0]} rows "
+                         f"for {n_inst} instances (expected instances + 1)")
+    if dev.type == "cpu":
+        from aten_tpu_torch.accel.tlas import _traverse_two_level_plain
+
+        h = _traverse_two_level_plain(scene, ro, rd, t0, any_hit, t_min)
+        return h["t"], h["prim"], h["inst"], h["u"], h["v"]
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    inst = torch.empty(n, dtype=torch.int32, device=dev)
+    u = torch.empty(n, dtype=torch.float32, device=dev)
+    v = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return t, prim, inst, u, v
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.aten_tlas_traverse(
+            *ptrs, int(scene["num_tris"]), n_inst, ro_p, rd_p, t0_p,
+            t.data_ptr(), prim.data_ptr(), inst.data_ptr(), u.data_ptr(),
+            v.data_ptr(), n, float(t_min), int(any_hit), stream)
+    if rc != 0:
+        what = ("bad arguments" if rc < 0
+                else lib.aten_cuda_error_string(rc).decode())
+        raise RuntimeError(f"tlas_traverse launch failed ({rc}): {what}")
+    launch_counts[KERNELS[1] if any_hit else KERNELS[0]] += 1
+    return t, prim, inst, u, v

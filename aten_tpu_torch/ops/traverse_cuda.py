@@ -9,7 +9,8 @@ For tensors on the CPU it runs the kernel's plain version,
 accel/traverse.py::_traverse_plain; on a CUDA tensor it launches the
 kernel or raises, never falling back.
 
-The library is built at first use from the repository's sources with
+The library, which also holds the two-level kernel of ops/tlas_cuda.py,
+is built at first use from the repository's sources with
 torch.utils.cpp_extension.load into build/aten_tpu_torch/, for sm_90a,
 with --fmad=false, under a file lock.  Its interface is plain C
 (kernels/bindings.cpp), loaded with ctypes.
@@ -25,6 +26,7 @@ from aten_tpu_torch import native
 
 KERNEL_DIR = os.path.join(native.REPO_ROOT, "aten_tpu_torch", "kernels")
 SOURCES = (os.path.join(KERNEL_DIR, "bvh_traverse.cu"),
+           os.path.join(KERNEL_DIR, "tlas_traverse.cu"),
            os.path.join(KERNEL_DIR, "bindings.cpp"))
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
               "-Xptxas=-v")
@@ -43,7 +45,8 @@ def reset_launch_counts():
 
 
 def load_library(verbose=False):
-    """Build (if its sources changed) and load the kernel library."""
+    """Build (if its sources changed) and load the kernel library of
+    both traversal kernels."""
     global _lib
     if _lib is not None:
         return _lib
@@ -68,28 +71,35 @@ def load_library(verbose=False):
     lib.aten_bvh_traverse.argtypes = (
         [vp] * 12 + [ctypes.c_int32] + [vp] * 7
         + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp])
+    lib.aten_tlas_traverse.restype = ctypes.c_int
+    lib.aten_tlas_traverse.argtypes = (
+        [vp] * 14 + [ctypes.c_int32] * 2 + [vp] * 8
+        + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp])
     lib.aten_cuda_error_string.restype = ctypes.c_char_p
     lib.aten_cuda_error_string.argtypes = [ctypes.c_int]
     _lib = lib
     return lib
 
 
+# (name, dtype, trailing shape) of each scene array the kernel reads
 _SCENE_FIELDS = (
-    ("nodes_bmin", torch.float32, 2), ("nodes_bmax", torch.float32, 2),
-    ("nodes_hit", torch.int32, 1), ("nodes_miss", torch.int32, 1),
-    ("nodes_prim_start", torch.int32, 1), ("nodes_prim_count", torch.int32, 1),
-    ("prim_order", torch.int32, 1), ("tri_v0", torch.float32, 2),
-    ("tri_e1", torch.float32, 2), ("tri_e2", torch.float32, 2),
-    ("sph_center", torch.float32, 2), ("sph_radius", torch.float32, 1),
+    ("nodes_bmin", torch.float32, (3,)), ("nodes_bmax", torch.float32, (3,)),
+    ("nodes_hit", torch.int32, ()), ("nodes_miss", torch.int32, ()),
+    ("nodes_prim_start", torch.int32, ()), ("nodes_prim_count", torch.int32, ()),
+    ("prim_order", torch.int32, ()), ("tri_v0", torch.float32, (3,)),
+    ("tri_e1", torch.float32, (3,)), ("tri_e2", torch.float32, (3,)),
+    ("sph_center", torch.float32, (3,)), ("sph_radius", torch.float32, ()),
 )
 
 
-def _checked(name, x, dtype, ndim, device):
+def _checked(name, x, dtype, tail, device):
+    """x's data pointer, after checking its device, dtype, trailing
+    shape `tail` (x is [n, *tail]) and contiguity."""
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, rays are on {device}")
-    if x.dtype != dtype or x.dim() != ndim or (ndim == 2 and x.shape[1] != 3):
-        raise ValueError(f"{name}: expected {dtype} with {ndim} dims "
-                         f"(rows of 3), got {x.dtype} {tuple(x.shape)}")
+    if x.dtype != dtype or x.dim() != 1 + len(tail) or tuple(x.shape[1:]) != tail:
+        raise ValueError(f"{name}: expected {dtype} [n, {tail}], "
+                         f"got {x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     return x.data_ptr()
@@ -107,10 +117,10 @@ def bvh_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
         raise ValueError(f"bvh_traverse: unsupported device {ro.device}")
     dev = ro.device
     n = ro.shape[0]
-    ptrs = [_checked(k, scene[k], dt, nd, dev) for k, dt, nd in _SCENE_FIELDS]
-    ro_p = _checked("ro", ro, torch.float32, 2, dev)
-    rd_p = _checked("rd", rd, torch.float32, 2, dev)
-    t0_p = _checked("t0", t0, torch.float32, 1, dev)
+    ptrs = [_checked(k, scene[k], dt, tail, dev) for k, dt, tail in _SCENE_FIELDS]
+    ro_p = _checked("ro", ro, torch.float32, (3,), dev)
+    rd_p = _checked("rd", rd, torch.float32, (3,), dev)
+    t0_p = _checked("t0", t0, torch.float32, (), dev)
     if rd.shape[0] != n or t0.shape[0] != n:
         raise ValueError(f"ray counts differ: {n}, {rd.shape[0]}, {t0.shape[0]}")
     t = torch.empty(n, dtype=torch.float32, device=dev)

@@ -4,8 +4,10 @@
 into numpy by the caller (nested dicts for the material and light
 tables), and its static dict, and returns the port's Scene on `device`.
 It is how a test holds both packages to the identical scene without the
-port importing JAX.  The reference's TPU kernel layouts are dropped;
-features the port has not ported yet raise NotImplementedError.
+port importing JAX.  Instanced scenes come with their two-level pool
+(`tl_*`, `inst_*`) in place of the single-level BVH.  The reference's
+TPU kernel layouts are dropped; features the port has not ported yet
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -18,11 +20,19 @@ PORT_KEYS = (
     "tri_uv0", "tri_uv1", "tri_uv2", "tri_mtl", "tri_light", "tri_mesh",
     "tri_area", "sph_center", "sph_radius", "sph_mtl", "sph_light",
     "materials", "lights", "bg",
+)
+# the single-level BVH, or the two-level pool of an instanced scene
+BVH_KEYS = (
     "nodes_bmin", "nodes_bmax", "nodes_hit", "nodes_miss",
     "nodes_prim_start", "nodes_prim_count", "prim_order",
 )
-# TPU layouts (Pallas node/prim rows, the packed tri_attr gather table)
-TPU_LAYOUT_PREFIXES = ("pl_", "trl_", "tri_attr")
+TWO_LEVEL_KEYS = (
+    "tl_bmin", "tl_bmax", "tl_hit", "tl_miss", "tl_ps", "tl_pc", "tl_inst",
+    "tl_prim_order", "inst_obj", "inst_w2l", "inst_nmtx", "inst_l2w",
+)
+# TPU layouts (Pallas node/prim rows, the instanced tt_ rows, the packed
+# tri_attr gather table)
+TPU_LAYOUT_PREFIXES = ("pl_", "trl_", "tt_", "tri_attr")
 STATIC_KEYS = (
     "num_tris", "num_spheres", "num_lights", "num_instances", "has_alpha",
     "has_stencil", "has_albedo_maps", "has_roughness_maps",
@@ -32,18 +42,17 @@ STATIC_KEYS = (
 
 def from_numpy(arrays: dict, static: dict, device) -> Scene:
     dev = resolve_device(device)
+    keys = PORT_KEYS + (TWO_LEVEL_KEYS if "tl_bmin" in arrays else BVH_KEYS)
     unported = sorted(
         k for k in arrays
-        if k not in PORT_KEYS and not k.startswith(TPU_LAYOUT_PREFIXES))
+        if k not in keys and not k.startswith(TPU_LAYOUT_PREFIXES))
     if unported:
         raise NotImplementedError(f"scene arrays not ported yet: {unported}")
     if static.get("has_voxel_lod"):
         raise NotImplementedError("voxel LOD is not ported yet")
-    if static.get("num_instances", 0):
-        raise NotImplementedError("instanced scenes are not ported yet")
-    check_leaf_sizes(arrays["nodes_prim_count"])
+    check_leaf_sizes(arrays["tl_pc" if "tl_bmin" in arrays else "nodes_prim_count"])
     lights = {k: v for k, v in arrays["lights"].items() if k != "num"}
-    picked = {k: arrays[k] for k in PORT_KEYS}
+    picked = {k: arrays[k] for k in keys}
     picked["lights"] = lights
     return Scene(to_tensors(picked, dev),
                  {k: static[k] for k in STATIC_KEYS}, dev)

@@ -6,8 +6,11 @@ host-side registry and `SceneBuilder.build(device)` freezes it into a
 same keys, values and static flags as the reference's `SceneData`
 (minus the TPU kernel layouts, which the port does not use).
 
+Instanced objects (`create_object`, `add_instance`, `obj=` on the
+geometry adds) build the two-level pool of accel/tlas.py.
+
 Not ported yet (they raise NotImplementedError): envmaps, textures,
-participating media, instancing, and voxel LOD.  Alpha and stencil
+participating media, and voxel LOD.  Alpha and stencil
 materials build, but the path tracer refuses scenes that use them.
 """
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from aten_tpu_torch.accel.build import LEAF_MAX, build_bvh
+from aten_tpu_torch.accel.tlas import build_two_level
 from aten_tpu_torch.device import resolve_device
 from aten_tpu_torch.scene.lights import LightTable, LightType
 from aten_tpu_torch.scene.materials import MaterialTable, MaterialType
@@ -39,6 +43,9 @@ class Scene:
         if k in self._arrays:
             return self._arrays[k]
         return self._static.get(k, default)
+
+    def __contains__(self, k):
+        return k in self._arrays or k in self._static
 
     @property
     def arrays(self):
@@ -78,10 +85,14 @@ class SceneBuilder:
         self._faces = []  # per-mesh [F,4] int64 chunks (i0, i1, i2, mtl)
         self._nfaces = 0
         self._face_mesh = []  # per-mesh [F] mesh id chunks
+        self._face_obj = []  # per-mesh [F] object id chunks (-1 = world)
         self._tri_light = {}  # face index -> light id (default -1)
         self._spheres = []  # (cx, cy, cz, r, mtl_id)
         self._sph_light = []
+        self._sph_obj = []
         self._mesh_counter = 0
+        self._num_objects = 0
+        self._instances = []  # (obj_id, l2w 4x4)
         self._bg = (0.0, 0.0, 0.0)
 
     # -- materials ---------------------------------------------------------
@@ -94,23 +105,34 @@ class SceneBuilder:
     def add_medium(self, **kw) -> int:
         raise NotImplementedError("participating media are not ported yet")
 
+    # -- objects / instances (two-level TLAS/BLAS) -------------------------
     def create_object(self) -> int:
-        raise NotImplementedError("instanced objects are not ported yet")
+        """New instanceable object; pass it as obj= to the geometry adds,
+        whose coordinates are then object-local."""
+        self._num_objects += 1
+        return self._num_objects - 1
 
     def add_instance(self, obj_id: int, l2w) -> int:
-        raise NotImplementedError("instanced objects are not ported yet")
+        """Instance `obj_id` with a 4x4 local-to-world transform."""
+        if not 0 <= obj_id < self._num_objects:
+            raise ValueError(f"no object {obj_id}")
+        m = np.asarray(l2w, np.float32).reshape(4, 4)
+        self._instances.append((int(obj_id), m))
+        return len(self._instances) - 1
 
     # -- geometry ----------------------------------------------------------
-    def add_sphere(self, center, radius, mtl_id: int) -> int:
+    def add_sphere(self, center, radius, mtl_id: int, obj: int | None = None) -> int:
         self._spheres.append((*map(float, center), float(radius), int(mtl_id)))
         self._sph_light.append(-1)
+        self._sph_obj.append(-1 if obj is None else int(obj))
         return len(self._spheres) - 1
 
-    def add_mesh(self, pos, faces, mtl_id, nml=None, uv=None):
+    def add_mesh(self, pos, faces, mtl_id, nml=None, uv=None, obj=None):
         """Add an indexed triangle mesh. Returns (tri_start, tri_count).
 
         pos [V,3]; faces [F,3] int; mtl_id scalar or [F]; nml [V,3] or
-        None (area-weighted from the faces); uv [V,2] or None.
+        None (area-weighted from the faces); uv [V,2] or None; obj the
+        object the faces belong to (None: world geometry).
         """
         pos = np.asarray(pos, np.float32).reshape(-1, 3)
         faces = np.asarray(faces, np.int64).reshape(-1, 3)
@@ -137,15 +159,17 @@ class SceneBuilder:
         mtl = np.broadcast_to(np.asarray(mtl_id, np.int64), (len(faces),))
         self._faces.append(np.concatenate([faces + base, mtl[:, None]], axis=1))
         self._face_mesh.append(np.full(len(faces), self._mesh_counter, np.int32))
+        self._face_obj.append(np.full(len(faces), -1 if obj is None else int(obj),
+                                      np.int64))
         self._mesh_counter += 1
         tri_start = self._nfaces
         self._nfaces += len(faces)
         return tri_start, len(faces)
 
-    def add_quad(self, p0, p1, p2, p3, mtl_id: int):
+    def add_quad(self, p0, p1, p2, p3, mtl_id: int, obj=None):
         """Two-triangle quad from 4 corners (ccw). Returns (tri_start, 2)."""
         pos = np.asarray([p0, p1, p2, p3], np.float32)
-        return self.add_mesh(pos, [[0, 1, 2], [0, 2, 3]], mtl_id)
+        return self.add_mesh(pos, [[0, 1, 2], [0, 2, 3]], mtl_id, obj=obj)
 
     def _positions(self):
         return (np.concatenate(self._vpos) if self._vpos
@@ -156,7 +180,16 @@ class SceneBuilder:
                 else np.zeros((0, 4), np.int64))
 
     # -- lights ------------------------------------------------------------
+    def _face_objects(self):
+        return (np.concatenate(self._face_obj) if self._face_obj
+                else np.zeros(0, np.int64))
+
     def add_area_light_tris(self, tri_start, tri_count, le) -> int:
+        if (self._face_objects()[tri_start : tri_start + tri_count] >= 0).any():
+            raise ValueError(
+                "area lights on instanced objects are not supported (light "
+                "sampling would need per-instance L2W); add the emitter as "
+                "world geometry")
         pos = self._positions()
         faces = self._face_array()
         area = 0.0
@@ -261,8 +294,16 @@ class SceneBuilder:
         if num_sph > 0:
             boxes_min.append(sc - sr[:, None] - 1e-5)
             boxes_max.append(sc + sr[:, None] + 1e-5)
-        bvh = build_bvh(np.concatenate(boxes_min), np.concatenate(boxes_max))
-        check_leaf_sizes(bvh["nodes_prim_count"])
+        all_bmin = np.concatenate(boxes_min)
+        all_bmax = np.concatenate(boxes_max)
+        if self._instances:
+            bvh = self._two_level(all_bmin, all_bmax)
+            check_leaf_sizes(bvh["tl_pc"])
+            num_instances = bvh["inst_obj"].shape[0]
+        else:
+            bvh = build_bvh(all_bmin, all_bmax)
+            check_leaf_sizes(bvh["nodes_prim_count"])
+            num_instances = 0
 
         tri_areas = tarea[:num_tris] if num_tris else np.zeros(0, np.float32)
         arrays = {
@@ -298,7 +339,7 @@ class SceneBuilder:
             "num_tris": num_tris,
             "num_spheres": num_sph,
             "num_lights": len(self.lights.rows),
-            "num_instances": 0,
+            "num_instances": num_instances,
             "has_alpha": any(r["alpha"] < 1.0 for r in rows),
             "has_stencil": any(r["stencil"] != 0.0 for r in rows),
             "has_albedo_maps": False,
@@ -309,6 +350,28 @@ class SceneBuilder:
             )),
         }
         return arrays, static
+
+    def _two_level(self, all_bmin, all_bmax):
+        """Two-level pool (reference scene.py:316-348): prims grouped per
+        object; world geometry becomes one more object with an identity
+        instance, counted in num_instances."""
+        prim_obj = np.concatenate([
+            self._face_objects(), np.asarray(self._sph_obj, np.int64)])
+        instances = list(self._instances)
+        n_obj = self._num_objects
+        if (prim_obj < 0).any():
+            prim_obj = np.where(prim_obj < 0, n_obj, prim_obj)
+            instances.append((n_obj, np.eye(4, dtype=np.float32)))
+            n_obj += 1
+        obj_prim_boxes = []
+        for o in range(n_obj):
+            pids = np.nonzero(prim_obj == o)[0].astype(np.int32)
+            if len(pids) == 0:
+                raise ValueError(f"object {o} has no geometry")
+            obj_prim_boxes.append((all_bmin[pids], all_bmax[pids], pids))
+        return build_two_level(
+            obj_prim_boxes, np.asarray([i[0] for i in instances], np.int32),
+            np.stack([i[1] for i in instances]))
 
     def build(self, device) -> Scene:
         """Freeze into a Scene on `device` (named explicitly)."""

@@ -123,3 +123,67 @@ def procedural_mesh_scene(width=512, height=512, n_u=400, n_v=128, *, device):
     b = SceneBuilder()
     cam = populate_procedural_mesh_scene(b, width, height, n_u, n_v)
     return b.build(device), cam
+
+
+def _l2w(translate, rot_y=0.0, scale=(1.0, 1.0, 1.0)):
+    """4x4 local-to-world T * R_y * S as float32."""
+    c, s = np.cos(rot_y), np.sin(rot_y)
+    r = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+    m = np.eye(4)
+    m[:3, :3] = r * np.asarray(scale, np.float64)[None, :]
+    m[:3, 3] = translate
+    return m.astype(np.float32)
+
+
+def populate_instanced_mesh_scene(b, width, height, n_u=400, n_v=128):
+    """The mesh scene's setting around an instanced field.
+
+    World geometry: the grey floor, the quad area light and the dim
+    background of `populate_procedural_mesh_scene`.  Object A, the
+    torus-knot tube of 2*n_u*n_v triangles in object-local coordinates
+    (GGX gold), stands 16 times on a 4x4 grid, each instance with its own
+    rotation about y and uniform scale in [0.5, 0.8].  Object B, one
+    analytic glass sphere, is instanced twice, once with a non-uniform
+    scale (an ellipsoid, whose normals need the instance normal matrix).
+    19 instances with the world's identity instance; 2*n_u*n_v + 5 prims.
+    """
+    gold = b.add_material(
+        MaterialType.GGX, base_color=(0.95, 0.75, 0.35), roughness=0.25, ior=2.5
+    )
+    floor = b.add_material(MaterialType.DIFFUSE, base_color=(0.55, 0.55, 0.55))
+    emit = b.add_material(MaterialType.EMISSIVE, base_color=(26.0, 25.0, 23.0))
+    glass = b.add_material(MaterialType.REFRACTION, base_color=(0.99, 0.99, 0.99),
+                           ior=1.5)
+    knot = b.create_object()
+    pos, nml, uv, faces = torus_knot_mesh(n_u, n_v, center=(0.0, 0.0, 0.0))
+    b.add_mesh(pos, faces, gold, nml=nml, uv=uv, obj=knot)
+    ext = 30.0
+    b.add_quad([-ext, -0.6, ext], [ext, -0.6, ext], [ext, -0.6, -ext], [-ext, -0.6, -ext], floor)
+    ls, lc = b.add_quad([-4, 14, 4], [-4, 14, -4], [4, 14, -4], [4, 14, 4], emit)
+    b.add_area_light_tris(ls, lc, le=(26.0, 25.0, 23.0))
+    b.set_background((0.12, 0.14, 0.18))
+    ball = b.create_object()
+    b.add_sphere((0.0, 0.0, 0.0), 1.0, glass, obj=ball)
+
+    # the knot reaches 2.2 units from its centre in x and y (tube radius
+    # 0.25 around a curve of radius <= 3 * 0.65), so a centre at
+    # y = -0.6 + 2.2 s sets an instance of scale s on the floor
+    for k in range(16):
+        i, j = divmod(k, 4)
+        s = 0.5 + 0.3 * ((5 * k) % 16) / 15.0
+        b.add_instance(knot, _l2w((4.5 * j - 6.75, -0.6 + 2.2 * s, 4.5 * i - 7.5),
+                                  rot_y=0.4 * k - 1.3, scale=(s, s, s)))
+    b.add_instance(ball, _l2w((-2.25, 0.4, 9.5)))
+    b.add_instance(ball, _l2w((2.25, 0.15, 9.5), rot_y=0.6, scale=(1.5, 0.75, 0.9)))
+    return PinholeCamera(
+        origin=(0.0, 15.0, 24.0), lookat=(0.0, 0.0, 0.5), vfov_deg=40.0,
+        width=width, height=height,
+    )
+
+
+def instanced_mesh_scene(width=512, height=512, n_u=400, n_v=128, *, device):
+    """The instanced fixture: 19 instances over 2*n_u*n_v + 5 prims
+    (102,405 at the default), 16 of them instances of the knot."""
+    b = SceneBuilder()
+    cam = populate_instanced_mesh_scene(b, width, height, n_u, n_v)
+    return b.build(device), cam

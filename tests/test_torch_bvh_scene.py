@@ -106,7 +106,6 @@ def test_builder_rejects_unported_features():
     b = SceneBuilder()
     for call in (lambda: b.set_envmap(np.ones((4, 8, 3), np.float32)),
                  lambda: b.add_texture(np.ones((4, 4, 4), np.float32)),
-                 lambda: b.create_object(),
                  lambda: b.add_medium(sigma_a=1.0)):
         with pytest.raises(NotImplementedError):
             call()
