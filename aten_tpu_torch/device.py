@@ -1,9 +1,8 @@
 """Explicit device resolution.
 
-The port never picks a device on its own: a scene is built for the
-device its caller names, and every tensor on the render path follows
-that scene.  Asking for CUDA on a machine without a card raises; it
-never drops to the CPU.
+A scene is built on the card ("cuda") unless its caller names the CPU,
+and every tensor on the render path follows that scene.  Asking for
+CUDA on a machine without a card raises; it never drops to the CPU.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 // Plain C interface of the traversal kernels, loaded from Python with
-// ctypes (aten_tpu_torch/ops/traverse_cuda.py, ops/tlas_cuda.py).  It includes no PyTorch
+// ctypes (aten_tpu_torch/ops/traverse_cuda.py, ops/tlas_cuda.py,
+// ops/plk_cuda.py).  It includes no PyTorch
 // header, so the whole library builds in seconds.  Pointers are device
 // addresses of contiguous tensors the caller has checked; `stream` is
 // the caller's current CUDA stream.
@@ -64,6 +65,27 @@ int aten_tlas_traverse(const float* tl_bmin, const float* tl_bmax,
   const aten_tpu_torch::TlasRayView rays{{ro, rd, t0, t, prim, u, v, n}, inst};
   return aten_tpu_torch::launch_tlas_traverse(tlas, rays, t_min, any_hit != 0,
                                               stream);
+}
+
+// The Plücker treelet walk; returns as aten_bvh_traverse does.
+int aten_plk_traverse(const float* bmin, const float* bmax,
+                      const int32_t* hit, const int32_t* miss,
+                      const int32_t* slot_start, const int32_t* count,
+                      const float* consts, const int32_t* slot2prim,
+                      const float* ro, const float* rd, const float* t0,
+                      float* t, int32_t* prim, int64_t n, float t_min,
+                      int32_t any_hit, void* stream) {
+  if (n < 0) return -1;
+  if (n > 0 && (!ro || !rd || !t0 || !t || !prim)) return -1;
+  if (!bmin || !bmax || !hit || !miss || !slot_start || !count || !consts ||
+      !slot2prim)
+    return -1;
+  if (reinterpret_cast<uintptr_t>(consts) % 16 != 0) return -1;
+  const aten_tpu_torch::PlkView plk{bmin,  bmax,   hit,    miss,
+                                    slot_start, count, consts, slot2prim};
+  const aten_tpu_torch::RayView rays{ro, rd, t0, t, prim, nullptr, nullptr, n};
+  return aten_tpu_torch::launch_plk_traverse(plk, rays, t_min, any_hit != 0,
+                                             stream);
 }
 
 const char* aten_cuda_error_string(int code) {

@@ -1,6 +1,7 @@
 // Shared declarations of the traversal kernels (bvh_traverse.cu, the
-// threaded BVH; tlas_traverse.cu, the two-level instanced pool) and
-// their C interface (bindings.cpp).
+// threaded BVH; tlas_traverse.cu, the two-level instanced pool;
+// plk_traverse.cu, the Plücker treelet layout) and their C interface
+// (bindings.cpp).
 #pragma once
 
 #include <cstdint>
@@ -69,6 +70,22 @@ struct TlasRayView {
 
 int launch_tlas_traverse(const TlasView& tlas, const TlasRayView& rays,
                          float t_min, bool any_hit, void* stream);
+
+// The Plücker treelet layout of ops/plk_layout.py; device pointers.
+struct PlkView {
+  const float* bmin;          // [Kt,3] cut-tree boxes
+  const float* bmax;          // [Kt,3]
+  const int32_t* hit;         // [Kt] next node when the box is hit
+  const int32_t* miss;        // [Kt] next node when it is missed
+  const int32_t* slot_start;  // [Kt] first slot of a fat leaf, else -1
+  const int32_t* count;       // [Kt] slots of a fat leaf, <= 64
+  const float* consts;        // [S,16] slot records, 16-byte aligned
+  const int32_t* slot2prim;   // [S] global prim id of each slot
+};
+
+// Writes rays.t and rays.prim; rays.u and rays.v are not used.
+int launch_plk_traverse(const PlkView& plk, const RayView& rays,
+                        float t_min, bool any_hit, void* stream);
 
 const char* cuda_error_string(int code);
 

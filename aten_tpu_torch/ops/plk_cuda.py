@@ -1,0 +1,81 @@
+"""Wrapper of the hand-written CUDA Plücker treelet kernel (K3).
+
+`plk_traverse` runs the walk of kernels/plk_traverse.cu (closest-hit and
+any-hit instantiations) over a scene's Plücker layout
+(ops/plk_layout.py).  It replaces the TPU kernel
+`_make_plk_treelet_kernel` (aten_tpu/ops/traverse_pallas.py:1058,
+launched by `_traverse_plk_tiles` :1276).  Its arguments are checked on
+every device; for tensors on the CPU it then runs the kernel's plain
+version, accel/traverse.py::_traverse_plk_plain, and on a CUDA tensor it
+launches the kernel or raises, never falling back.  The kernel lives in
+the library of ops/traverse_cuda.py.
+"""
+from __future__ import annotations
+
+import torch
+
+from aten_tpu_torch.ops.plk_layout import RECORD, WINDOW
+from aten_tpu_torch.ops.traverse_cuda import _checked, load_library
+
+KERNELS = ("plk_traverse_closest", "plk_traverse_any")
+
+# Launches per kernel instantiation since the last reset: the one place
+# that adds to a count is the line after a successful launch below.
+launch_counts = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launch_counts():
+    for k in KERNELS:
+        launch_counts[k] = 0
+
+
+# (name, dtype, trailing shape) of each scene array the kernel reads
+_SCENE_FIELDS = (
+    ("plk_bmin", torch.float32, (3,)), ("plk_bmax", torch.float32, (3,)),
+    ("plk_hit", torch.int32, ()), ("plk_miss", torch.int32, ()),
+    ("plk_slot_start", torch.int32, ()), ("plk_count", torch.int32, ()),
+    ("plk_consts", torch.float32, (RECORD,)), ("plk_slot2prim", torch.int32, ()),
+)
+
+
+def plk_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
+    """Closest (or any) hit of rays ro, rd [N,3] with t_max t0 [N] against
+    the scene's Plücker layout.  Returns (t, prim), each [N]: t the
+    winner's t with its 6 low mantissa bits cleared (t0 on a miss), prim
+    its global id (-1 on a miss)."""
+    dev = ro.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"plk_traverse: unsupported device {dev}")
+    if scene.get("plk_window") != WINDOW:
+        raise ValueError(f"the scene's Plücker layout has window "
+                         f"{scene.get('plk_window')}; the kernel takes {WINDOW}")
+    n = ro.shape[0]
+    ptrs = [_checked(k, scene[k], dt, tail, dev) for k, dt, tail in _SCENE_FIELDS]
+    ro_p = _checked("ro", ro, torch.float32, (3,), dev)
+    rd_p = _checked("rd", rd, torch.float32, (3,), dev)
+    t0_p = _checked("t0", t0, torch.float32, (), dev)
+    if rd.shape[0] != n or t0.shape[0] != n:
+        raise ValueError(f"ray counts differ: {n}, {rd.shape[0]}, {t0.shape[0]}")
+    if dev.type == "cpu":
+        from aten_tpu_torch.accel.traverse import _traverse_plk_plain
+
+        h = _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min)
+        return h["t"], h["prim"]
+    if scene["plk_consts"].data_ptr() % 16:
+        raise ValueError("plk_consts must be 16-byte aligned (read as float4)")
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return t, prim
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.aten_plk_traverse(
+            *ptrs, ro_p, rd_p, t0_p, t.data_ptr(), prim.data_ptr(),
+            n, float(t_min), int(any_hit), stream)
+    if rc != 0:
+        what = ("bad arguments" if rc < 0
+                else lib.aten_cuda_error_string(rc).decode())
+        raise RuntimeError(f"plk_traverse launch failed ({rc}): {what}")
+    launch_counts[KERNELS[1] if any_hit else KERNELS[0]] += 1
+    return t, prim

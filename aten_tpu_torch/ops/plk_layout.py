@@ -1,0 +1,174 @@
+"""The Plücker leaf layout of the treelet traversal (kernel K3).
+
+Counterpart of the layout half of aten_tpu/ops/traverse_pallas.py, in
+numpy: `treelet_cut` (:457-531, without voxel protection), the fat-leaf
+row alignment of `build_treelet_layout` (:640-651), and the Plücker
+constants of `_build_plucker_emat` (:722-758).
+
+The threaded BVH is cut at subtrees of at most WINDOW prims; each such
+subtree becomes one fat leaf of the cut tree, with the default threaded
+hit/miss links.  Fat leaves start on PACK-slot row boundaries, which
+fixes the slot namespace `slot = row_start * PACK + j` and `slot2prim`.
+
+Per slot the layout stores one record of 16 float32s (64 B):
+the edge lines (a x b, b - a) of the edges v0->v1 and v1->v2, the plane
+normal n = e1 x e2, and n.v0.  Each is computed in float64 and rounded
+to float32, so the values equal the nonzero entries of the reference's
+E block bit for bit; the block's numerator rows hold -n, which the
+kernel gets by an exact negation.  The block itself, [16, 4*WINDOW] per
+leaf laid out for the TPU's matrix unit, holds 19 nonzero entries of 64
+per slot and is not built.
+
+The window is this module's constant and travels with the layout as
+`plk_window`; nothing reads it from the environment.
+
+`uses_plk` is the reference's choice of the kernel (traverse_pallas.py
+:2054-2058, scene/scene.py:426-438): a single-level, triangle-only scene
+whose build takes the treelet branch and whose packed pools, counted as
+the reference stores them, exceed RESIDENT_MB.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+WINDOW = 64        # fat-leaf capacity; the slot id fills the 6 low bits of t
+PACK = 8           # slots per row: fat leaves start on PACK-slot boundaries
+RESIDENT_MB = 32.0  # reference pools up to this size stay resident (K1)
+TREELET_MIN_BYTES = 5 * 1024 * 1024  # (K + P) * 512 B: treelet branch
+ROW_FLOATS = 128   # reference pool rows are 128 float32 lanes
+NODE_ROWS = 8      # reference node pool rows are padded to a multiple of 8
+RECORD = 16        # float32s per slot record
+
+# the Scene arrays of the layout
+ARRAY_KEYS = ("plk_bmin", "plk_bmax", "plk_hit", "plk_miss",
+              "plk_slot_start", "plk_count", "plk_consts", "plk_slot2prim")
+
+
+def treelet_cut(bvh):
+    """Cut a threaded BVH at subtrees of <= WINDOW prims.
+
+    Returns (bmin [Kt,3] f32, bmax [Kt,3] f32, hit, miss, start, count,
+    keep), the int arrays int64: the kept nodes in preorder with their
+    default threaded links; fat leaves carry their subtree's contiguous
+    prim range (start, count) in prim_order, interior nodes (-1, 0);
+    keep is the original index of each kept node."""
+    nmiss = np.asarray(bvh["nodes_miss"], np.int64)
+    nps = np.asarray(bvh["nodes_prim_start"], np.int64)
+    npc = np.asarray(bvh["nodes_prim_count"], np.int64)
+    K = nmiss.shape[0]
+    leaf_prims = np.where(nps >= 0, npc, 0)
+    P = int(leaf_prims.sum())
+    prefix = np.zeros(K + 1, np.int64)
+    prefix[1:] = np.cumsum(leaf_prims)
+
+    miss_l, nps_l, prefix_l = nmiss.tolist(), nps.tolist(), prefix.tolist()
+    keep, is_fat = [], []
+    i = 0
+    while i != -1:
+        skip = miss_l[i]
+        cnt = (P if skip < 0 else prefix_l[skip]) - prefix_l[i]
+        fat = nps_l[i] >= 0 or cnt <= WINDOW
+        keep.append(i)
+        is_fat.append(fat)
+        i = skip if fat else i + 1  # past the subtree, or its first child
+    keep = np.asarray(keep, np.int64)
+    is_fat = np.asarray(is_fat, bool)
+    Kt = keep.shape[0]
+    new_of = np.full(K, -1, np.int64)
+    new_of[keep] = np.arange(Kt)
+
+    # prim_order offset of the first leaf at or after each node
+    leaf_at = np.where(nps >= 0, np.arange(K), K)
+    first = np.minimum.accumulate(leaf_at[::-1])[::-1]
+    next_leaf = np.where(first < K, nps[np.minimum(first, K - 1)], -1)
+
+    ms = nmiss[keep]
+    ms_new = np.where(ms < 0, -1, new_of[np.maximum(ms, 0)])
+    end = np.where(ms < 0, P, prefix[np.maximum(ms, 0)])
+    count = np.where(is_fat, end - prefix[keep], 0)
+    start = np.where(is_fat & (count > 0), next_leaf[keep], -1)
+    child = new_of[np.minimum(keep + 1, K - 1)]
+    hit = np.where(is_fat, ms_new, child)
+    bmin = np.asarray(bvh["nodes_bmin"], np.float32)[keep]
+    bmax = np.asarray(bvh["nodes_bmax"], np.float32)[keep]
+    return bmin, bmax, hit, ms_new, start, count, keep
+
+
+def align_rows(start, count, n_prims):
+    """Row-align the fat leaves' prim ranges (build_treelet_layout
+    :640-651).  Returns (row_start [Kt] (-1 off fat leaves), row_of_prim
+    [P] = the slot of each prim_order position, n_rows_padded), the pool
+    carrying one window of tail rows."""
+    fat = np.nonzero((start >= 0) & (count > 0))[0]
+    c = count[fat]
+    rows = -(-c // PACK)
+    row_start = np.full(start.shape[0], -1, np.int64)
+    row_start[fat] = np.cumsum(rows) - rows
+    row_of_prim = np.zeros(n_prims, np.int64)
+    j = np.arange(int(c.sum())) - np.repeat(np.cumsum(c) - c, c)
+    row_of_prim[np.repeat(start[fat], c) + j] = np.repeat(row_start[fat] * PACK, c) + j
+    return row_start, row_of_prim, int(rows.sum()) + WINDOW // PACK
+
+
+def pool_mb(n_cut_nodes, n_rows_padded):
+    """The reference's pool size in MB (traverse_pallas.py:2055): its node
+    rows padded to NODE_ROWS plus its packed prim rows, 128 float32s
+    each, at 4e-6 MB per float."""
+    kp = -(-n_cut_nodes // NODE_ROWS) * NODE_ROWS
+    return (kp + n_rows_padded) * ROW_FLOATS * 4e-6
+
+
+def plucker_records(tri_v0, tri_e1, tri_e2, tid):
+    """[n, RECORD] float32 records of triangles tid: m0 = a x b, d0 = b - a
+    (edge v0->v1), m1, d1 (edge v1->v2), n = e1 x e2, n.v0; computed in
+    float64 as _build_plucker_emat does, then rounded."""
+    v0 = np.asarray(tri_v0, np.float64)[tid]
+    e1 = np.asarray(tri_e1, np.float64)[tid]
+    e2 = np.asarray(tri_e2, np.float64)[tid]
+    A, B, C = v0, v0 + e1, v0 + e2
+    n = np.cross(e1, e2)
+    return np.concatenate([
+        np.cross(A, B), B - A, np.cross(B, C), C - B, n,
+        np.einsum("ij,ij->i", n, v0)[:, None],
+    ], axis=1).astype(np.float32)
+
+
+def build_plk_layout(bvh, tri_v0, tri_e1, tri_e2, num_tris):
+    """The K3 layout of a single-level threaded BVH, or None when a leaf
+    holds a sphere (the Plücker test is for triangles only).
+
+    Returns a dict of numpy arrays under ARRAY_KEYS, plus the scalars
+    `plk_window` (WINDOW) and `plk_pool_mb` (the reference's pool size):
+    plk_bmin/bmax [Kt,3] f32, plk_hit/miss [Kt] i32 (default threaded
+    links of the cut tree), plk_slot_start [Kt] i32 (row_start * PACK on
+    fat leaves, else -1), plk_count [Kt] i32 (<= WINDOW), plk_consts
+    [n_slots, RECORD] f32 (zero on padding slots), plk_slot2prim
+    [n_slots] i32 (-1 on padding slots)."""
+    order = np.asarray(bvh["prim_order"], np.int64)
+    if (order >= num_tris).any():
+        return None
+    bmin, bmax, hit, miss, start, count, _ = treelet_cut(bvh)
+    P = order.shape[0]
+    row_start, row_of_prim, n_rows = align_rows(start, count, P)
+    n_slots = n_rows * PACK
+    consts = np.zeros((n_slots, RECORD), np.float32)
+    consts[row_of_prim] = plucker_records(tri_v0, tri_e1, tri_e2, order)
+    slot2prim = np.full(n_slots, -1, np.int32)
+    slot2prim[row_of_prim] = order
+    return {
+        "plk_bmin": bmin, "plk_bmax": bmax,
+        "plk_hit": hit.astype(np.int32), "plk_miss": miss.astype(np.int32),
+        "plk_slot_start": np.where(row_start >= 0, row_start * PACK, -1).astype(np.int32),
+        "plk_count": count.astype(np.int32),
+        "plk_consts": consts, "plk_slot2prim": slot2prim,
+        "plk_window": WINDOW,
+        "plk_pool_mb": pool_mb(hit.shape[0], n_rows),
+    }
+
+
+def uses_plk(n_nodes, n_prims, layout):
+    """The reference's kernel choice for a single-level scene with BVH
+    size (n_nodes, n_prims) and layout `build_plk_layout`'s result."""
+    return (layout is not None
+            and (n_nodes + n_prims) * 512 >= TREELET_MIN_BYTES
+            and layout["plk_pool_mb"] > RESIDENT_MB)

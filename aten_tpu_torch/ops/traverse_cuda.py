@@ -9,11 +9,12 @@ For tensors on the CPU it runs the kernel's plain version,
 accel/traverse.py::_traverse_plain; on a CUDA tensor it launches the
 kernel or raises, never falling back.
 
-The library, which also holds the two-level kernel of ops/tlas_cuda.py,
-is built at first use from the repository's sources with
-torch.utils.cpp_extension.load into build/aten_tpu_torch/, for sm_90a,
-with --fmad=false, under a file lock.  Its interface is plain C
-(kernels/bindings.cpp), loaded with ctypes.
+The library, which also holds the two-level kernel of ops/tlas_cuda.py
+and the Plücker treelet kernel of ops/plk_cuda.py, is built at first
+use from the repository's sources with torch.utils.cpp_extension.load
+into build/aten_tpu_torch/, for sm_90a, with --fmad=false, under a file
+lock.  Its interface is plain C (kernels/bindings.cpp), loaded with
+ctypes.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from aten_tpu_torch import native
 KERNEL_DIR = os.path.join(native.REPO_ROOT, "aten_tpu_torch", "kernels")
 SOURCES = (os.path.join(KERNEL_DIR, "bvh_traverse.cu"),
            os.path.join(KERNEL_DIR, "tlas_traverse.cu"),
+           os.path.join(KERNEL_DIR, "plk_traverse.cu"),
            os.path.join(KERNEL_DIR, "bindings.cpp"))
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
               "-Xptxas=-v")
@@ -46,7 +48,7 @@ def reset_launch_counts():
 
 def load_library(verbose=False):
     """Build (if its sources changed) and load the kernel library of
-    both traversal kernels."""
+    the traversal kernels."""
     global _lib
     if _lib is not None:
         return _lib
@@ -75,6 +77,9 @@ def load_library(verbose=False):
     lib.aten_tlas_traverse.argtypes = (
         [vp] * 14 + [ctypes.c_int32] * 2 + [vp] * 8
         + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp])
+    lib.aten_plk_traverse.restype = ctypes.c_int
+    lib.aten_plk_traverse.argtypes = (
+        [vp] * 13 + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp])
     lib.aten_cuda_error_string.restype = ctypes.c_char_p
     lib.aten_cuda_error_string.argtypes = [ctypes.c_int]
     _lib = lib

@@ -6,6 +6,11 @@ host-side registry and `SceneBuilder.build(device)` freezes it into a
 same keys, values and static flags as the reference's `SceneData`
 (minus the TPU kernel layouts, which the port does not use).
 
+A single-level, triangle-only scene on which the reference would run
+its Plücker treelet kernel K3 (ops/plk_layout.py::uses_plk) also gets
+the port's K3 layout (`plk_*` arrays) and the statics
+`traversal` = "plk" and `plk_window`; other scenes build without them.
+
 Instanced objects (`create_object`, `add_instance`, `obj=` on the
 geometry adds) build the two-level pool of accel/tlas.py.
 
@@ -21,6 +26,7 @@ import torch
 from aten_tpu_torch.accel.build import LEAF_MAX, build_bvh
 from aten_tpu_torch.accel.tlas import build_two_level
 from aten_tpu_torch.device import resolve_device
+from aten_tpu_torch.ops import plk_layout
 from aten_tpu_torch.scene.lights import LightTable, LightType
 from aten_tpu_torch.scene.materials import MaterialTable, MaterialType
 
@@ -304,6 +310,12 @@ class SceneBuilder:
             bvh = build_bvh(all_bmin, all_bmax)
             check_leaf_sizes(bvh["nodes_prim_count"])
             num_instances = 0
+        plk = None
+        if num_instances == 0:
+            lay = plk_layout.build_plk_layout(bvh, tv0, te1, te2, num_tris)
+            if plk_layout.uses_plk(bvh["nodes_hit"].shape[0],
+                                   bvh["prim_order"].shape[0], lay):
+                plk = lay
 
         tri_areas = tarea[:num_tris] if num_tris else np.zeros(0, np.float32)
         arrays = {
@@ -349,6 +361,10 @@ class SceneBuilder:
                 {r["type"] for r in rows} | {int(MaterialType.DIFFUSE)}
             )),
         }
+        if plk is not None:
+            arrays.update({k: plk[k] for k in plk_layout.ARRAY_KEYS})
+            static["traversal"] = "plk"
+            static["plk_window"] = plk["plk_window"]
         return arrays, static
 
     def _two_level(self, all_bmin, all_bmax):
@@ -373,8 +389,9 @@ class SceneBuilder:
             obj_prim_boxes, np.asarray([i[0] for i in instances], np.int32),
             np.stack([i[1] for i in instances]))
 
-    def build(self, device) -> Scene:
-        """Freeze into a Scene on `device` (named explicitly)."""
+    def build(self, device="cuda") -> Scene:
+        """Freeze into a Scene on `device` (the card unless the caller
+        names the CPU; without a card, "cuda" raises)."""
         dev = resolve_device(device)
         arrays, static = self.numpy_arrays()
         return Scene(to_tensors(arrays, dev), static, dev)

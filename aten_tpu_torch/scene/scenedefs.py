@@ -4,7 +4,7 @@ Counterpart of aten_tpu/scene/scenedefs.py.  Each scene is a `populate_*`
 function that fills any builder with the reference builder's interface
 (add_material, add_mesh, add_quad, add_sphere, add_area_light_tris,
 set_background) and returns the camera, plus a wrapper that builds the
-port's Scene on an explicit device.  The tests hand the same populate
+port's Scene on a device, the card unless the caller names the CPU.  The tests hand the same populate
 functions the reference `aten_tpu` builder, so both packages hold the
 identical scene.
 """
@@ -46,7 +46,7 @@ def populate_cornell_box(b, width, height, use_spheres=True):
     )
 
 
-def cornell_box(width=512, height=512, use_spheres=True, *, device):
+def cornell_box(width=512, height=512, use_spheres=True, *, device="cuda"):
     b = SceneBuilder()
     cam = populate_cornell_box(b, width, height, use_spheres)
     return b.build(device), cam
@@ -118,11 +118,20 @@ def populate_procedural_mesh_scene(b, width, height, n_u=400, n_v=128):
     )
 
 
-def procedural_mesh_scene(width=512, height=512, n_u=400, n_v=128, *, device):
+def procedural_mesh_scene(width=512, height=512, n_u=400, n_v=128, *,
+                          device="cuda"):
     """The slice fixture: 2*n_u*n_v + 4 prims (102,404 at the default)."""
     b = SceneBuilder()
     cam = populate_procedural_mesh_scene(b, width, height, n_u, n_v)
     return b.build(device), cam
+
+
+def large_mesh_scene(width=512, height=512, n_u=1000, n_v=256, *, device="cuda"):
+    """The mesh scene's setting with a knot of 2*n_u*n_v triangles:
+    512,004 prims at the default, triangle-only, so its build carries the
+    Plücker layout (46.89 MB of reference pools, over the 32 MB line) and
+    its traversal runs kernel K3."""
+    return procedural_mesh_scene(width, height, n_u, n_v, device=device)
 
 
 def _l2w(translate, rot_y=0.0, scale=(1.0, 1.0, 1.0)):
@@ -181,7 +190,8 @@ def populate_instanced_mesh_scene(b, width, height, n_u=400, n_v=128):
     )
 
 
-def instanced_mesh_scene(width=512, height=512, n_u=400, n_v=128, *, device):
+def instanced_mesh_scene(width=512, height=512, n_u=400, n_v=128, *,
+                         device="cuda"):
     """The instanced fixture: 19 instances over 2*n_u*n_v + 5 prims
     (102,405 at the default), 16 of them instances of the knot."""
     b = SceneBuilder()

@@ -5,13 +5,17 @@
 
 Run from the root of a checkout on a machine with one CUDA card.  It
 builds the traversal kernels from the checkout's sources, holds the
-threaded-BVH kernel against its plain torch version on two mesh scenes,
-renders the Cornell box against the pinned golden image, renders the
-102,404-prim mesh scene through that kernel at 512x512, 16 spp, then
-holds the two-level (instanced) kernel against its plain version on the
-19-instance fixture and renders that fixture through it at 512x512,
-16 spp, with a profile of the render.  It prints the measured times and
-each kernel's bound (the least time the card could take for the work).
+threaded-BVH kernel against its plain torch version on two mesh scenes
+(the 2,004-prim one also at the main path's ray count), renders the
+Cornell box against the pinned golden image, renders the 102,404-prim
+and the 2,004-prim mesh scenes through that kernel at 512x512, 16 spp,
+then holds the two-level (instanced) kernel against its plain version on
+the 19-instance fixture and renders that fixture through it, and finally
+holds the Plücker treelet kernel against its plain version and the
+oracle walk on the 512,004-prim mesh scene and renders that scene
+through it; each main-path render is profiled.  It prints the measured
+times and each kernel's bound (the least time the card could take for
+the work).
 Every phase raises on failure, so any failure exits non-zero.  The last
 two lines are one JSON object describing the kernels, then
 {"ok": true, "device": {...}}.  Without a card, or outside a checkout,
@@ -30,6 +34,8 @@ KERNEL_SOURCE = "aten_tpu_torch/kernels/bvh_traverse.cu"
 REPLACES = "aten_tpu/ops/traverse_pallas.py:785"
 TLAS_SOURCE = "aten_tpu_torch/kernels/tlas_traverse.cu"
 TLAS_REPLACES = "aten_tpu/ops/traverse_pallas.py:1750"
+PLK_SOURCE = "aten_tpu_torch/kernels/plk_traverse.cu"
+PLK_REPLACES = "aten_tpu/ops/traverse_pallas.py:1058"
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, fp32 FLOP/s
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
@@ -43,6 +49,14 @@ OPS_NODE = 25
 OPS_PRIM = 53
 OPS_ENTER = 45
 OPS_RAY = 6
+# The Plücker kernel (plk_traverse.cu), floating-point and integer
+# operations alike: per slot the two edge sides (11 each), den (5), the
+# numerator (6), s2 (2), the sign test (6), the reciprocal and t (2),
+# the two compares (2) and the winner code (3); per fat leaf entered the
+# merge; per ray the three safe inverses and ro x rd.
+OPS_SLOT = 48
+OPS_LEAF = 6
+OPS_RAY_PLK = 15
 # _check_parity bounds (tests/test_pallas_tpu.py:29-42) and the
 # full-image radiance bounds (tests/test_pallas_tpu.py:157-166)
 PRIM_AGREE = 0.999
@@ -185,7 +199,7 @@ def compare_traversal(name, scene, ro, rd, t_max):
     return max(errs.values()), same, {"closest": st_closest, "any": st_any}
 
 
-def first_hit_rays(scene, ro, rd, n, rng):
+def first_hit_rays(scene, ro, rd, n, rng, impl="cuda"):
     """n rays leaving first-hit points of the rays (ro, rd), picked at
     random, in uniform random directions (numpy seeded)."""
     import numpy as np
@@ -193,7 +207,7 @@ def first_hit_rays(scene, ro, rd, n, rng):
 
     from aten_tpu_torch.accel.traverse import traverse
 
-    h = traverse(scene, ro, rd, impl="cuda")
+    h = traverse(scene, ro, rd, impl=impl)
     idx = torch.nonzero(h["hit"]).squeeze(1).cpu().numpy()
     pick = torch.from_numpy(rng.choice(idx, n)).to(ro.device)
     p = ro[pick] + h["t"][pick, None] * rd[pick]
@@ -202,14 +216,16 @@ def first_hit_rays(scene, ro, rd, n, rng):
     return p.contiguous(), torch.from_numpy(d).to(ro.device)
 
 
-def bound(n_rays, out_bytes, pool_bytes, work):
+def bound(n_rays, out_bytes, pool_bytes, work, ops_ray=OPS_RAY):
     """Least time (ms) the card could take for a traversal launch, and
     what bounds it: the larger of the bytes it must move (each ray's
     28 B in and `out_bytes` out once, the pool once) over HBM bandwidth
-    and the fp32 operations these rays need over the fp32 peak."""
+    and the fp32 operations these rays need (the plain walk's work
+    counts, OPS_* each) over the fp32 peak."""
     nbytes = n_rays * (28 + out_bytes) + pool_bytes
-    ops = (n_rays * OPS_RAY + work["node_steps"] * OPS_NODE
-           + work["prim_tests"] * OPS_PRIM + work.get("inst_entries", 0) * OPS_ENTER)
+    ops = (n_rays * ops_ray + work["node_steps"] * OPS_NODE
+           + work.get("prim_tests", 0) * OPS_PRIM + work.get("inst_entries", 0) * OPS_ENTER
+           + work.get("slot_tests", 0) * OPS_SLOT + work.get("leaves", 0) * OPS_LEAF)
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = ops / FP32_FLOP_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
@@ -220,16 +236,90 @@ def pool_bytes(scene, fields):
 
 
 def reset_counts():
-    from aten_tpu_torch.ops import tlas_cuda, traverse_cuda
+    from aten_tpu_torch.ops import plk_cuda, tlas_cuda, traverse_cuda
 
     traverse_cuda.reset_launch_counts()
     tlas_cuda.reset_launch_counts()
+    plk_cuda.reset_launch_counts()
 
 
 def read_counts():
-    from aten_tpu_torch.ops import tlas_cuda, traverse_cuda
+    from aten_tpu_torch.ops import plk_cuda, tlas_cuda, traverse_cuda
 
-    return {**traverse_cuda.launch_counts, **tlas_cuda.launch_counts}
+    return {**traverse_cuda.launch_counts, **tlas_cuda.launch_counts,
+            **plk_cuda.launch_counts}
+
+
+def plk_plain(scene, ro, rd, t_max=None, any_hit=False, t_min=1e-4):
+    """The Plücker kernel's plain version, with the u/v step of
+    traverse(impl="plk_plain") and the work these rays need: (hits,
+    {"node_steps", "leaves", "slot_tests"})."""
+    import torch
+
+    from aten_tpu_torch.accel.traverse import _t0_of, _traverse_plk_plain, recompute_uv
+
+    t0 = _t0_of(t_max, ro.shape[0], ro.device)
+    h, st = _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min, stats=True)
+    if any_hit:
+        u = v = torch.zeros_like(h["t"])
+    else:
+        u, v = recompute_uv(scene, ro, rd, h["prim"])
+    return {**h, "u": u, "v": v, "hit": h["prim"] >= 0}, st
+
+
+def compare_plk(name, scene, ro, rd, t_max):
+    """The Plücker kernel against its plain version, which it must equal
+    bit for bit (t, prim, u, v; any-hit t and prim), and against the
+    oracle walk at the parity bounds, with t and verdicts held to the
+    prim-agreement bound: at least PRIM_AGREE of the rays agree on the
+    prim and, where they hit, on t within T_TOL; u/v within UV_TOL where
+    prims agree; any-hit verdicts agree on at least PRIM_AGREE of the
+    rays.  The Plücker plane t, (n.v0 - n.ro) / n.rd, cancels at grazing
+    incidence where Möller-Trumbore, which works from ro - v0, does not
+    (the reference's own probe of its kernel measured |dt| 2.4e-4,
+    VERDICT.md:194-200); the two tests may decide a ray through a shared
+    edge differently; and the kernel's truncated t may fall under t_max
+    where the exact t does not.  Returns the largest difference to the
+    plain version and its work counts per kind."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.accel.traverse import traverse
+
+    work, err = {}, 0.0
+    for kind, kw in (("closest", {}),
+                     ("any", {"t_max": t_max, "any_hit": True, "t_min": 1e-3})):
+        hk = traverse(scene, ro, rd, impl="plk", **kw)
+        hp, work[kind] = plk_plain(scene, ro, rd, **kw)
+        ho, _ = plain_walk(scene, ro, rd, **kw)
+        exact = all(torch.equal(hk[k], hp[k]) for k in ("t", "prim", "u", "v", "hit"))
+        err = max(err, *(float((hk[k] - hp[k]).abs().max()) for k in ("t", "u", "v")))
+        pk, po = hk["prim"].cpu().numpy(), ho["prim"].cpu().numpy()
+        if kind == "closest":
+            m = (po >= 0) & (pk == po)
+            tk, to = hk["t"].cpu().numpy()[m], ho["t"].cpu().numpy()[m]
+            t_off = ~np.isclose(tk, to, rtol=T_TOL, atol=T_TOL)
+            agree = float((pk == po).mean())
+            agree_t = agree - float(t_off.sum()) / pk.shape[0]
+            duv = max(float(np.abs(hk[k].cpu().numpy()[m] - ho[k].cpu().numpy()[m]).max())
+                      for k in ("u", "v"))
+            log(f"{name}: {ro.shape[0]} rays, hit {float((pk >= 0).mean()):.4f}, "
+                f"bitwise equal to the plain version {exact}; against the oracle "
+                f"walk: prim agreement {agree:.6f}, {int(t_off.sum())} hits off t by "
+                f"more than {T_TOL} (max |dt| {float(np.abs(tk - to).max()):.3e}), "
+                f"prim and t agreement {agree_t:.6f}, max |du|,|dv| {duv:.3e}")
+            assert agree_t >= PRIM_AGREE, (name, agree_t)
+            assert duv <= UV_TOL, (name, duv)
+        else:
+            agree = float((hk["hit"] == ho["hit"]).float().mean())
+            log(f"{name} any-hit: occluded {float(hk['hit'].float().mean()):.4f}, "
+                f"bitwise equal to the plain version {exact}; verdicts equal to the "
+                f"oracle walk's on {agree:.7f} of rays "
+                f"({int((hk['hit'] != ho['hit']).sum())} differ)")
+            assert agree >= PRIM_AGREE, (name, agree)
+        assert exact, (name, kind)
+    log(f"{name} work: closest {work['closest']}, any {work['any']}")
+    return err, work
 
 
 def profile_render(fn):
@@ -277,9 +367,10 @@ def main():
 
     from aten_tpu_torch.accel.traverse import traverse
     from aten_tpu_torch.integrator.pathtracer import render_image
-    from aten_tpu_torch.ops import tlas_cuda, traverse_cuda
+    from aten_tpu_torch.accel.traverse import _traverse_plk_plain
+    from aten_tpu_torch.ops import plk_cuda, plk_layout, tlas_cuda, traverse_cuda
     from aten_tpu_torch.scene.scenedefs import (
-        cornell_box, instanced_mesh_scene, procedural_mesh_scene)
+        cornell_box, instanced_mesh_scene, large_mesh_scene, procedural_mesh_scene)
 
     # -- phase 0: the card
     card = card_line()
@@ -288,10 +379,11 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    # -- phase 1: build both kernels (one library) from the checkout's sources
+    # -- phase 1: build the kernels (one library) from the checkout's sources
     t = time.time()
     traverse_cuda.load_library(verbose=True)
-    log(f"phase 1: built {KERNEL_SOURCE} and {TLAS_SOURCE} in {time.time() - t:.1f} s")
+    log(f"phase 1: built {KERNEL_SOURCE}, {TLAS_SOURCE} and {PLK_SOURCE} "
+        f"in {time.time() - t:.1f} s")
 
     # -- phase 2: kernel vs plain walk on the card
     rng = np.random.default_rng(SEED)
@@ -333,6 +425,24 @@ def main():
             f"{times[kind][0]:.3f} ms, plain torch walk {times[kind][1]:.3f} ms, "
             f"bound {bounds[kind][0]:.4f} ms by {bounds[kind][1]} "
             f"({bounds[kind][2]} B, {bounds[kind][3]} fp32 ops) [{card}]")
+    # the same kernel over the 2,004-prim scene's uncut tree (the function
+    # of the reference's _make_kernel, traverse_pallas.py:102), same shape
+    sro, srd = surface_rays(mid, n_main - cro.shape[0], rng, dev)
+    ro2, rd2 = torch.cat([cro, sro]), torch.cat([crd, srd])
+    _, _, work2 = compare_traversal("mesh2k main-path shape", mid, ro2, rd2, dist)
+    pool2 = pool_bytes(mid, traverse_cuda._SCENE_FIELDS)
+    times2, bounds2 = {}, {}
+    for kind, kw in (("closest", {}), ("any", {"t_max": dist, "any_hit": True, "t_min": 1e-3})):
+        times2[kind] = (
+            cuda_ms(lambda: traverse(mid, ro2, rd2, impl="cuda", **kw), reps=10),
+            cuda_ms(lambda: traverse(mid, ro2, rd2, impl="plain", **kw), reps=1),
+        )
+        bounds2[kind] = bound(n_main, 16, pool2, work2[kind])
+        log(f"phase 2 timing {kind}-hit, {n_main} rays, 2,004 prims (K2's function): "
+            f"kernel {times2[kind][0]:.3f} ms, plain torch walk {times2[kind][1]:.3f} ms, "
+            f"bound {bounds2[kind][0]:.4f} ms by {bounds2[kind][1]} "
+            f"({bounds2[kind][2]} B, {bounds2[kind][3]} fp32 ops) [{card}]")
+    del ro2, rd2
 
     # -- phase 3: Cornell box (dense path, no kernel) against the golden
     scene, ccam = cornell_box(64, 64, device=dev)
@@ -369,6 +479,18 @@ def main():
     ik = render_image(big, small, spp=2, max_depth=3, impl="auto").cpu().numpy()
     ip = render_image(big, small, spp=2, max_depth=3, impl="plain").cpu().numpy()
     check_image_bounds("phase 4 128x128 2spp kernel vs plain", ik, ip)
+    # the 2,004-prim scene's render: the launches of K2's function
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.time()
+    img = render_image(mid, cam, spp=16, max_depth=5, rr_depth=3)
+    torch.cuda.synchronize()
+    wall2 = time.time() - t
+    launches2 = read_counts()
+    log(f"phase 4 2,004-prim render 512x512 16spp depth 5: launches {launches2}, "
+        f"wall {wall2 * 1e3:.1f} ms (first render of the scene) [{card}]")
+    assert all(launches2[k] > 0 for k in traverse_cuda.KERNELS), launches2
+    assert bool(torch.isfinite(img).all()) and float(img.std()) > 0
     kernels = [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES, "launches": launches[name],
@@ -439,6 +561,76 @@ def main():
          "plain_ms": times5[kind][1], "bound_ms": bounds5[kind][0],
          "bound_by": bounds5[kind][1], "library_ms": None}
         for name, kind in zip(tlas_cuda.KERNELS, ("closest", "any"))
+    ]
+
+    del inst
+
+    # -- phase 7: the Plücker kernel vs its plain version and the oracle
+    t = time.time()
+    large, lcam = large_mesh_scene(512, 512, device=dev)
+    torch.cuda.synchronize()
+    n_prims = large["num_tris"] + large["num_spheres"]
+    pool_mb = plk_layout.pool_mb(large["plk_hit"].shape[0],
+                                 large["plk_slot2prim"].shape[0] // plk_layout.PACK)
+    log(f"phase 7: large mesh scene built in {time.time() - t:.1f} s: {n_prims} prims, "
+        f"traversal {large.get('traversal')!r}, reference pools {pool_mb:.2f} MB, "
+        f"{large['plk_hit'].shape[0]} cut-tree nodes, "
+        f"{large['plk_slot2prim'].shape[0]} slots")
+    assert n_prims == 512004 and large["traversal"] == "plk"
+    cro, crd = camera_rays(lcam, dev, jitter_rng=rng, subsamples=8)
+    sro, srd = first_hit_rays(large, cro, crd, n_main - cro.shape[0], rng, impl="plk")
+    ro, rd = torch.cat([cro, sro]), torch.cat([crd, srd])
+    dist = torch.tensor(rng.uniform(0.0, 20.0, n_main), dtype=torch.float32, device=dev)
+    del cro, crd, sro, srd
+    e7, work7 = compare_plk("mesh512k main-path shape", large, ro, rd, dist)
+    t0 = torch.full((n_main,), 3.4e38, dtype=torch.float32, device=dev)
+    pool7 = pool_bytes(large, plk_cuda._SCENE_FIELDS)
+    times7, bounds7 = {}, {}
+    for kind, t0k, kw in (("closest", t0, {}), ("any", dist, {"any_hit": True, "t_min": 1e-3})):
+        times7[kind] = (
+            cuda_ms(lambda: plk_cuda.plk_traverse(large, ro, rd, t0k, **kw), reps=10),
+            cuda_ms(lambda: _traverse_plk_plain(large, ro, rd, t0k, kw.get("any_hit", False),
+                                                kw.get("t_min", 1e-4)), reps=1),
+        )
+        bounds7[kind] = bound(n_main, 8, pool7, work7[kind], ops_ray=OPS_RAY_PLK)
+        log(f"phase 7 timing {kind}-hit, {n_main} rays, 512,004 prims: kernel "
+            f"{times7[kind][0]:.3f} ms, plain torch version {times7[kind][1]:.3f} ms, "
+            f"bound {bounds7[kind][0]:.4f} ms by {bounds7[kind][1]} "
+            f"({bounds7[kind][2]} B, {bounds7[kind][3]} ops) [{card}]")
+    del ro, rd, dist, t0
+    torch.cuda.empty_cache()
+
+    # -- phase 8: the large mesh path, 512x512 x 16 spp, depth 5, RR depth 3
+    render_image(large, lcam, spp=16, max_depth=5, rr_depth=3)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.time()
+    img = render_image(large, lcam, spp=16, max_depth=5, rr_depth=3)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches8 = read_counts()
+    img = img.cpu().numpy()
+    log(f"phase 8 main path launches: {launches8}")
+    assert all(launches8[k] > 0 for k in plk_cuda.KERNELS), launches8
+    assert all(launches8[k] == 0 for k in traverse_cuda.KERNELS + tlas_cuda.KERNELS), launches8
+    assert np.isfinite(img).all() and (img >= 0).all()
+    assert 1e-3 <= img.mean() <= 1e3 and img.std() > 0, (img.mean(), img.std())
+    mpaths = 512 * 512 * 16 / wall / 1e6
+    log(f"phase 8 render 512x512 16spp depth 5: mean {img.mean():.5f} std {img.std():.5f} "
+        f"wall {wall * 1e3:.1f} ms, {mpaths:.3f} Mpaths/s [{card}]")
+    log_profile("phase 8", card, profile_render(
+        lambda: render_image(large, lcam, spp=16, max_depth=5, rr_depth=3)))
+    small = dataclasses.replace(lcam, width=128, height=128)
+    ik = render_image(large, small, spp=2, max_depth=3, impl="auto").cpu().numpy()
+    ip = render_image(large, small, spp=2, max_depth=3, impl="plk_plain").cpu().numpy()
+    check_image_bounds("phase 8 128x128 2spp kernel vs plain", ik, ip)
+    kernels += [
+        {"name": name, "route": "cuda", "source": PLK_SOURCE,
+         "replaces": PLK_REPLACES, "launches": launches8[name],
+         "max_abs_err": e7, "ms": times7[kind][0],
+         "plain_ms": times7[kind][1], "bound_ms": bounds7[kind][0],
+         "bound_by": bounds7[kind][1], "library_ms": None}
+        for name, kind in zip(plk_cuda.KERNELS, ("closest", "any"))
     ]
 
     log(json.dumps({"kernels": kernels}))
