@@ -19,6 +19,20 @@ implementations return the same {t, prim, u, v, hit}:
   `_traverse_plk_plain`, a walk of the cut tree that tests whole fat
   leaves with Plücker coordinates and returns the kernel's truncated t;
   u/v of the winner come from `recompute_uv`.
+* for scenes that carry the treelet layout (ops/trl_layout.py; every
+  single-level scene on the reference's treelet branch): the multi-chain
+  CUDA kernel K4 `ops/smt_cuda.py::smt_traverse` and its plain version
+  `_traverse_trl_plain`, a walk of the cut tree's direction-ordered
+  links that drains each fat leaf one step after entering it; u/v of the
+  winner come from `recompute_uv`.
+
+The kernel policy is the reference's (traverse_pallas.py:336-337,
+2041-2064), read once at import from the environment:
+ATEN_TPU_KERNEL = "v3" (the default: K1, and K3 over the 32 MB pool
+line), "smt" (K4 on every treelet scene), "plk" (K3 on every
+triangle-only treelet scene) or "mt" (K1 on every treelet scene), and
+ATEN_TPU_CHAINS, K4's rays per thread.  The scene build applies it
+(scene/scene.py) and names the kernel in the static `traversal`.
 
 Instanced scenes (those that carry `tl_bmin`) go to the two-level walk
 of accel/tlas.py before any of these, as in the reference (:153-158).
@@ -28,6 +42,8 @@ as the reference stops them (traverse.py:169).
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 from aten_tpu_torch.accel.build import LEAF_MAX
@@ -36,6 +52,16 @@ from aten_tpu_torch.ops.plk_layout import WINDOW as PLK_WINDOW
 
 # Below this primitive count every ray tests every prim (reference :34).
 DENSE_MAX_PRIMS = 512
+
+# The kernel policy, snapshotted once at import as the reference does.
+KERNEL_POLICIES = ("v3", "smt", "plk", "mt")
+KERNEL = os.environ.get("ATEN_TPU_KERNEL", "v3")
+CHAINS = int(os.environ.get("ATEN_TPU_CHAINS", "4"))
+if KERNEL not in KERNEL_POLICIES:
+    raise ValueError(
+        f"ATEN_TPU_KERNEL={KERNEL!r} is not a kernel policy of the port "
+        f"{KERNEL_POLICIES}; the reference knows no other either (ROADMAP.md "
+        "queue 2, the kernel table)")
 
 
 def _safe_inv(rd):
@@ -267,21 +293,29 @@ def _plk_leaf_codes(consts, slot, j, d, mw, o, t_min):
     return torch.where(valid, code, _PLK_SENT)
 
 
+def _leaf_pairs(ss, cnt):
+    """The (lane, slot) pairs of lanes testing fat leaves (slots ss ..
+    ss+cnt-1), in chunks of lanes of at most _PLK_PAIRS pairs (a leaf
+    holds at most PLK_WINDOW): per chunk (a, n, lane_of, j, slot), the
+    chunk's first lane a and its n lanes, and per pair its lane in the
+    chunk, its index in the leaf and its slot."""
+    per = max(1, _PLK_PAIRS // PLK_WINDOW)
+    for a in range(0, ss.shape[0], per):
+        c = cnt[a:a + per].long()
+        n = c.shape[0]
+        lane_of = torch.repeat_interleave(torch.arange(n, device=c.device), c)
+        j = torch.arange(lane_of.shape[0], device=c.device) - (torch.cumsum(c, 0) - c)[lane_of]
+        yield a, n, lane_of, j, ss[a:a + per].long()[lane_of] + j
+
+
 def _plk_leaves(consts, ss, cnt, d, mw, o, t_min):
     """Least winner code of each lane's fat leaf (slots ss .. ss+cnt-1),
-    `_PLK_SENT` where no slot is hit; in chunks of lanes of at most
-    _PLK_PAIRS pairs (a leaf holds at most PLK_WINDOW)."""
-    L = ss.shape[0]
-    best = torch.full((L,), _PLK_SENT, dtype=torch.int32, device=ss.device)
-    per = max(1, _PLK_PAIRS // PLK_WINDOW)
-    for a in range(0, L, per):
-        c = cnt[a:a + per].long()
-        lane_of = torch.repeat_interleave(torch.arange(c.shape[0], device=c.device), c)
-        j = torch.arange(lane_of.shape[0], device=c.device) - (torch.cumsum(c, 0) - c)[lane_of]
-        slot = ss[a:a + per].long()[lane_of] + j
-        code = _plk_leaf_codes(consts, slot, j, d[a:a + per][lane_of],
-                               mw[a:a + per][lane_of], o[a:a + per][lane_of], t_min)
-        best[a:a + per].scatter_reduce_(0, lane_of, code, "amin")
+    `_PLK_SENT` where no slot is hit."""
+    best = torch.full((ss.shape[0],), _PLK_SENT, dtype=torch.int32, device=ss.device)
+    for a, n, lane_of, j, slot in _leaf_pairs(ss, cnt):
+        code = _plk_leaf_codes(consts, slot, j, d[a:a + n][lane_of],
+                               mw[a:a + n][lane_of], o[a:a + n][lane_of], t_min)
+        best[a:a + n].scatter_reduce_(0, lane_of, code, "amin")
     return best
 
 
@@ -353,6 +387,129 @@ def _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
     return out
 
 
+def pick_ordering(rd):
+    """Each ray's link ordering o = 2*axis + neg: `_pick_ordering`'s rule
+    (traverse_pallas.py:761-772) on the ray's own direction, the dominant
+    |component| with ties to x, then y, and `>= 0` as positive, so -0.0
+    travels toward +axis."""
+    a = rd.abs()
+    ax, ay, az = a[:, 0], a[:, 1], a[:, 2]
+    ox = torch.where(rd[:, 0] >= 0, 0, 1)
+    oy = torch.where(rd[:, 1] >= 0, 2, 3)
+    oz = torch.where(rd[:, 2] >= 0, 4, 5)
+    return torch.where((ax >= ay) & (ax >= az), ox, torch.where(ay >= az, oy, oz))
+
+
+def _trl_leaves(recs, ss, cnt, o, d, t, t_min):
+    """(t, prim) of lanes draining fat leaves (slots ss .. ss+cnt-1): the
+    slots' Möller-Trumbore or sphere tests (traverse_pallas.py:1365-1410)
+    taken in slot order with a strict `<` against t, so the least t wins
+    and a tie goes to the smaller slot.  t [n] the lanes' best t, prim
+    -1 where no slot beats it."""
+    t_new = t.clone()
+    prim = torch.full((ss.shape[0],), -1, dtype=torch.int32, device=ss.device)
+    for a, n, lane_of, j, slot in _leaf_pairs(ss, cnt):
+        r = recs[slot]
+        ri = r.view(torch.int32)
+        dd, oo = d[a:a + n][lane_of], o[a:a + n][lane_of]
+        rdx, rdy, rdz = dd[:, 0], dd[:, 1], dd[:, 2]
+        ox, oy, oz = oo[:, 0], oo[:, 1], oo[:, 2]
+        tt, _, _, h_t = _moller_trumbore(
+            rdx, rdy, rdz, ox, oy, oz, (r[:, 0], r[:, 1], r[:, 2]),
+            (r[:, 3], r[:, 4], r[:, 5]), (r[:, 6], r[:, 7], r[:, 8]), t_min)
+        ts, h_s = _sphere(rdx, rdy, rdz, ox, oy, oz, (r[:, 0], r[:, 1], r[:, 2]),
+                          r[:, 3], t_min)
+        is_tri = ri[:, 10] > 0
+        tp = torch.where(is_tri, tt, ts)
+        hp = torch.where(is_tri, h_t, h_s)
+        tp = torch.where(hp, tp, float("inf"))
+        best = torch.full((n,), float("inf"), dtype=torch.float32, device=ss.device)
+        best.scatter_reduce_(0, lane_of, tp, "amin")
+        first = torch.full((n,), PLK_WINDOW, dtype=torch.int64, device=ss.device)
+        at_best = hp & (tp == best[lane_of])
+        first.scatter_reduce_(0, lane_of[at_best], j[at_best], "amin")
+        tl = t_new[a:a + n]
+        closer = (first < PLK_WINDOW) & (best < tl)
+        t_new[a:a + n] = torch.where(closer, best, tl)
+        fs = (ss[a:a + n].long() + first.clamp(max=PLK_WINDOW - 1)).clamp(max=recs.shape[0] - 1)
+        prim[a:a + n] = torch.where(closer, recs.view(torch.int32)[fs, 9], -1)
+    return t_new, prim
+
+
+def _traverse_trl_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
+    """Plain version of K4 (ops/smt_cuda.py): each lane walks the cut
+    tree of ops/trl_layout.py along the links of its own ordering
+    (`pick_ordering`) with K4's safe inverse (traverse_pallas.py
+    :1348-1351, the same as `_plk_safe_inv`).  Each step runs the
+    reference kernel's order (:1450-1521): the box test against the
+    current t; the drain of the fat leaf latched on the previous step
+    (`_trl_leaves`); the latch of this node's leaf where the box is hit;
+    the hit or miss link; and an any-hit lane stops once it has a prim.
+    A lane ends when it has no node and no latched leaf.  Lanes with
+    t0 <= t_min keep (t0, -1).  Returns {"t", "prim"}.
+
+    With stats=True also returns {"node_steps", "leaves", "slot_tests"}
+    summed over the lanes: box tests, leaves drained and slot tests."""
+    dev = ro.device
+    N = ro.shape[0]
+    nodes, links, recs = scene["trl_nodes"], scene["trl_links"], scene["trl_recs"]
+    nodes_i = nodes.view(torch.int32)
+    links = links.long()
+
+    t_out = t0.clone()
+    prim_out = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    lane = torch.nonzero(t0 > t_min).squeeze(1)
+    o = ro[lane]
+    d = rd[lane]
+    inv = _plk_safe_inv(d)
+    order2 = 2 * pick_ordering(d)
+    t = t0[lane]
+    cur = torch.zeros_like(lane)
+    prim = torch.full_like(lane, -1, dtype=torch.int32)
+    pstart = torch.full_like(lane, -1)
+    pcount = torch.zeros_like(lane)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    while lane.numel():
+        active = cur >= 0
+        curc = cur.clamp(min=0)
+        if stats:
+            counts[0] += active.sum()
+        nd = nodes[curc]
+        hitv = _slab_hit(nd[:, 0:3], nd[:, 3:6], o, inv, t) & active
+        if any_hit:
+            hitv &= prim < 0
+        ndi = nodes_i[curc]
+        enter = hitv & (ndi[:, 6] >= 0)
+        dr = torch.nonzero(pstart >= 0).squeeze(1)
+        if dr.numel():
+            if stats:
+                counts[1] += dr.numel()
+                counts[2] += pcount[dr].sum()
+            t_dr, p_dr = _trl_leaves(recs, pstart[dr], pcount[dr], o[dr], d[dr], t[dr], t_min)
+            t[dr] = t_dr
+            prim[dr] = torch.where(p_dr >= 0, p_dr, prim[dr])
+        pstart = torch.where(enter, ndi[:, 6].long(), -1)
+        pcount = torch.where(enter, ndi[:, 7].long(), 0)
+        lk = links[curc, order2 + torch.where(hitv, 0, 1)]
+        cur = torch.where(active, lk, cur)
+        if any_hit:
+            cur = torch.where(prim >= 0, -1, cur)
+        done = (cur < 0) & (pstart < 0)
+        if bool(done.any()):
+            fin = lane[done]
+            t_out[fin] = t[done]
+            prim_out[fin] = prim[done]
+            keep = ~done
+            lane, o, d, inv, order2 = lane[keep], o[keep], d[keep], inv[keep], order2[keep]
+            t, cur, prim = t[keep], cur[keep], prim[keep]
+            pstart, pcount = pstart[keep], pcount[keep]
+    out = {"t": t_out, "prim": prim_out}
+    if stats:
+        n = counts.tolist()
+        return out, {"node_steps": n[0], "leaves": n[1], "slot_tests": n[2]}
+    return out
+
+
 def recompute_uv(scene, ro, rd, prim):
     """Barycentrics of each ray's winning triangle, (0, 0) for spheres and
     misses: one Möller-Trumbore in the oracle's op order, the
@@ -391,6 +548,33 @@ def _traverse_plk(scene, ro, rd, t0, any_hit, t_min, impl):
     return {"t": t, "prim": prim, "u": u, "v": v, "hit": prim >= 0}
 
 
+def _traverse_smt(scene, ro, rd, t0, any_hit, t_min, impl):
+    """K4 (impl "smt": the kernel at CHAINS rays per thread, or its plain
+    version for CPU tensors) or its plain version (impl "smt_plain"),
+    then the winner's u/v for closest-hit rays; any-hit rays get
+    u = v = 0, as in the reference (traverse_pallas.py:2150-2158)."""
+    if "trl_nodes" not in scene:
+        raise ValueError(f"impl={impl!r} needs a scene with the treelet layout "
+                         "(ops/trl_layout.py): build it under ATEN_TPU_KERNEL=smt, or "
+                         "attach it with scene.scene.with_trl_layout")
+    if impl == "smt_plain":
+        h = _traverse_trl_plain(scene, ro, rd, t0, any_hit, t_min)
+        t, prim = h["t"], h["prim"]
+    else:
+        from aten_tpu_torch.ops.smt_cuda import smt_traverse
+
+        t, prim = smt_traverse(scene, ro, rd, t0, any_hit=any_hit, t_min=t_min,
+                               chains=CHAINS)
+    if any_hit:
+        u = v = torch.zeros_like(t)
+    else:
+        u, v = recompute_uv(scene, ro, rd, prim)
+    return {"t": t, "prim": prim, "u": u, "v": v, "hit": prim >= 0}
+
+
+IMPLS = ("auto", "dense", "plain", "cuda", "plk", "plk_plain", "smt", "smt_plain")
+
+
 def traverse(scene, ro, rd, t_max=None, any_hit=False, t_min=1e-4, impl="auto"):
     """Closest (or any) hit for rays ro, rd [N, 3] (unit directions).
 
@@ -399,13 +583,14 @@ def traverse(scene, ro, rd, t_max=None, any_hit=False, t_min=1e-4, impl="auto"):
     Instanced scenes add `inst` (accel/tlas.py::traverse_two_level).
 
     impl: "auto" takes the dense test for scenes of at most
-    DENSE_MAX_PRIMS prims, the K3 kernel for scenes built with the
-    Plücker layout (static `traversal` == "plk"), and otherwise the K1
-    kernel; a kernel runs its plain version for CPU tensors.  "dense",
-    "plain" (the oracle walk), "cuda" (K1), "plk" (K3) and "plk_plain"
-    (K3's plain version) force one; the last two need the layout.
+    DENSE_MAX_PRIMS prims, the kernel the scene's build named under the
+    kernel policy (static `traversal`: "plk" for K3, "smt" for K4), and
+    otherwise the K1 kernel; a kernel runs its plain version for CPU
+    tensors.  "dense", "plain" (the oracle walk), "cuda" (K1), "plk"
+    (K3), "plk_plain" (K3's plain version), "smt" (K4) and "smt_plain"
+    (K4's plain version) force one; the last four need their layouts.
     """
-    if impl not in ("auto", "dense", "plain", "cuda", "plk", "plk_plain"):
+    if impl not in IMPLS:
         raise ValueError(f"unknown traversal impl {impl!r}")
     if "tl_bmin" in scene:
         from aten_tpu_torch.accel.tlas import traverse_two_level
@@ -420,10 +605,12 @@ def traverse(scene, ro, rd, t_max=None, any_hit=False, t_min=1e-4, impl="auto"):
         return _traverse_dense(scene, ro, rd, t0, t_min)
     if impl == "plain":
         return _traverse_plain(scene, ro, rd, t0, any_hit, t_min)
-    if impl == "auto" and scene.get("traversal") == "plk":
-        impl = "plk"
+    if impl == "auto":
+        impl = {"plk": "plk", "smt": "smt"}.get(scene.get("traversal"), "cuda")
     if impl in ("plk", "plk_plain"):
         return _traverse_plk(scene, ro, rd, t0, any_hit, t_min, impl)
+    if impl in ("smt", "smt_plain"):
+        return _traverse_smt(scene, ro, rd, t0, any_hit, t_min, impl)
     from aten_tpu_torch.ops.traverse_cuda import bvh_traverse
 
     t, prim, u, v = bvh_traverse(scene, ro, rd, t0, any_hit=any_hit, t_min=t_min)

@@ -1,6 +1,6 @@
 // Plain C interface of the traversal kernels, loaded from Python with
 // ctypes (aten_tpu_torch/ops/traverse_cuda.py, ops/tlas_cuda.py,
-// ops/plk_cuda.py).  It includes no PyTorch
+// ops/plk_cuda.py, ops/smt_cuda.py).  It includes no PyTorch
 // header, so the whole library builds in seconds.  Pointers are device
 // addresses of contiguous tensors the caller has checked; `stream` is
 // the caller's current CUDA stream.
@@ -86,6 +86,25 @@ int aten_plk_traverse(const float* bmin, const float* bmax,
   const aten_tpu_torch::RayView rays{ro, rd, t0, t, prim, nullptr, nullptr, n};
   return aten_tpu_torch::launch_plk_traverse(plk, rays, t_min, any_hit != 0,
                                              stream);
+}
+
+// The multi-chain treelet walk; returns as aten_bvh_traverse does.
+int aten_smt_traverse(const float* nodes, const int32_t* links,
+                      const float* recs, const float* ro, const float* rd,
+                      const float* t0, float* t, int32_t* prim, int64_t n,
+                      float t_min, int32_t any_hit, int32_t chains,
+                      void* stream) {
+  if (n < 0) return -1;
+  if (n > 0 && (!ro || !rd || !t0 || !t || !prim)) return -1;
+  if (!nodes || !links || !recs) return -1;
+  if (reinterpret_cast<uintptr_t>(nodes) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(recs) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(links) % 8 != 0)
+    return -1;
+  const aten_tpu_torch::TrlView trl{nodes, links, recs};
+  const aten_tpu_torch::RayView rays{ro, rd, t0, t, prim, nullptr, nullptr, n};
+  return aten_tpu_torch::launch_smt_traverse(trl, rays, t_min, any_hit != 0,
+                                             chains, stream);
 }
 
 const char* aten_cuda_error_string(int code) {

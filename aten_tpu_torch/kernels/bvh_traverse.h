@@ -1,7 +1,7 @@
 // Shared declarations of the traversal kernels (bvh_traverse.cu, the
 // threaded BVH; tlas_traverse.cu, the two-level instanced pool;
-// plk_traverse.cu, the Plücker treelet layout) and their C interface
-// (bindings.cpp).
+// plk_traverse.cu, the Plücker treelet layout; smt_traverse.cu, the
+// direction-ordered treelet layout) and their C interface (bindings.cpp).
 #pragma once
 
 #include <cstdint>
@@ -86,6 +86,21 @@ struct PlkView {
 // Writes rays.t and rays.prim; rays.u and rays.v are not used.
 int launch_plk_traverse(const PlkView& plk, const RayView& rays,
                         float t_min, bool any_hit, void* stream);
+
+// The treelet layout of ops/trl_layout.py; device pointers.
+// `nodes` and `recs` are 16-byte aligned (read as float4), `links`
+// 8-byte aligned (read as int2).
+struct TrlView {
+  const float* nodes;    // [Kt,8] bmin, bmax, first slot of a fat leaf
+                         //        (or -1) and its slot count as int bits
+  const int32_t* links;  // [Kt,12] (hit, miss) per ordering 2*axis + neg
+  const float* recs;     // [S,12] slot records (ops/trl_layout.py)
+};
+
+// Writes rays.t and rays.prim with `chains` rays per thread (1, 2, 4 or
+// 8; -1 for any other); rays.u and rays.v are not used.
+int launch_smt_traverse(const TrlView& trl, const RayView& rays, float t_min,
+                        bool any_hit, int chains, void* stream);
 
 const char* cuda_error_string(int code);
 

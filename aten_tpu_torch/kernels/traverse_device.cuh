@@ -1,5 +1,5 @@
 // Device-side tests shared by the traversal kernels (bvh_traverse.cu,
-// tlas_traverse.cu).  Each repeats the oracle's operation order
+// tlas_traverse.cu, smt_traverse.cu).  Each repeats the oracle's operation order
 // (aten_tpu/accel/traverse.py, aten_tpu/accel/tlas.py) so that, built
 // with --fmad=false, every float op rounds as in the plain torch walks.
 #pragma once
@@ -35,19 +35,18 @@ __device__ __forceinline__ bool slab_hit(const float* __restrict__ bmin,
   return t_enter <= t_exit && t_exit > 0.0f && t_enter < t;
 }
 
-__device__ __forceinline__ bool moller_trumbore(
-    const float* __restrict__ v0, const float* __restrict__ e1,
-    const float* __restrict__ e2, float ox, float oy, float oz, float dx,
+// Moller-Trumbore of the triangle (v0, e1 = v1 - v0, e2 = v2 - v0).
+__device__ __forceinline__ bool moller_trumbore_at(
+    float v0x, float v0y, float v0z, float e1x, float e1y, float e1z,
+    float e2x, float e2y, float e2z, float ox, float oy, float oz, float dx,
     float dy, float dz, float t_min, float& t, float& u, float& v) {
-  const float e1x = __ldg(e1), e1y = __ldg(e1 + 1), e1z = __ldg(e1 + 2);
-  const float e2x = __ldg(e2), e2y = __ldg(e2 + 1), e2z = __ldg(e2 + 2);
   const float px = dy * e2z - dz * e2y;
   const float py = dz * e2x - dx * e2z;
   const float pz = dx * e2y - dy * e2x;
   const float det = e1x * px + e1y * py + e1z * pz;
   if (!(fabsf(det) > 1e-12f)) return false;
   const float inv = 1.0f / det;
-  const float sx = ox - __ldg(v0), sy = oy - __ldg(v0 + 1), sz = oz - __ldg(v0 + 2);
+  const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
   u = (sx * px + sy * py + sz * pz) * inv;
   const float qx = sy * e1z - sz * e1y;
   const float qy = sz * e1x - sx * e1z;
@@ -57,12 +56,22 @@ __device__ __forceinline__ bool moller_trumbore(
   return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min;
 }
 
+// The same with the triangle read from three [.,3] rows.
+__device__ __forceinline__ bool moller_trumbore(
+    const float* __restrict__ v0, const float* __restrict__ e1,
+    const float* __restrict__ e2, float ox, float oy, float oz, float dx,
+    float dy, float dz, float t_min, float& t, float& u, float& v) {
+  return moller_trumbore_at(__ldg(v0), __ldg(v0 + 1), __ldg(v0 + 2), __ldg(e1),
+                            __ldg(e1 + 1), __ldg(e1 + 2), __ldg(e2), __ldg(e2 + 1),
+                            __ldg(e2 + 2), ox, oy, oz, dx, dy, dz, t_min, t, u, v);
+}
+
 // Nearest root past t_min for a unit direction (traverse.py's _sphere).
-__device__ __forceinline__ bool sphere(const float* __restrict__ c, float r,
-                                       float ox, float oy, float oz, float dx,
-                                       float dy, float dz, float t_min,
-                                       float& t) {
-  const float sx = ox - __ldg(c), sy = oy - __ldg(c + 1), sz = oz - __ldg(c + 2);
+__device__ __forceinline__ bool sphere_at(float cx, float cy, float cz, float r,
+                                          float ox, float oy, float oz, float dx,
+                                          float dy, float dz, float t_min,
+                                          float& t) {
+  const float sx = ox - cx, sy = oy - cy, sz = oz - cz;
   const float b = sx * dx + sy * dy + sz * dz;
   const float cq = sx * sx + sy * sy + sz * sz - r * r;
   const float disc = b * b - cq;
@@ -71,6 +80,15 @@ __device__ __forceinline__ bool sphere(const float* __restrict__ c, float r,
   const float tb = -b + sq;
   t = ta > t_min ? ta : tb;
   return disc > 0.0f && t > t_min;
+}
+
+// The same with the centre read from a [.,3] row.
+__device__ __forceinline__ bool sphere(const float* __restrict__ c, float r,
+                                       float ox, float oy, float oz, float dx,
+                                       float dy, float dz, float t_min,
+                                       float& t) {
+  return sphere_at(__ldg(c), __ldg(c + 1), __ldg(c + 2), r, ox, oy, oz, dx, dy, dz,
+                   t_min, t);
 }
 
 // The same for a non-unit (object-space) direction: a t^2 + 2 b t + c

@@ -24,8 +24,10 @@ The window is this module's constant and travels with the layout as
 
 `uses_plk` is the reference's choice of the kernel (traverse_pallas.py
 :2054-2058, scene/scene.py:426-438): a single-level, triangle-only scene
-whose build takes the treelet branch and whose packed pools, counted as
-the reference stores them, exceed RESIDENT_MB.
+whose build takes the treelet branch and, under the default kernel
+policy, whose packed pools, counted as the reference stores them, exceed
+RESIDENT_MB; the policy "plk" takes every such scene, "smt" and "mt"
+none.
 """
 from __future__ import annotations
 
@@ -166,9 +168,11 @@ def build_plk_layout(bvh, tri_v0, tri_e1, tri_e2, num_tris):
     }
 
 
-def uses_plk(n_nodes, n_prims, layout):
+def uses_plk(n_nodes, n_prims, layout, kernel):
     """The reference's kernel choice for a single-level scene with BVH
-    size (n_nodes, n_prims) and layout `build_plk_layout`'s result."""
+    size (n_nodes, n_prims) and layout `build_plk_layout`'s result under
+    the kernel policy `kernel` (accel/traverse.py::KERNEL)."""
     return (layout is not None
             and (n_nodes + n_prims) * 512 >= TREELET_MIN_BYTES
-            and layout["plk_pool_mb"] > RESIDENT_MB)
+            and (kernel == "plk"
+                 or (layout["plk_pool_mb"] > RESIDENT_MB and kernel not in ("smt", "mt"))))

@@ -1,0 +1,90 @@
+"""Wrapper of the hand-written CUDA multi-chain treelet kernel (K4).
+
+`smt_traverse` runs the walk of kernels/smt_traverse.cu (closest-hit and
+any-hit instantiations, 1, 2, 4 or 8 rays per thread) over a scene's
+treelet layout (ops/trl_layout.py).  It replaces the TPU kernel
+`_make_smt_kernel` (aten_tpu/ops/traverse_pallas.py:1335, launched by
+`_traverse_smt_tiles` :1542).  Its arguments are checked on every
+device; for tensors on the CPU it then runs the kernel's plain version,
+accel/traverse.py::_traverse_trl_plain, and on a CUDA tensor it launches
+the kernel or raises, never falling back.  The kernel lives in the
+library of ops/traverse_cuda.py.
+"""
+from __future__ import annotations
+
+import torch
+
+from aten_tpu_torch.ops.traverse_cuda import _checked, load_library
+from aten_tpu_torch.ops.trl_layout import ORDERINGS, RECORD, TRL_NODE, WINDOW
+
+CHAIN_COUNTS = (1, 2, 4, 8)
+KERNELS = tuple(f"smt_traverse_{kind}_c{c}" for kind in ("closest", "any")
+                for c in CHAIN_COUNTS)
+
+# Launches per kernel instantiation since the last reset: the one place
+# that adds to a count is the line after a successful launch below.
+launch_counts = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launch_counts():
+    for k in KERNELS:
+        launch_counts[k] = 0
+
+
+def kernel_name(any_hit, chains):
+    return f"smt_traverse_{'any' if any_hit else 'closest'}_c{chains}"
+
+
+# (name, dtype, trailing shape) of each scene array the kernel reads
+_SCENE_FIELDS = (
+    ("trl_nodes", torch.float32, (TRL_NODE,)),
+    ("trl_links", torch.int32, (2 * ORDERINGS,)),
+    ("trl_recs", torch.float32, (RECORD,)),
+)
+
+
+def smt_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4, chains=4):
+    """Closest (or any) hit of rays ro, rd [N,3] with t_max t0 [N] against
+    the scene's treelet layout, `chains` rays per thread.  Returns
+    (t, prim), each [N]: the winner's t (t0 on a miss) and its global id
+    (-1 on a miss)."""
+    dev = ro.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"smt_traverse: unsupported device {dev}")
+    if chains not in CHAIN_COUNTS:
+        raise ValueError(f"smt_traverse: chains={chains!r}; the kernel is built "
+                         f"for {CHAIN_COUNTS} rays per thread")
+    if scene.get("trl_window") != WINDOW:
+        raise ValueError(f"the scene's treelet layout has window "
+                         f"{scene.get('trl_window')}; the kernel takes {WINDOW}")
+    n = ro.shape[0]
+    ptrs = [_checked(k, scene[k], dt, tail, dev) for k, dt, tail in _SCENE_FIELDS]
+    ro_p = _checked("ro", ro, torch.float32, (3,), dev)
+    rd_p = _checked("rd", rd, torch.float32, (3,), dev)
+    t0_p = _checked("t0", t0, torch.float32, (), dev)
+    if rd.shape[0] != n or t0.shape[0] != n:
+        raise ValueError(f"ray counts differ: {n}, {rd.shape[0]}, {t0.shape[0]}")
+    if dev.type == "cpu":
+        from aten_tpu_torch.accel.traverse import _traverse_trl_plain
+
+        h = _traverse_trl_plain(scene, ro, rd, t0, any_hit, t_min)
+        return h["t"], h["prim"]
+    if ptrs[0] % 16 or ptrs[1] % 8 or ptrs[2] % 16:
+        raise ValueError("trl_nodes and trl_recs must be 16-byte aligned, "
+                         "trl_links 8-byte aligned")
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return t, prim
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.aten_smt_traverse(
+            *ptrs, ro_p, rd_p, t0_p, t.data_ptr(), prim.data_ptr(),
+            n, float(t_min), int(any_hit), int(chains), stream)
+    if rc != 0:
+        what = ("bad arguments" if rc < 0
+                else lib.aten_cuda_error_string(rc).decode())
+        raise RuntimeError(f"smt_traverse launch failed ({rc}): {what}")
+    launch_counts[kernel_name(any_hit, chains)] += 1
+    return t, prim

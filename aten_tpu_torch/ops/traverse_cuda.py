@@ -9,8 +9,9 @@ For tensors on the CPU it runs the kernel's plain version,
 accel/traverse.py::_traverse_plain; on a CUDA tensor it launches the
 kernel or raises, never falling back.
 
-The library, which also holds the two-level kernel of ops/tlas_cuda.py
-and the Plücker treelet kernel of ops/plk_cuda.py, is built at first
+The library, which also holds the two-level kernel of ops/tlas_cuda.py,
+the Plücker treelet kernel of ops/plk_cuda.py and the multi-chain
+treelet kernel of ops/smt_cuda.py, is built at first
 use from the repository's sources with torch.utils.cpp_extension.load
 into build/aten_tpu_torch/, for sm_90a, with --fmad=false, under a file
 lock.  Its interface is plain C (kernels/bindings.cpp), loaded with
@@ -29,6 +30,7 @@ KERNEL_DIR = os.path.join(native.REPO_ROOT, "aten_tpu_torch", "kernels")
 SOURCES = (os.path.join(KERNEL_DIR, "bvh_traverse.cu"),
            os.path.join(KERNEL_DIR, "tlas_traverse.cu"),
            os.path.join(KERNEL_DIR, "plk_traverse.cu"),
+           os.path.join(KERNEL_DIR, "smt_traverse.cu"),
            os.path.join(KERNEL_DIR, "bindings.cpp"))
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
               "-Xptxas=-v")
@@ -80,6 +82,9 @@ def load_library(verbose=False):
     lib.aten_plk_traverse.restype = ctypes.c_int
     lib.aten_plk_traverse.argtypes = (
         [vp] * 13 + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp])
+    lib.aten_smt_traverse.restype = ctypes.c_int
+    lib.aten_smt_traverse.argtypes = (
+        [vp] * 8 + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, ctypes.c_int32, vp])
     lib.aten_cuda_error_string.restype = ctypes.c_char_p
     lib.aten_cuda_error_string.argtypes = [ctypes.c_int]
     _lib = lib

@@ -6,10 +6,16 @@ host-side registry and `SceneBuilder.build(device)` freezes it into a
 same keys, values and static flags as the reference's `SceneData`
 (minus the TPU kernel layouts, which the port does not use).
 
-A single-level, triangle-only scene on which the reference would run
-its Plücker treelet kernel K3 (ops/plk_layout.py::uses_plk) also gets
-the port's K3 layout (`plk_*` arrays) and the statics
-`traversal` = "plk" and `plk_window`; other scenes build without them.
+A scene gets a treelet layout only where the kernel policy
+(accel/traverse.py::KERNEL) runs that layout's kernel on it.  Under the
+policy "smt", a single-level scene on the reference's treelet branch
+(ops/trl_layout.py::uses_trl) gets the port's K4 layout (`trl_*` arrays)
+and the statics `traversal` = "smt" and `trl_window`.  Under "v3" and
+"plk", one on which the reference would run its Plücker treelet kernel
+K3 (ops/plk_layout.py::uses_plk) gets the port's K3 layout (`plk_*`
+arrays) and the statics `traversal` = "plk" and `plk_window`.  Other
+scenes build without them; `with_trl_layout` attaches the K4 layout to
+a built scene, for `traverse(impl="smt")` under another policy.
 
 Instanced objects (`create_object`, `add_instance`, `obj=` on the
 geometry adds) build the two-level pool of accel/tlas.py.
@@ -23,10 +29,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from aten_tpu_torch.accel import traverse
 from aten_tpu_torch.accel.build import LEAF_MAX, build_bvh
 from aten_tpu_torch.accel.tlas import build_two_level
 from aten_tpu_torch.device import resolve_device
-from aten_tpu_torch.ops import plk_layout
+from aten_tpu_torch.ops import plk_layout, trl_layout
 from aten_tpu_torch.scene.lights import LightTable, LightType
 from aten_tpu_torch.scene.materials import MaterialTable, MaterialType
 
@@ -71,6 +78,24 @@ def to_tensors(arrays: dict, device):
         else:
             out[k] = torch.tensor(np.asarray(v), device=device)
     return out
+
+
+def with_trl_layout(scene: Scene) -> Scene:
+    """`scene`, a built single-level scene, with the K4 layout of its own
+    BVH attached (the `trl_*` arrays and the static `trl_window`) and its
+    `traversal` left as it was: for `traverse(impl="smt")` under a kernel
+    policy whose build did not attach the layout."""
+    from aten_tpu_torch.scene.bridge import BVH_KEYS
+
+    if scene["num_instances"]:
+        raise ValueError("the K4 layout is for single-level scenes; this one has instances")
+    host = {k: scene[k].cpu().numpy()
+            for k in BVH_KEYS + ("tri_v0", "tri_e1", "tri_e2", "sph_center", "sph_radius")}
+    lay = trl_layout.build_trl_layout(host, host["tri_v0"], host["tri_e1"], host["tri_e2"],
+                                      host["sph_center"], host["sph_radius"], scene["num_tris"])
+    arrays = {**scene.arrays,
+              **to_tensors({k: lay[k] for k in trl_layout.ARRAY_KEYS}, scene.device)}
+    return Scene(arrays, {**scene.static, "trl_window": lay["trl_window"]}, scene.device)
 
 
 def check_leaf_sizes(prim_count):
@@ -310,12 +335,17 @@ class SceneBuilder:
             bvh = build_bvh(all_bmin, all_bmax)
             check_leaf_sizes(bvh["nodes_prim_count"])
             num_instances = 0
-        plk = None
+        # each layout only where the kernel policy can run its kernel
+        plk = trl = None
         if num_instances == 0:
-            lay = plk_layout.build_plk_layout(bvh, tv0, te1, te2, num_tris)
-            if plk_layout.uses_plk(bvh["nodes_hit"].shape[0],
-                                   bvh["prim_order"].shape[0], lay):
-                plk = lay
+            n_nodes, n_prims = bvh["nodes_hit"].shape[0], bvh["prim_order"].shape[0]
+            treelet = trl_layout.uses_trl(n_nodes, n_prims, num_instances)
+            if treelet and traverse.KERNEL == "smt":
+                trl = trl_layout.build_trl_layout(bvh, tv0, te1, te2, sc, sr, num_tris)
+            elif treelet and traverse.KERNEL in ("v3", "plk"):
+                lay = plk_layout.build_plk_layout(bvh, tv0, te1, te2, num_tris)
+                if plk_layout.uses_plk(n_nodes, n_prims, lay, traverse.KERNEL):
+                    plk = lay
 
         tri_areas = tarea[:num_tris] if num_tris else np.zeros(0, np.float32)
         arrays = {
@@ -361,6 +391,10 @@ class SceneBuilder:
                 {r["type"] for r in rows} | {int(MaterialType.DIFFUSE)}
             )),
         }
+        if trl is not None:
+            arrays.update({k: trl[k] for k in trl_layout.ARRAY_KEYS})
+            static["traversal"] = "smt"
+            static["trl_window"] = trl["trl_window"]
         if plk is not None:
             arrays.update({k: plk[k] for k in plk_layout.ARRAY_KEYS})
             static["traversal"] = "plk"

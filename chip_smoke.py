@@ -13,7 +13,14 @@ then holds the two-level (instanced) kernel against its plain version on
 the 19-instance fixture and renders that fixture through it, and finally
 holds the Plücker treelet kernel against its plain version and the
 oracle walk on the 512,004-prim mesh scene and renders that scene
-through it; each main-path render is profiled.  It prints the measured
+through it.  Phase 9 holds the multi-chain treelet kernel K4 at 1, 2, 4
+and 8 rays per thread against its plain version and the oracle walk on
+the rays of both mesh scenes, times it beside the kernels those scenes
+run by default, renders the 102,404-prim scene through it, and renders
+the 512,004-prim scene in a child process started with
+ATEN_TPU_KERNEL=smt; phase 10 runs the latency labs (pointer chase,
+launch overhead) against their plain versions.  Each main-path render
+is profiled, with its ten costliest device ops.  It prints the measured
 times and each kernel's bound (the least time the card could take for
 the work).
 Every phase raises on failure, so any failure exits non-zero.  The last
@@ -36,6 +43,12 @@ TLAS_SOURCE = "aten_tpu_torch/kernels/tlas_traverse.cu"
 TLAS_REPLACES = "aten_tpu/ops/traverse_pallas.py:1750"
 PLK_SOURCE = "aten_tpu_torch/kernels/plk_traverse.cu"
 PLK_REPLACES = "aten_tpu/ops/traverse_pallas.py:1058"
+SMT_SOURCE = "aten_tpu_torch/kernels/smt_traverse.cu"
+SMT_REPLACES = "aten_tpu/ops/traverse_pallas.py:1335"
+CHASE_SOURCE = "aten_tpu_torch/kernels/chase_lab.cu"
+CHASE_REPLACES = "tools/chase_lab.py:41"
+LAUNCH_SOURCE = "aten_tpu_torch/kernels/launch_lab.cu"
+LAUNCH_REPLACES = "tools/launch_lab.py:18"
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, fp32 FLOP/s
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
@@ -57,6 +70,11 @@ OPS_RAY = 6
 OPS_SLOT = 48
 OPS_LEAF = 6
 OPS_RAY_PLK = 15
+# The labs (kernels/chase_lab.cu, launch_lab.cu): integer and float
+# operations per thread and step (a load's address, a compare, a vote,
+# an add; the LCG's multiply, add and mask), 1024 threads per block.
+OPS_LAB_STEP = 4
+LAB_THREADS = 1024
 # _check_parity bounds (tests/test_pallas_tpu.py:29-42) and the
 # full-image radiance bounds (tests/test_pallas_tpu.py:157-166)
 PRIM_AGREE = 0.999
@@ -236,18 +254,19 @@ def pool_bytes(scene, fields):
 
 
 def reset_counts():
-    from aten_tpu_torch.ops import plk_cuda, tlas_cuda, traverse_cuda
+    from aten_tpu_torch.ops import plk_cuda, smt_cuda, tlas_cuda, traverse_cuda
 
     traverse_cuda.reset_launch_counts()
     tlas_cuda.reset_launch_counts()
     plk_cuda.reset_launch_counts()
+    smt_cuda.reset_launch_counts()
 
 
 def read_counts():
-    from aten_tpu_torch.ops import plk_cuda, tlas_cuda, traverse_cuda
+    from aten_tpu_torch.ops import plk_cuda, smt_cuda, tlas_cuda, traverse_cuda
 
     return {**traverse_cuda.launch_counts, **tlas_cuda.launch_counts,
-            **plk_cuda.launch_counts}
+            **plk_cuda.launch_counts, **smt_cuda.launch_counts}
 
 
 def plk_plain(scene, ro, rd, t_max=None, any_hit=False, t_min=1e-4):
@@ -280,18 +299,19 @@ def compare_plk(name, scene, ro, rd, t_max):
     VERDICT.md:194-200); the two tests may decide a ray through a shared
     edge differently; and the kernel's truncated t may fall under t_max
     where the exact t does not.  Returns the largest difference to the
-    plain version and its work counts per kind."""
+    plain version, its work counts and the oracle walk's (the least work
+    of the query), per kind."""
     import numpy as np
     import torch
 
     from aten_tpu_torch.accel.traverse import traverse
 
-    work, err = {}, 0.0
+    work, oracle_work, err = {}, {}, 0.0
     for kind, kw in (("closest", {}),
                      ("any", {"t_max": t_max, "any_hit": True, "t_min": 1e-3})):
         hk = traverse(scene, ro, rd, impl="plk", **kw)
         hp, work[kind] = plk_plain(scene, ro, rd, **kw)
-        ho, _ = plain_walk(scene, ro, rd, **kw)
+        ho, oracle_work[kind] = plain_walk(scene, ro, rd, **kw)
         exact = all(torch.equal(hk[k], hp[k]) for k in ("t", "prim", "u", "v", "hit"))
         err = max(err, *(float((hk[k] - hp[k]).abs().max()) for k in ("t", "u", "v")))
         pk, po = hk["prim"].cpu().numpy(), ho["prim"].cpu().numpy()
@@ -318,14 +338,16 @@ def compare_plk(name, scene, ro, rd, t_max):
                 f"({int((hk['hit'] != ho['hit']).sum())} differ)")
             assert agree >= PRIM_AGREE, (name, agree)
         assert exact, (name, kind)
-    log(f"{name} work: closest {work['closest']}, any {work['any']}")
-    return err, work
+    log(f"{name} work: closest {work['closest']}, any {work['any']}; the oracle walk's "
+        f"on the same rays: closest {oracle_work['closest']}, any {oracle_work['any']}")
+    return err, work, oracle_work
 
 
 def profile_render(fn):
     """One profiled call of fn(): (wall ms, device busy ms, traversal
-    kernels' ms), busy being the summed time of the events on the card
-    (kernels, copies, fills; one stream, so they do not overlap)."""
+    kernels' ms, the ten device ops with the most time as (name, ms)),
+    busy being the summed time of the events on the card (kernels,
+    copies, fills; one stream, so they do not overlap)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -337,21 +359,145 @@ def profile_render(fn):
         torch.cuda.synchronize()
         wall = (time.time() - t) * 1e3
     busy = trav = 0.0
+    ops = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue  # host ops: their device time repeats their kernels'
         us = e.self_device_time_total
         busy += us
+        ops.append((e.key, us / 1e3))
         if "traverse_kernel" in e.key:
             trav += us
-    return wall, busy / 1e3, trav / 1e3
+    top = sorted(ops, key=lambda kv: -kv[1])[:10]
+    return wall, busy / 1e3, trav / 1e3, top
 
 
 def log_profile(phase, card, prof):
-    wall, busy, trav = prof
+    wall, busy, trav, top = prof
     log(f"{phase} profiled render: wall {wall:.1f} ms, device busy {busy:.1f} ms "
         f"(idle share {1.0 - busy / wall:.3f}), traversal kernels {trav:.2f} ms "
         f"({trav / busy if busy else 0.0:.4f} of busy) [{card}]")
+    for name, ms in top:
+        short = name.replace("void ", "").replace("at::native::", "")
+        log(f"{phase}   top device op {ms:9.3f} ms ({ms / busy if busy else 0.0:.4f} of busy) "
+            f"{short[:120]}")
+
+
+def timed_ms(fn):
+    """(fn(), device ms of that one call), measured with CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def smt_hits(scene, ro, rd, t0, any_hit, t_min, chains):
+    """K4 at `chains` rays per thread, with the u/v step of
+    traverse(impl="smt")."""
+    import torch
+
+    from aten_tpu_torch.accel.traverse import recompute_uv
+    from aten_tpu_torch.ops.smt_cuda import smt_traverse
+
+    t, prim = smt_traverse(scene, ro, rd, t0, any_hit=any_hit, t_min=t_min, chains=chains)
+    if any_hit:
+        u = v = torch.zeros_like(t)
+    else:
+        u, v = recompute_uv(scene, ro, rd, prim)
+    return {"t": t, "prim": prim, "u": u, "v": v, "hit": prim >= 0}
+
+
+def compare_smt(name, scene, ro, rd, t_max):
+    """K4 at every chain count against one run of its plain version,
+    which it must equal bit for bit (t, prim, u, v; any-hit t and prim:
+    the walk drains whole leaves, so even any-hit prims are the plain
+    version's), and against the oracle walk: prim agreement (any-hit:
+    verdict agreement) >= PRIM_AGREE, t within T_TOL and u/v within UV_TOL
+    where prims agree.  Returns the largest difference to the plain
+    version, the plain version's work counts, the oracle walk's work
+    counts (the least work of the query) and the plain version's device
+    ms, per kind."""
+    import numpy as np
+
+    from aten_tpu_torch.accel.traverse import _t0_of, _traverse_trl_plain, recompute_uv
+    from aten_tpu_torch.ops.smt_cuda import CHAIN_COUNTS
+
+    err, work, oracle_work, plain_ms = 0.0, {}, {}, {}
+    for kind, t0, any_hit, t_min in (("closest", None, False, 1e-4),
+                                     ("any", t_max, True, 1e-3)):
+        t0 = _t0_of(t0, ro.shape[0], ro.device)
+        (hp, work[kind]), plain_ms[kind] = timed_ms(
+            lambda: _traverse_trl_plain(scene, ro, rd, t0, any_hit, t_min, stats=True))
+        if not any_hit:
+            hp["u"], hp["v"] = recompute_uv(scene, ro, rd, hp["prim"])
+        ho, oracle_work[kind] = plain_walk(
+            scene, ro, rd, t_max=None if kind == "closest" else t_max, any_hit=any_hit,
+            t_min=t_min)
+        keys = ("t", "prim") + (() if any_hit else ("u", "v"))
+        for c in CHAIN_COUNTS:
+            hk = smt_hits(scene, ro, rd, t0, any_hit, t_min, c)
+            exact = all(bool((hk[k] == hp[k]).all()) for k in keys)
+            err = max(err, *(float((hk[k] - hp[k]).abs().max()) for k in keys if k != "prim"))
+            log(f"{name} {kind}-hit K4 C={c}: bitwise equal to the plain version {exact}")
+            assert exact, (name, kind, c)
+        pk, po = hp["prim"].cpu().numpy(), ho["prim"].cpu().numpy()
+        if kind == "closest":
+            agree = float((pk == po).mean())
+            m = (po >= 0) & (pk == po)
+            tk, to = hp["t"].cpu().numpy()[m], ho["t"].cpu().numpy()[m]
+            duv = max(float(np.abs(hp[k].cpu().numpy()[m] - ho[k].cpu().numpy()[m]).max())
+                      for k in ("u", "v"))
+            log(f"{name}: {ro.shape[0]} rays, hit {float((pk >= 0).mean()):.4f}; K4 against "
+                f"the oracle walk: prim agreement {agree:.6f}, max |dt| "
+                f"{float(np.abs(tk - to).max()):.3e}, max |du|,|dv| {duv:.3e}")
+            assert agree >= PRIM_AGREE, (name, agree)
+            np.testing.assert_allclose(tk, to, rtol=T_TOL, atol=T_TOL)
+            assert duv <= UV_TOL, (name, duv)
+        else:
+            agree = float(((pk >= 0) == (po >= 0)).mean())
+            log(f"{name} any-hit: occluded {float((pk >= 0).mean()):.4f}; verdicts equal to "
+                f"the oracle walk's on {agree:.7f} of rays "
+                f"({int(((pk >= 0) != (po >= 0)).sum())} differ)")
+            assert agree >= PRIM_AGREE, (name, agree)
+    log(f"{name} K4 work: closest {work['closest']}, any {work['any']}; the oracle "
+        f"walk's on the same rays: closest {oracle_work['closest']}, any {oracle_work['any']}")
+    return err, work, oracle_work, plain_ms
+
+
+CHILD_SMT = """
+import json, sys
+sys.path.insert(0, {root!r})
+import torch
+from aten_tpu_torch.accel import traverse
+from aten_tpu_torch.integrator.pathtracer import render_image
+from aten_tpu_torch.ops import plk_cuda, smt_cuda, tlas_cuda, traverse_cuda
+from aten_tpu_torch.scene.scenedefs import large_mesh_scene
+scene, cam = large_mesh_scene(64, 64, device="cuda")
+for m in (plk_cuda, smt_cuda, tlas_cuda, traverse_cuda):
+    m.reset_launch_counts()
+img = render_image(scene, cam, spp=4, max_depth=5, rr_depth=3)
+torch.cuda.synchronize()
+counts = {{**traverse_cuda.launch_counts, **tlas_cuda.launch_counts,
+          **plk_cuda.launch_counts, **smt_cuda.launch_counts}}
+print(json.dumps({{"kernel": traverse.KERNEL, "chains": traverse.CHAINS,
+                  "traversal": scene.get("traversal"), "plk": "plk_consts" in scene,
+                  "finite": bool(torch.isfinite(img).all()), "mean": float(img.mean()),
+                  "counts": counts}}))
+"""
+
+
+def lab_bound(nbytes, ops):
+    """(bound ms, what bounds it) of a lab launch from its bytes and
+    operations."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / FP32_FLOP_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def main():
@@ -382,7 +528,7 @@ def main():
     # -- phase 1: build the kernels (one library) from the checkout's sources
     t = time.time()
     traverse_cuda.load_library(verbose=True)
-    log(f"phase 1: built {KERNEL_SOURCE}, {TLAS_SOURCE} and {PLK_SOURCE} "
+    log(f"phase 1: built {KERNEL_SOURCE}, {TLAS_SOURCE}, {PLK_SOURCE} and {SMT_SOURCE} "
         f"in {time.time() - t:.1f} s")
 
     # -- phase 2: kernel vs plain walk on the card
@@ -499,7 +645,8 @@ def main():
          "bound_by": bounds[kind][1], "library_ms": None}
         for name, kind in zip(traverse_cuda.KERNELS, ("closest", "any"))
     ]
-    del big, mid, ro, rd, cro, crd, sro, srd, dist
+    rays2 = (ro, rd, dist)  # held for phase 9
+    del mid, cro, crd, sro, srd
 
     # -- phase 5: the two-level kernel vs its plain walk on the card
     t = time.time()
@@ -582,9 +729,10 @@ def main():
     ro, rd = torch.cat([cro, sro]), torch.cat([crd, srd])
     dist = torch.tensor(rng.uniform(0.0, 20.0, n_main), dtype=torch.float32, device=dev)
     del cro, crd, sro, srd
-    e7, work7 = compare_plk("mesh512k main-path shape", large, ro, rd, dist)
+    e7, work7, oracle7 = compare_plk("mesh512k main-path shape", large, ro, rd, dist)
     t0 = torch.full((n_main,), 3.4e38, dtype=torch.float32, device=dev)
     pool7 = pool_bytes(large, plk_cuda._SCENE_FIELDS)
+    pool7_bvh = pool_bytes(large, traverse_cuda._SCENE_FIELDS)
     times7, bounds7 = {}, {}
     for kind, t0k, kw in (("closest", t0, {}), ("any", dist, {"any_hit": True, "t_min": 1e-3})):
         times7[kind] = (
@@ -592,12 +740,18 @@ def main():
             cuda_ms(lambda: _traverse_plk_plain(large, ro, rd, t0k, kw.get("any_hit", False),
                                                 kw.get("t_min", 1e-4)), reps=1),
         )
-        bounds7[kind] = bound(n_main, 8, pool7, work7[kind], ops_ray=OPS_RAY_PLK)
+        # the bound: the query's least work on these rays, the oracle
+        # walk's over the BVH; K3's own walk (whole fat leaves) beside it
+        bounds7[kind] = bound(n_main, 8, pool7_bvh, oracle7[kind])
+        b_k3 = bound(n_main, 8, pool7, work7[kind], ops_ray=OPS_RAY_PLK)
         log(f"phase 7 timing {kind}-hit, {n_main} rays, 512,004 prims: kernel "
             f"{times7[kind][0]:.3f} ms, plain torch version {times7[kind][1]:.3f} ms, "
-            f"bound {bounds7[kind][0]:.4f} ms by {bounds7[kind][1]} "
-            f"({bounds7[kind][2]} B, {bounds7[kind][3]} ops) [{card}]")
-    del ro, rd, dist, t0
+            f"bound (the query's least work, the oracle walk's) {bounds7[kind][0]:.4f} ms "
+            f"by {bounds7[kind][1]} ({bounds7[kind][2]} B, {bounds7[kind][3]} ops); K3's "
+            f"own walk's work would take {b_k3[0]:.4f} ms by {b_k3[1]} ({b_k3[2]} B, "
+            f"{b_k3[3]} ops) [{card}]")
+    rays7 = (ro, rd, dist)  # held for phase 9
+    del t0
     torch.cuda.empty_cache()
 
     # -- phase 8: the large mesh path, 512x512 x 16 spp, depth 5, RR depth 3
@@ -632,6 +786,204 @@ def main():
          "bound_by": bounds7[kind][1], "library_ms": None}
         for name, kind in zip(plk_cuda.KERNELS, ("closest", "any"))
     ]
+
+    # -- phase 9: K4, the multi-chain treelet walk, on both scenes' rays
+    from aten_tpu_torch.accel import traverse as trav_mod
+    from aten_tpu_torch.accel.traverse import _traverse_trl_plain
+    from aten_tpu_torch.ops import smt_cuda
+    from aten_tpu_torch.scene.scene import with_trl_layout
+
+    t9 = time.time()
+    times9, bounds9, err9, k4_scenes = {}, {}, 0.0, {}
+    for name, scene, rays, base in (("mesh102k", big, rays2, "K1"),
+                                    ("mesh512k", large, rays7, "K3")):
+        ro, rd, dist = rays
+        # the default policy builds no K4 layout: attach it, as a build
+        # under ATEN_TPU_KERNEL=smt does
+        t = time.time()
+        scene = k4_scenes[name] = with_trl_layout(scene)
+        torch.cuda.synchronize()
+        log(f"phase 9 {name}: {scene['trl_nodes'].shape[0]} cut-tree nodes, "
+            f"{scene['trl_recs'].shape[0]} slots, window {scene['trl_window']}; the K4 "
+            f"layout takes {time.time() - t:.2f} s to build and upload (host)")
+        e, work, oracle_work, plain_ms = compare_smt(f"phase 9 {name}", scene, ro, rd, dist)
+        err9 = max(err9, e)
+        pool = pool_bytes(scene, smt_cuda._SCENE_FIELDS)
+        pool_bvh = pool_bytes(scene, traverse_cuda._SCENE_FIELDS)
+        for kind, t0k, any_hit, t_min in (
+                ("closest", torch.full((n_main,), 3.4e38, device=dev), False, 1e-4),
+                ("any", dist, True, 1e-3)):
+            # the bound: the least work of the query on these rays, the
+            # oracle walk's node steps and prim tests over the BVH; K4's
+            # own walk (its fat leaves drained whole) is logged beside it
+            b = bound(n_main, 8, pool_bvh, oracle_work[kind])
+            w = {"node_steps": work[kind]["node_steps"], "prim_tests": work[kind]["slot_tests"]}
+            b_k4 = bound(n_main, 8, pool, w)
+            bounds9[name, kind] = b
+            if base == "K1":
+                base_ms = cuda_ms(lambda: traverse_cuda.bvh_traverse(
+                    scene, ro, rd, t0k, any_hit=any_hit, t_min=t_min), reps=10)
+            else:
+                base_ms = cuda_ms(lambda: plk_cuda.plk_traverse(
+                    scene, ro, rd, t0k, any_hit=any_hit, t_min=t_min), reps=10)
+            for c in smt_cuda.CHAIN_COUNTS:
+                times9[name, kind, c] = cuda_ms(lambda: smt_cuda.smt_traverse(
+                    scene, ro, rd, t0k, any_hit=any_hit, t_min=t_min, chains=c), reps=10)
+            per_c = ", ".join(f"C={c} {times9[name, kind, c]:.3f} ms"
+                              for c in smt_cuda.CHAIN_COUNTS)
+            times9[name, kind, "plain"] = plain_ms[kind]
+            times9[name, kind, "base"] = base_ms
+            log(f"phase 9 timing {kind}-hit, {n_main} rays, {name}: K4 {per_c}; {base} "
+                f"{base_ms:.3f} ms on the same rays; K4's plain version "
+                f"{plain_ms[kind]:.1f} ms; bound (the query's least work, the oracle "
+                f"walk's) {b[0]:.4f} ms by {b[1]} ({b[2]} B, {b[3]} ops); K4's own "
+                f"walk's work would take {b_k4[0]:.4f} ms by {b_k4[1]} ({b_k4[2]} B, "
+                f"{b_k4[3]} ops) [{card}]")
+    big = k4_scenes["mesh102k"]
+    del rays2, rays7, k4_scenes, large, scene
+    torch.cuda.empty_cache()
+    # sphere slots: the Cornell box (two spheres, below the treelet line)
+    # with the K4 layout attached, rays from inside the box
+    cb = with_trl_layout(cornell_box(64, 64, device=dev)[0])
+    n_cb = 1 << 18
+    ro = torch.from_numpy(rng.uniform(-0.95, 0.95, (n_cb, 3)).astype(np.float32)).to(dev)
+    d = rng.standard_normal((n_cb, 3))
+    rd = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)).to(dev)
+    t0 = torch.full((n_cb,), 3.4e38, device=dev)
+    hp = _traverse_trl_plain(cb, ro, rd, t0, False, 1e-4)
+    n_sph = int((hp["prim"] >= cb["num_tris"]).sum())
+    for c in smt_cuda.CHAIN_COUNTS:
+        tk, pk = smt_cuda.smt_traverse(cb, ro, rd, t0, chains=c)
+        exact = bool(torch.equal(tk, hp["t"]) and torch.equal(pk, hp["prim"]))
+        log(f"phase 9 cornell (spheres) K4 C={c}: {n_cb} rays, {n_sph} sphere hits, "
+            f"bitwise equal to the plain version {exact}")
+        assert exact and n_sph > 1000, (c, n_sph)
+    del cb, ro, rd, t0, hp
+    # the 102k scene's render with every traversal forced onto K4
+    render_image(big, cam, spp=16, max_depth=5, rr_depth=3, impl="smt")  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.time()
+    img = render_image(big, cam, spp=16, max_depth=5, rr_depth=3, impl="smt")
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches9 = read_counts()
+    img = img.cpu().numpy()
+    k4_names = [smt_cuda.kernel_name(a, trav_mod.CHAINS) for a in (False, True)]
+    log(f"phase 9 impl='smt' render launches: {launches9}")
+    assert all(launches9[k] > 0 for k in k4_names), launches9
+    assert all(v == 0 for k, v in launches9.items() if k not in k4_names), launches9
+    assert np.isfinite(img).all() and (img >= 0).all()
+    assert 1e-3 <= img.mean() <= 1e3 and img.std() > 0, (img.mean(), img.std())
+    log(f"phase 9 render 512x512 16spp depth 5 on K4 (C={trav_mod.CHAINS}): mean "
+        f"{img.mean():.5f} std {img.std():.5f} wall {wall * 1e3:.1f} ms, "
+        f"{512 * 512 * 16 / wall / 1e6:.3f} Mpaths/s [{card}]")
+    log_profile("phase 9", card, profile_render(
+        lambda: render_image(big, cam, spp=16, max_depth=5, rr_depth=3, impl="smt")))
+    small = dataclasses.replace(cam, width=128, height=128)
+    ik = render_image(big, small, spp=2, max_depth=3, impl="smt").cpu().numpy()
+    ip = render_image(big, small, spp=2, max_depth=3, impl="smt_plain").cpu().numpy()
+    i1 = render_image(big, small, spp=2, max_depth=3, impl="cuda").cpu().numpy()
+    check_image_bounds("phase 9 128x128 2spp K4 vs its plain version", ik, ip)
+    check_image_bounds("phase 9 128x128 2spp K4 vs K1", ik, i1)
+    log(f"phase 9 128x128 K4 render identical to its plain version's: {bool((ik == ip).all())}")
+    # a process under ATEN_TPU_KERNEL=smt renders the 512k scene on K4 alone
+    child = subprocess.run(
+        [sys.executable, "-c", CHILD_SMT.format(root=ROOT)], cwd=ROOT,
+        env={**os.environ, "ATEN_TPU_KERNEL": "smt"}, capture_output=True, text=True,
+        timeout=300)
+    if child.returncode != 0:
+        log(child.stdout[-4000:], child.stderr[-4000:])
+        raise RuntimeError(f"phase 9 child process exited {child.returncode}")
+    got = json.loads(child.stdout.strip().splitlines()[-1])
+    log(f"phase 9 child under ATEN_TPU_KERNEL=smt, 512k scene 64x64 4spp: {got}")
+    cnt = got["counts"]
+    assert got["kernel"] == "smt" and got["traversal"] == "smt" and not got["plk"], got
+    assert got["finite"] and cnt[smt_cuda.kernel_name(False, got["chains"])] > 0, got
+    assert all(cnt[k] == 0 for k in traverse_cuda.KERNELS + plk_cuda.KERNELS), got
+    kernels += [
+        {"name": name, "route": "cuda", "source": SMT_SOURCE,
+         "replaces": SMT_REPLACES, "launches": launches9[name],
+         "max_abs_err": err9, "ms": times9["mesh102k", kind, trav_mod.CHAINS],
+         "plain_ms": times9["mesh102k", kind, "plain"],
+         "bound_ms": bounds9["mesh102k", kind][0],
+         "bound_by": bounds9["mesh102k", kind][1], "library_ms": None}
+        for name, kind in zip(k4_names, ("closest", "any"))
+    ]
+    log(f"phase 9 took {time.time() - t9:.1f} s")
+
+    # -- phase 10: the latency labs L3 (pointer chase) and L2 (launches)
+    from aten_tpu_torch.tools import chase_lab, lab_library, launch_lab
+
+    t10 = time.time()
+    t = time.time()
+    lab_library.load_library(verbose=True)
+    log(f"phase 10: built {CHASE_SOURCE} and {LAUNCH_SOURCE} in {time.time() - t:.1f} s")
+    rows = torch.from_numpy(chase_lab.build_chain(0)).to(dev)
+    x = torch.ones((8, 128), dtype=torch.float32, device=dev)
+    steps = chase_lab.STEPS
+    chase_lab.reset_launch_counts()
+    launch_lab.reset_launch_counts()
+    lab = {v: chase_lab.measure(rows, x, v) for v in chase_lab.VARIANTS}
+    tables, table_launches = {}, {}
+    for g in (False, True):
+        before = launch_lab.launch_counts["launch_lab"]
+        tables[g] = launch_lab.tables(x, g)
+        table_launches[g] = launch_lab.launch_counts["launch_lab"] - before
+    launch_ms = cuda_ms(lambda: launch_lab.run(x, 1, 1, 1), reps=100)
+    launches10 = {**chase_lab.launch_counts, **launch_lab.launch_counts}
+    # each table runs every chain 4 times (a warm-up and 3 timed); the
+    # graph table also runs it once eagerly before the capture, and the
+    # captured launches count only when a replay runs them
+    chain = sum(c[1] for c in launch_lab.CONFIGS)
+    log(f"phase 10 lab launches: {launches10}; launch_lab: eager tables "
+        f"{table_launches[False]}, graph tables {table_launches[True]} "
+        f"({4 * chain} of them replayed from CUDA graphs)")
+    assert all(v > 0 for v in launches10.values()), launches10
+    assert table_launches[False] == 4 * chain and table_launches[True] == 5 * chain, \
+        table_launches
+    for v in chase_lab.VARIANTS:
+        out = chase_lab.run(rows, x, v)
+        plain, plain_ms = timed_ms(lambda: chase_lab.run_plain(rows, x, v))
+        same = bool(torch.equal(out, plain))
+        per_iter, ms = lab[v]
+        log(f"phase 10 chase_lab {v}: {per_iter:.1f} ns/iter "
+            f"({per_iter / chase_lab.chases(v):.1f} ns/chase), {ms:.4f} ms per run of "
+            f"{steps} steps, bitwise equal to the plain version {same} [{card}]")
+        assert same, v
+        lanes = {"reduce": 3, "extracts": 6, "vec2scalar": 128, "red_kd": 128,
+                 "red_11": 128}.get(v, 1)
+        nbytes = 2 * 8 * 128 * 4 + (0 if v == "scalar" else
+                                    chase_lab.chases(v) * min(steps, chase_lab.K) * lanes * 4)
+        b = lab_bound(nbytes, steps * chase_lab.chases(v) * LAB_THREADS * OPS_LAB_STEP)
+        kernels.append(
+            {"name": f"chase_lab_{v}", "route": "cuda", "source": CHASE_SOURCE,
+             "replaces": CHASE_REPLACES, "launches": launches10[f"chase_lab_{v}"],
+             "max_abs_err": float((out - plain).abs().max()), "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
+    for graph in (False, True):
+        log(f"phase 10 launch_lab, {'one CUDA graph replay per chain' if graph else 'eager launches'}"
+            f" [{card}]:")
+        for line in tables[graph][0]:
+            log(f"phase 10   {line}")
+    err10 = 0.0
+    for cfg in launch_lab.CONFIGS:
+        out = launch_lab.run(x, *cfg)
+        _, graph_out = launch_lab.timeit(x, *cfg, graph=True, reps=1)
+        plain = launch_lab.run_plain(x, *cfg)
+        same = bool(torch.equal(out, plain)) and bool(torch.equal(graph_out, plain))
+        err10 = max(err10, float((out - plain).abs().max()))
+        log(f"phase 10 launch_lab (steps, nlaunch, grid) = {cfg}: eager and graph outputs "
+            f"bitwise equal to the plain version {same}")
+        assert same, cfg
+    _, plain_ms = timed_ms(lambda: launch_lab.run_plain(x, 1, 1, 1))
+    b = lab_bound(2 * 8 * 128 * 4, LAB_THREADS * OPS_LAB_STEP)
+    kernels.append(
+        {"name": "launch_lab", "route": "cuda", "source": LAUNCH_SOURCE,
+         "replaces": LAUNCH_REPLACES, "launches": launches10["launch_lab"],
+         "max_abs_err": err10, "ms": launch_ms, "plain_ms": plain_ms,
+         "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
+    log(f"phase 10 took {time.time() - t10:.1f} s")
 
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
