@@ -1,10 +1,13 @@
-"""The labs' kernel library (kernels/chase_lab.cu, kernels/launch_lab.cu).
+"""The labs' kernel library (kernels/chase_lab.cu, kernels/launch_lab.cu,
+kernels/kernel_lab.cu).
 
 Built at first use from the repository's sources with
 torch.utils.cpp_extension.load into build/aten_tpu_torch/labs/, for
 sm_90a, with --fmad=false, under the file lock of native.py, apart from
 the traversal library so that neither build waits on the other.  Its
-interface is plain C, loaded with ctypes.
+interface is plain C, loaded with ctypes: `aten_chase_lab` (L3,
+tools/chase_lab.py), `aten_launch_lab` (L2, tools/launch_lab.py) and
+`aten_kernel_lab` (L1, tools/kernel_lab.py).
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ from aten_tpu_torch import native
 from aten_tpu_torch.ops.traverse_cuda import CUDA_FLAGS, KERNEL_DIR
 
 SOURCES = (os.path.join(KERNEL_DIR, "chase_lab.cu"),
-           os.path.join(KERNEL_DIR, "launch_lab.cu"))
+           os.path.join(KERNEL_DIR, "launch_lab.cu"),
+           os.path.join(KERNEL_DIR, "kernel_lab.cu"))
 
 _lib = None
 
@@ -36,6 +40,7 @@ def load_library(verbose=False):
             build_directory=build_dir,
             extra_cflags=["-O3"],
             extra_cuda_cflags=list(CUDA_FLAGS),
+            extra_include_paths=[KERNEL_DIR],
             is_python_module=False,
             verbose=verbose,
         )
@@ -45,6 +50,9 @@ def load_library(verbose=False):
     lib.aten_chase_lab.argtypes = [vp, vp, vp, ctypes.c_int32, ctypes.c_int32, vp]
     lib.aten_launch_lab.restype = ctypes.c_int
     lib.aten_launch_lab.argtypes = [vp, vp, ctypes.c_int32, ctypes.c_int32, vp]
+    i32, i64 = ctypes.c_int32, ctypes.c_int64
+    lib.aten_kernel_lab.restype = ctypes.c_int
+    lib.aten_kernel_lab.argtypes = [i32] * 4 + [vp] * 6 + [i64] + [vp] * 5 + [i64, vp]
     lib.aten_lab_error_string.restype = ctypes.c_char_p
     lib.aten_lab_error_string.argtypes = [ctypes.c_int]
     _lib = lib

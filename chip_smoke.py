@@ -19,7 +19,11 @@ the rays of both mesh scenes, times it beside the kernels those scenes
 run by default, renders the 102,404-prim scene through it, and renders
 the 512,004-prim scene in a child process started with
 ATEN_TPU_KERNEL=smt; phase 10 runs the latency labs (pointer chase,
-launch overhead) against their plain versions.  Each main-path render
+launch overhead) against their plain versions; phase 11 runs the
+treelet-walk lab L1 (python -m aten_tpu_torch.tools.kernel_lab) on
+1,048,576 primary rays of the 102,404-prim scene, each variant bitwise
+against its plain version, timed beside K1 and held, where it computes a
+closest hit, against the oracle walk.  Each main-path render
 is profiled, with its ten costliest device ops.  It prints the measured
 times and each kernel's bound (the least time the card could take for
 the work).
@@ -49,6 +53,13 @@ CHASE_SOURCE = "aten_tpu_torch/kernels/chase_lab.cu"
 CHASE_REPLACES = "tools/chase_lab.py:41"
 LAUNCH_SOURCE = "aten_tpu_torch/kernels/launch_lab.cu"
 LAUNCH_REPLACES = "tools/launch_lab.py:18"
+LAB_SOURCE = "aten_tpu_torch/kernels/kernel_lab.cu"
+LAB_REPLACES = {"nodes": "tools/kernel_lab.py:36", "nodir": "tools/kernel_lab.py:36",
+                "leafu": "tools/kernel_lab.py:96", "wide": "tools/kernel_lab.py:343",
+                "spec": "tools/kernel_lab.py:468", "plk": "tools/kernel_lab.py:661"}
+# the L1 variants phase 11 runs (tools/kernel_lab.py's names)
+LAB_VARIANTS = ("nodes", "nodir", "leafu", "wide8", "wide16", "wide8_nc", "wide16_nc",
+                "spec8", "spec16", "plk")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, fp32 FLOP/s
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
@@ -498,6 +509,103 @@ def lab_bound(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = ops / FP32_FLOP_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def lab_phase(card, scene, cam, dev):
+    """Phase 11: the treelet-walk lab L1 (tools/kernel_lab.py) on the
+    reference's 1024x1024 primary rays of `scene` (the 102,404-prim mesh
+    scene with the K4 layout).  Its main path is the lab's CLI: each
+    variant's first run, then `measure` (24 runs).  Each variant is then
+    held bitwise against one run of its plain version on all rays, and
+    the closest-hit ones (but plk) against the oracle walk.  Returns the
+    kernels' JSON entries."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.ops import traverse_cuda
+    from aten_tpu_torch.tools import kernel_lab as kl
+
+    t11 = time.time()
+    for bad in ("noext", "wide16_t32"):
+        try:
+            kl.parse(bad)
+        except ValueError as e:
+            log(f"phase 11 {bad!r} refused: {e}")
+        else:
+            raise AssertionError(f"kernel_lab accepted {bad!r}")
+    tab = kl.tables(scene)
+    ro, rd, t0 = kl.lab_rays(dataclasses.replace(cam, width=1024, height=1024), 1024, dev)
+    n = ro.shape[0]
+    assert n == 1 << 20
+    # the lab's main path: each variant's first run, then its timing
+    kl.reset_launch_counts()
+    outs, times = {}, {}
+    for v in LAB_VARIANTS:
+        outs[v] = kl.run(tab, ro, rd, t0, v)
+        times[v] = kl.measure(tab, ro, rd, t0, v)
+    torch.cuda.synchronize()
+    launches = dict(kl.launch_counts)
+    log(f"phase 11 lab launches: {launches}")
+    assert all(launches[kl.parse(v).kernel] > 0 for v in LAB_VARIANTS), launches
+    v3 = kl.run(tab, ro, rd, t0, "v3")
+    v3_ms = kl.measure(tab, ro, rd, t0, "v3")
+    oracle, owork = plain_walk(scene, ro, rd, t_max=t0)
+    pool_bvh = pool_bytes(scene, traverse_cuda._SCENE_FIELDS)
+    pool_nodes = sum(tab[k].numel() * tab[k].element_size() for k in ("nodes", "links"))
+    pool_trl = pool_nodes + tab["recs"].numel() * 4
+    n_prims = scene["num_tris"] + scene["num_spheres"]
+    log(f"phase 11: {n} primary rays of the {n_prims}-prim scene in 32x32-pixel tiles, "
+        f"{tab['nodes'].shape[0]} cut-tree nodes, {tab['pids'].shape[0]} fat leaves; v3 (K1) "
+        f"{v3_ms:.3f} ms, {n / v3_ms / 1e3:.1f} Mrays/s; the oracle walk's work {owork} [{card}]")
+    po = oracle["prim"]
+    entries, plain_total = [], 0.0
+    for v in LAB_VARIANTS:
+        spec = kl.parse(v)
+        t, prim = outs[v]
+        (tp, pp, work), plain_ms = timed_ms(lambda: kl.run_plain(tab, ro, rd, t0, v, stats=True))
+        plain_total += plain_ms
+        exact = bool(torch.equal(t, tp) and torch.equal(prim, pp))
+        err = float((t - tp).abs().max())
+        hit = float((prim >= 0).float().mean())
+        agree = float((prim == po).float().mean())
+        if v in ("nodes", "nodir"):
+            steps = kl.ray_walk_steps(tab, ro, rd, t0, directional=v == "nodes")
+            b = bound(n, 8, pool_nodes, {"node_steps": steps})
+            least = f"the per-ray walk's {steps} node steps"
+            note = f"hit a fat leaf's box {hit:.4f}"
+        else:
+            b = bound(n, 8, pool_bvh, owork)
+            least = "the oracle walk's"
+            m = (po >= 0) & (prim == po)
+            dt = float((t[m] - oracle["t"][m]).abs().max())
+            note = (f"hit {hit:.4f}, prim agreement with the oracle walk {agree:.6f}, max |dt| "
+                    f"{dt:.3e} where prims agree")
+            if v == "plk":
+                note += (" (information only: the lab's den carries -(n.v0) m_x, "
+                         "ROADMAP.md queue 3)")
+            else:
+                assert agree >= PRIM_AGREE, (v, agree)
+                np.testing.assert_allclose(t[m].cpu().numpy(), oracle["t"][m].cpu().numpy(),
+                                           rtol=T_TOL, atol=T_TOL, err_msg=v)
+        own = bound(n, 8, pool_trl, {"node_steps": work["ray_steps"],
+                                     "prim_tests": work["slot_tests"]})
+        ms = times[v]
+        log(f"phase 11 {v}: {ms:.3f} ms, {n / ms / 1e3:.1f} Mrays/s ({ms / v3_ms:.2f}x v3); "
+            f"bitwise equal to the plain version on all {n} rays {exact} (plain "
+            f"{plain_ms:.1f} ms); {note}; bound ({least}) {b[0]:.4f} ms by {b[1]} ({b[2]} B, "
+            f"{b[3]} ops), {ms / b[0]:.0f}x; the tile walk's own work {work} would take "
+            f"{own[0]:.4f} ms by {own[1]} [{card}]")
+        assert exact, v
+        entries.append(
+            {"name": spec.kernel, "route": "cuda", "source": LAB_SOURCE,
+             "replaces": LAB_REPLACES[spec.kind], "launches": launches[spec.kernel],
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+             "bound_by": b[1], "library_ms": None})
+    same = float((v3[1] == po).float().mean())
+    log(f"phase 11 v3 against the oracle walk: prim agreement {same:.6f}; plain versions "
+        f"{plain_total / 1e3:.1f} s in all; phase 11 took {time.time() - t11:.1f} s")
+    assert same >= PRIM_AGREE, same
+    return entries
 
 
 def main():
@@ -984,6 +1092,8 @@ def main():
          "max_abs_err": err10, "ms": launch_ms, "plain_ms": plain_ms,
          "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
     log(f"phase 10 took {time.time() - t10:.1f} s")
+
+    kernels += lab_phase(card, big, cam, dev)
 
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
