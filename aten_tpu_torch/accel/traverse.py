@@ -11,8 +11,9 @@ implementations return the same {t, prim, u, v, hit}:
   of the threaded hit/miss links (`traverse(impl="jax")`), in plain
   torch.  It is the CUDA kernel's plain version: the CPU path, and on a
   card reached only through impl="plain".
-* the CUDA kernel `ops/traverse_cuda.py::bvh_traverse`, one thread per
-  ray walking the same links with the same arithmetic.
+* the CUDA kernel `ops/traverse_cuda.py::bvh_traverse`, one ray per
+  thread walking the same links with the same arithmetic, over the
+  packed records of ops/bvh_layout.py.
 * for scenes that carry the Plücker layout (ops/plk_layout.py; the
   reference's choice of its kernel K3 for large triangle-only scenes):
   the CUDA kernel `ops/plk_cuda.py::plk_traverse` and its plain version

@@ -173,10 +173,12 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
         nee_ok = alive & ~is_singular_mat
         radiance = radiance + torch.where(nee_ok[..., None], throughput * contrib, 0.0)
 
-        # Russian roulette (ComputeRussianProbability)
+        # Russian roulette (ComputeRussianProbability); the survival
+        # probability is detached, as the reference detaches it, so RR
+        # stays an unbiased estimator under autograd
         u_rr, state = smp.next_1d(state)
         if bounce >= rr_depth:
-            rr_p = torch.clamp(torch.amax(throughput, dim=-1), 0.01, 0.95)
+            rr_p = torch.clamp(torch.amax(throughput, dim=-1), 0.01, 0.95).detach()
         else:
             rr_p = torch.ones_like(u_rr)
         alive = alive & (u_rr < rr_p)
@@ -189,15 +191,18 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
         n_or = brdf_mod.orient_normal(h["ns"], wo)
         cos_wi = torch.abs(vm.dot(n_or, samp["wi"], keepdims=False))
         good = (samp["pdf"] > 1e-9) & (cos_wi > 1e-9)
-        pdf_det = torch.clamp(samp["pdf"], min=1e-9)
+        # detached-pdf estimator: E[d f / p_detached] = d E[f / p]
+        pdf_det = torch.clamp(samp["pdf"], min=1e-9).detach()
         weight = samp["bsdf"] * (cos_wi / pdf_det)[..., None]
         throughput = torch.where(
             (alive & good)[..., None], throughput * weight, throughput)
         alive = alive & good
 
+        # detached sampling: the next ray is a constant under autograd;
+        # gradients flow through the bsdf and pdf values, not the warp
         off_n = torch.where(samp["transmission"][..., None], -n_or, n_or)
-        ro = h["p"] + off_n * 1e-3
-        rd = samp["wi"]
+        ro = (h["p"] + off_n * 1e-3).detach()
+        rd = samp["wi"].detach()
         pdf_prev = samp["pdf"]
         prev_singular = samp["singular"]
 

@@ -8,34 +8,32 @@
 
 #include "bvh_traverse.h"
 
+namespace {
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Rays the persistent kernels' 32-bit ray queue takes.
+constexpr int64_t kMaxRays = int64_t{1} << 31;
+
+}  // namespace
+
 extern "C" {
 
 // Returns 0, a cudaError_t of the launch (> 0), or -1 for bad arguments.
-int aten_bvh_traverse(const float* nodes_bmin, const float* nodes_bmax,
-                      const int32_t* nodes_hit, const int32_t* nodes_miss,
-                      const int32_t* nodes_prim_start,
-                      const int32_t* nodes_prim_count,
-                      const int32_t* prim_order, const float* tri_v0,
-                      const float* tri_e1, const float* tri_e2,
-                      const float* sph_center, const float* sph_radius,
-                      int32_t num_tris, const float* ro, const float* rd,
-                      const float* t0, float* t, int32_t* prim, float* u,
-                      float* v, int64_t n, float t_min, int32_t any_hit,
+// `next_ray` is one zeroed counter in device memory.
+int aten_bvh_traverse(const float* nodes, const float* prims, int32_t num_tris,
+                      const float* ro, const float* rd, const float* t0,
+                      float* t, int32_t* prim, float* u, float* v, int64_t n,
+                      float t_min, int32_t any_hit, unsigned* next_ray,
                       void* stream) {
-  if (n < 0 || num_tris < 0) return -1;
-  if (n > 0 && (!ro || !rd || !t0 || !t || !prim || !u || !v)) return -1;
-  if (!nodes_bmin || !nodes_bmax || !nodes_hit || !nodes_miss ||
-      !nodes_prim_start || !nodes_prim_count || !prim_order || !tri_v0 ||
-      !tri_e1 || !tri_e2 || !sph_center || !sph_radius)
+  if (n < 0 || n >= kMaxRays || num_tris < 0) return -1;
+  if (n > 0 && (!ro || !rd || !t0 || !t || !prim || !u || !v || !next_ray))
     return -1;
-  const aten_tpu_torch::BvhView bvh{nodes_bmin,       nodes_bmax, nodes_hit,
-                                    nodes_miss,       nodes_prim_start,
-                                    nodes_prim_count, prim_order, tri_v0,
-                                    tri_e1,           tri_e2,     sph_center,
-                                    sph_radius,       num_tris};
+  if (!nodes || !prims || !aligned16(nodes) || !aligned16(prims)) return -1;
+  const aten_tpu_torch::BvhView bvh{nodes, prims, num_tris};
   const aten_tpu_torch::RayView rays{ro, rd, t0, t, prim, u, v, n};
   return aten_tpu_torch::launch_bvh_traverse(bvh, rays, t_min, any_hit != 0,
-                                             stream);
+                                             next_ray, stream);
 }
 
 // The two-level walk; returns as aten_bvh_traverse does.
@@ -68,24 +66,19 @@ int aten_tlas_traverse(const float* tl_bmin, const float* tl_bmax,
 }
 
 // The Plücker treelet walk; returns as aten_bvh_traverse does.
-int aten_plk_traverse(const float* bmin, const float* bmax,
-                      const int32_t* hit, const int32_t* miss,
-                      const int32_t* slot_start, const int32_t* count,
-                      const float* consts, const int32_t* slot2prim,
-                      const float* ro, const float* rd, const float* t0,
-                      float* t, int32_t* prim, int64_t n, float t_min,
-                      int32_t any_hit, void* stream) {
-  if (n < 0) return -1;
-  if (n > 0 && (!ro || !rd || !t0 || !t || !prim)) return -1;
-  if (!bmin || !bmax || !hit || !miss || !slot_start || !count || !consts ||
-      !slot2prim)
+int aten_plk_traverse(const float* nodes, const float* consts,
+                      const int32_t* slot2prim, const float* ro,
+                      const float* rd, const float* t0, float* t,
+                      int32_t* prim, int64_t n, float t_min, int32_t any_hit,
+                      unsigned* next_ray, void* stream) {
+  if (n < 0 || n >= kMaxRays) return -1;
+  if (n > 0 && (!ro || !rd || !t0 || !t || !prim || !next_ray)) return -1;
+  if (!nodes || !consts || !slot2prim || !aligned16(nodes) || !aligned16(consts))
     return -1;
-  if (reinterpret_cast<uintptr_t>(consts) % 16 != 0) return -1;
-  const aten_tpu_torch::PlkView plk{bmin,  bmax,   hit,    miss,
-                                    slot_start, count, consts, slot2prim};
+  const aten_tpu_torch::PlkView plk{nodes, consts, slot2prim};
   const aten_tpu_torch::RayView rays{ro, rd, t0, t, prim, nullptr, nullptr, n};
   return aten_tpu_torch::launch_plk_traverse(plk, rays, t_min, any_hit != 0,
-                                             stream);
+                                             next_ray, stream);
 }
 
 // The multi-chain treelet walk; returns as aten_bvh_traverse does.
@@ -97,8 +90,7 @@ int aten_smt_traverse(const float* nodes, const int32_t* links,
   if (n < 0) return -1;
   if (n > 0 && (!ro || !rd || !t0 || !t || !prim)) return -1;
   if (!nodes || !links || !recs) return -1;
-  if (reinterpret_cast<uintptr_t>(nodes) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(recs) % 16 != 0 ||
+  if (!aligned16(nodes) || !aligned16(recs) ||
       reinterpret_cast<uintptr_t>(links) % 8 != 0)
     return -1;
   const aten_tpu_torch::TrlView trl{nodes, links, recs};

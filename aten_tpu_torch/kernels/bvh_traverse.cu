@@ -1,4 +1,5 @@
-// Closest-hit / any-hit traversal of a threaded BVH, one thread per ray.
+// Closest-hit / any-hit traversal of a threaded BVH, one thread per ray,
+// in persistent warps.
 //
 // Replaces the TPU treelet kernel `_make_treelet_kernel`
 // (aten_tpu/ops/traverse_pallas.py:785, launched by
@@ -14,15 +15,25 @@
 // operation order, and a strict `<` on t, so ties break the same way.
 // u/v of the winner come out of the same pass.  Built with --fmad=false:
 // without FMA contraction every float op rounds as in the plain torch
-// walk, so the two agree prim for prim on the card.
+// walk (accel/traverse.py::_traverse_plain), so the two agree bit for bit.
 //
-// Bound: a data-dependent pointer chase.  Each step loads one node (24 B
-// of box, 4 B of links) and, at a leaf, up to four 36 B triangles; the
-// latency of these dependent loads, not arithmetic, sets the time, and
-// divergent rays in a warp serialise.  This first version does nothing
-// about it beyond keeping the walk stackless and the node loads read-only
-// through the cache; packed node records, direction-ordered links, ray
-// sorting and persistent threads are later work.
+// Bound: a data-dependent pointer chase.  The whole pool fits the 50 MB
+// L2 cache, so the latency of each dependent load, not bandwidth or
+// arithmetic, sets the time, and divergent rays in a warp serialise.
+// The design spends on that:
+//   * packed records (ops/bvh_layout.py): a node step is two 128-bit
+//     loads of one 32-byte record, (bmin, miss) and (bmax, leaf), with
+//     the hit link implicit (i + 1 inside, the miss link at a leaf).  A
+//     leaf's prims are 48-byte records in leaf order, so the walk makes
+//     no dependent load through prim_order;
+//   * persistent warps: about as many blocks as fit the card at once,
+//     each warp taking rays from one global counter (take_rays), so a
+//     lane whose ray is done takes another instead of idling until the
+//     grid's last block;
+//   * a while-while loop (Aila and Laine, HPG 2009): each lane walks
+//     inner nodes until it stands on a leaf whose box it hits or its
+//     walk ends, and then the lanes on leaves test their prims together,
+//     so node code and prim code do not interleave within a warp.
 #include <cuda_runtime.h>
 
 #include "bvh_traverse.h"
@@ -32,41 +43,66 @@ namespace aten_tpu_torch {
 namespace {
 
 constexpr int kBlock = 128;
+constexpr int kMinIdle = 8;  // idle lanes at which a warp takes new rays
 
 template <bool kAnyHit>
 __global__ void __launch_bounds__(kBlock)
-    bvh_traverse_kernel(BvhView b, RayView r, float t_min) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= r.n) return;
-  const float ox = r.ro[3 * i], oy = r.ro[3 * i + 1], oz = r.ro[3 * i + 2];
-  const float dx = r.rd[3 * i], dy = r.rd[3 * i + 1], dz = r.rd[3 * i + 2];
-  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-  const float t0 = r.t0[i];
-  float t = t0;
-  int32_t prim = -1;
-  float bu = 0.0f, bv = 0.0f;
-  // a ray with t0 <= t_min can never hit (any prim needs t_min < t < t0)
-  int32_t cur = t0 > t_min ? 0 : -1;
-  while (cur >= 0) {
-    if (!slab_hit(b.nodes_bmin, b.nodes_bmax, cur, ox, oy, oz, ix, iy, iz, t)) {
-      cur = __ldg(b.nodes_miss + cur);
-      continue;
+    bvh_traverse_kernel(BvhView b, RayView r, float t_min, unsigned* next_ray) {
+  const float4* __restrict__ nodes = reinterpret_cast<const float4*>(b.nodes);
+  const float4* __restrict__ prims = reinterpret_cast<const float4*>(b.prims);
+  int ray = -1;
+  bool open = true;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float ix = 0.0f, iy = 0.0f, iz = 0.0f, t = 0.0f, bu = 0.0f, bv = 0.0f;
+  int32_t prim = -1, cur = -1;
+  while (true) {
+    if (take_rays(next_ray, r.n, kMinIdle, ray, open)) {
+      const int64_t i3 = 3 * static_cast<int64_t>(ray);
+      ox = r.ro[i3], oy = r.ro[i3 + 1], oz = r.ro[i3 + 2];
+      dx = r.rd[i3], dy = r.rd[i3 + 1], dz = r.rd[i3 + 2];
+      ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+      const float t0 = r.t0[ray];
+      t = t0;
+      prim = -1;
+      bu = bv = 0.0f;
+      // a ray with t0 <= t_min can never hit (any prim needs t_min < t < t0)
+      cur = t0 > t_min ? 0 : -1;
     }
-    const int32_t ps = __ldg(b.nodes_prim_start + cur);
-    if (ps >= 0) {
-      const int32_t pc = __ldg(b.nodes_prim_count + cur);
-      for (int32_t k = 0; k < pc; ++k) {
-        const int32_t pid = __ldg(b.prim_order + ps + k);
+    if (!__any_sync(kFullWarp, ray >= 0)) break;  // the queue is empty
+    // inner nodes until a leaf whose box the ray hits, or the walk's end
+    int32_t leaf = -1;
+    if (ray >= 0) {
+      while (cur >= 0) {
+        const float4 lo = __ldg(nodes + 2 * cur), hi = __ldg(nodes + 2 * cur + 1);
+        const int32_t miss = __float_as_int(lo.w);
+        if (!slab_hit_box(lo, hi, ox, oy, oz, ix, iy, iz, t)) {
+          cur = miss;
+          continue;
+        }
+        leaf = __float_as_int(hi.w);
+        if (leaf < 0) {
+          ++cur;  // an inner node's hit link: its first child, next in preorder
+          continue;
+        }
+        cur = miss;  // a leaf's hit link is its miss link
+        break;
+      }
+    }
+    // the leaf's prims, in their order
+    if (leaf >= 0) {
+      const float4* rec = prims + 3 * static_cast<int64_t>(leaf >> kLeafShift);
+      const int32_t pc = leaf & kLeafCount;
+      for (int32_t k = 0; k < pc; ++k, rec += 3) {
+        const float4 a = __ldg(rec), e1 = __ldg(rec + 1);
+        const int32_t pid = __float_as_int(a.w);
         float tp, tu = 0.0f, tv = 0.0f;
         bool h;
         if (pid < b.num_tris) {
-          h = moller_trumbore(b.tri_v0 + 3 * pid, b.tri_e1 + 3 * pid,
-                              b.tri_e2 + 3 * pid, ox, oy, oz, dx, dy, dz,
-                              t_min, tp, tu, tv);
+          const float4 e2 = __ldg(rec + 2);
+          h = moller_trumbore_at(a.x, a.y, a.z, e1.x, e1.y, e1.z, e2.x, e2.y, e2.z,
+                                 ox, oy, oz, dx, dy, dz, t_min, tp, tu, tv);
         } else {
-          const int32_t s = pid - b.num_tris;
-          h = sphere(b.sph_center + 3 * s, __ldg(b.sph_radius + s), ox, oy, oz,
-                     dx, dy, dz, t_min, tp);
+          h = sphere_at(a.x, a.y, a.z, e1.x, ox, oy, oz, dx, dy, dz, t_min, tp);
         }
         if (h && tp < t) {
           t = tp;
@@ -76,29 +112,36 @@ __global__ void __launch_bounds__(kBlock)
           if (kAnyHit) break;
         }
       }
-      if (kAnyHit && prim >= 0) break;
+      if (kAnyHit && prim >= 0) cur = -1;
     }
-    cur = __ldg(b.nodes_hit + cur);
+    if (ray >= 0 && cur < 0) {
+      r.t[ray] = t;
+      r.prim[ray] = prim;
+      r.u[ray] = bu;
+      r.v[ray] = bv;
+      ray = -1;
+    }
   }
-  r.t[i] = t;
-  r.prim[i] = prim;
-  r.u[i] = bu;
-  r.v[i] = bv;
+}
+
+template <bool kAnyHit>
+void launch(const BvhView& bvh, const RayView& rays, float t_min,
+            unsigned* next_ray, cudaStream_t s) {
+  const int64_t blocks = persistent_blocks(bvh_traverse_kernel<kAnyHit>, kBlock, rays.n);
+  bvh_traverse_kernel<kAnyHit><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
+      bvh, rays, t_min, next_ray);
 }
 
 }  // namespace
 
 int launch_bvh_traverse(const BvhView& bvh, const RayView& rays, float t_min,
-                        bool any_hit, void* stream) {
+                        bool any_hit, unsigned* next_ray, void* stream) {
   if (rays.n <= 0) return static_cast<int>(cudaSuccess);
-  const int64_t blocks = (rays.n + kBlock - 1) / kBlock;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (any_hit) {
-    bvh_traverse_kernel<true><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
-        bvh, rays, t_min);
+    launch<true>(bvh, rays, t_min, next_ray, s);
   } else {
-    bvh_traverse_kernel<false><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
-        bvh, rays, t_min);
+    launch<false>(bvh, rays, t_min, next_ray, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,22 +8,21 @@
 
 namespace aten_tpu_torch {
 
-// The scene arrays the walk reads; all device pointers, row-major.
+// The packed records of ops/bvh_layout.py; device pointers, 16-byte
+// aligned (read as float4).
 struct BvhView {
-  const float* nodes_bmin;        // [K,3]
-  const float* nodes_bmax;        // [K,3]
-  const int32_t* nodes_hit;       // [K]  next node when the box is hit
-  const int32_t* nodes_miss;      // [K]  next node when it is missed
-  const int32_t* nodes_prim_start;  // [K] -1 for internal nodes
-  const int32_t* nodes_prim_count;  // [K] <= LEAF_MAX
-  const int32_t* prim_order;      // [P] leaf ranges -> global prim id
-  const float* tri_v0;            // [T,3]
-  const float* tri_e1;            // [T,3]
-  const float* tri_e2;            // [T,3]
-  const float* sph_center;        // [S,3]
-  const float* sph_radius;        // [S]
-  int32_t num_tris;               // prims below this id are triangles
+  const float* nodes;   // [K,8] (bmin.xyz, miss) (bmax.xyz, leaf), links
+                        //       as int bits; leaf = start << 7 | count of
+                        //       the leaf's prim records, -1 when internal
+  const float* prims;   // [P,12] prim records in leaf order:
+                        //       (v0.xyz, id) (e1.xyz, 0) (e2.xyz, 0), or
+                        //       (centre.xyz, id) (radius, 0, 0, 0) (0...)
+  int32_t num_tris;     // prims below this id are triangles
 };
+
+// Bits of a packed leaf word (ops/bvh_layout.py: LEAF_SHIFT, LEAF_COUNT).
+constexpr int kLeafShift = 7;
+constexpr int32_t kLeafCount = (1 << kLeafShift) - 1;
 
 // Rays in, hits out; all device pointers, n entries each.
 struct RayView {
@@ -38,8 +37,11 @@ struct RayView {
 };
 
 // Enqueues the walk on `stream`; returns the cudaError_t of the launch.
+// `next_ray` is one zeroed counter from which the persistent warps take
+// their rays; rays.n < 2^31.
 int launch_bvh_traverse(const BvhView& bvh, const RayView& rays,
-                        float t_min, bool any_hit, void* stream);
+                        float t_min, bool any_hit, unsigned* next_ray,
+                        void* stream);
 
 // The two-level pool of accel/tlas.py::build_two_level; device pointers.
 struct TlasView {
@@ -71,21 +73,20 @@ struct TlasRayView {
 int launch_tlas_traverse(const TlasView& tlas, const TlasRayView& rays,
                          float t_min, bool any_hit, void* stream);
 
-// The Plücker treelet layout of ops/plk_layout.py; device pointers.
+// The Plücker treelet layout of ops/plk_layout.py; device pointers,
+// `nodes` and `consts` 16-byte aligned (read as float4).
 struct PlkView {
-  const float* bmin;          // [Kt,3] cut-tree boxes
-  const float* bmax;          // [Kt,3]
-  const int32_t* hit;         // [Kt] next node when the box is hit
-  const int32_t* miss;        // [Kt] next node when it is missed
-  const int32_t* slot_start;  // [Kt] first slot of a fat leaf, else -1
-  const int32_t* count;       // [Kt] slots of a fat leaf, <= 64
-  const float* consts;        // [S,16] slot records, 16-byte aligned
+  const float* nodes;         // [Kt,8] packed cut-tree records as BvhView's,
+                              //        leaf = slot start << 7 | slot count
+  const float* consts;        // [S,16] slot records
   const int32_t* slot2prim;   // [S] global prim id of each slot
 };
 
-// Writes rays.t and rays.prim; rays.u and rays.v are not used.
+// Writes rays.t and rays.prim; rays.u and rays.v are not used.  As
+// launch_bvh_traverse.
 int launch_plk_traverse(const PlkView& plk, const RayView& rays,
-                        float t_min, bool any_hit, void* stream);
+                        float t_min, bool any_hit, unsigned* next_ray,
+                        void* stream);
 
 // The treelet layout of ops/trl_layout.py; device pointers.
 // `nodes` and `recs` are 16-byte aligned (read as float4), `links`

@@ -1,5 +1,6 @@
 // Closest-hit / any-hit traversal of the treelet-cut BVH with the Plücker
-// leaf test, one thread per ray.
+// leaf test, one thread per ray, in persistent warps that drain fat
+// leaves together.
 //
 // Replaces the TPU kernel `_make_plk_treelet_kernel`
 // (aten_tpu/ops/traverse_pallas.py:1058, launched by `_traverse_plk_tiles`
@@ -7,8 +8,8 @@
 // 2048-ray tile down a VMEM-resident cut tree by vote and, at each fat
 // leaf, multiplies the leaf's [16, 256] constant block with the tile's
 // ray matrix on the MXU.  Here each thread walks the cut tree's default
-// threaded links without a stack and, at a fat leaf, runs the same
-// Plücker test slot by slot on the leaf's compact records
+// threaded links without a stack and, at a fat leaf, the same Plücker
+// test runs slot by slot on the leaf's compact records
 // (ops/plk_layout.py: 16 floats per slot, read as four float4s).
 //
 // What it computes is accel/traverse.py::_traverse_plk_plain, in the same
@@ -21,22 +22,31 @@
 //     with an IEEE reciprocal, valid when tt > t_min;
 //   * the winner code (bits(tt) & ~63) | j minimised over the leaf, so t
 //     keeps 17 mantissa bits and a tie in a leaf goes to the smaller slot;
-//     codes order as the floats do because tt > t_min > 0;
+//     codes order as the floats do because tt > t_min > 0, and an integer
+//     minimum is exact whichever lanes take which slots;
 //   * a strict `<` merge of the leaf's winner into the ray's t;
 //   * any-hit stops after the leaf that found a hit; a ray with
 //     t0 <= t_min never walks.
 // The slot goes through slot2prim at the end; u/v come from
 // accel/traverse.py::recompute_uv on the winner.
 //
-// Bound: a dependent walk of the cut tree (24 B of box and 16 B of links
-// and ranges per step), then up to 64 records of 64 B per fat leaf
-// entered, each read once per ray: on the 512k-prim scene the records'
-// 35 MB fit the 50 MB L2 cache, so leaf reads are L2 traffic, and the
-// ~45 fp32 and integer operations per slot, executed slot after slot
-// by each thread, with divergent leaf counts in a warp, set the time.
-// This first version does nothing about it; staging a leaf's records in
-// shared memory per warp, or the leaf test as a tensor-core product with
-// 3xTF32 accuracy, is later work.
+// Bound: a dependent walk of the cut tree, then up to 64 records of 64 B
+// per fat leaf entered, each read once per ray.  On the 512k-prim scene
+// the records' 35 MB fit the 50 MB L2, so the latency of the walk's
+// dependent loads and the ~48 operations per slot, run for every slot of
+// every leaf entered, set the time.  The design:
+//   * packed 32-byte node records (ops/bvh_layout.py::pack_nodes), two
+//     128-bit loads per step, the fat leaf's slot range in the leaf word;
+//   * persistent warps taking rays from one counter (take_rays), and a
+//     while-while loop: each lane walks until it stands on a fat leaf
+//     whose box it hits, or its walk ends;
+//   * then the warp drains the leaves its lanes stand on, one leaf after
+//     another: the leaf's owner hands its ray to the warp with shuffles,
+//     lane l tests slots l and l + 32, whose records are neighbours
+//     (coalesced 16-byte loads), and __reduce_min_sync gives the leaf's
+//     least code to the owner, which merges it.  Lanes whose own ray is
+//     done or walking help drain instead of idling, and no warp waits on
+//     the lane with the longest leaf.
 #include <cuda_runtime.h>
 
 #include "bvh_traverse.h"
@@ -46,6 +56,7 @@ namespace aten_tpu_torch {
 namespace {
 
 constexpr int kBlock = 128;
+constexpr int kMinIdle = 8;                // idle lanes at which a warp takes rays
 constexpr int32_t kSlotMask = 63;          // WINDOW - 1: slot bits of a code
 constexpr int32_t kNoHit = 0x7F800000;     // +inf, slot 0
 
@@ -54,79 +65,139 @@ __device__ __forceinline__ float plk_safe_inv(float d) {
   return fabsf(d) > 1e-12f ? 1.0f / d : 1e12f;
 }
 
+// The winner code of slot j of a leaf whose record is `rec`, kNoHit when
+// the ray (o, d, m = o x d) misses it.
+__device__ __forceinline__ int32_t slot_code(const float4* __restrict__ rec,
+                                             int32_t j, float ox, float oy,
+                                             float oz, float dx, float dy,
+                                             float dz, float mx, float my,
+                                             float mz, float t_min) {
+  // (m0, d0, m1, d1, n, n.v0) as (m0x m0y m0z d0x) (d0y d0z m1x m1y)
+  // (m1z d1x d1y d1z) (nx ny nz nv0)
+  const float4 a = __ldg(rec), b = __ldg(rec + 1);
+  const float4 c = __ldg(rec + 2), e = __ldg(rec + 3);
+  const float s0 =
+      ((((a.x * dx + a.y * dy) + a.z * dz) + a.w * mx) + b.x * my) + b.y * mz;
+  const float s1 =
+      ((((b.z * dx + b.w * dy) + c.x * dz) + c.y * mx) + c.z * my) + c.w * mz;
+  const float den = (e.x * dx + e.y * dy) + e.z * dz;
+  const float numn = (((-e.x) * ox + (-e.y) * oy) + (-e.z) * oz) + e.w;
+  const float s2 = (den - s0) - s1;
+  const int32_t idn = __float_as_int(den);
+  const bool signok = ((__float_as_int(s0) ^ idn) | (__float_as_int(s1) ^ idn) |
+                       (__float_as_int(s2) ^ idn)) >= 0;
+  const float tt = numn * (1.0f / den);  // den = 0: inf or NaN, never valid
+  return signok && tt > t_min ? (__float_as_int(tt) & ~kSlotMask) | j : kNoHit;
+}
+
 template <bool kAnyHit>
 __global__ void __launch_bounds__(kBlock)
-    plk_traverse_kernel(PlkView p, RayView r, float t_min) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= r.n) return;
-  const float ox = r.ro[3 * i], oy = r.ro[3 * i + 1], oz = r.ro[3 * i + 2];
-  const float dx = r.rd[3 * i], dy = r.rd[3 * i + 1], dz = r.rd[3 * i + 2];
-  const float ix = plk_safe_inv(dx), iy = plk_safe_inv(dy), iz = plk_safe_inv(dz);
-  // ro x rd in the reference kernel's order (traverse_pallas.py:1107-1109)
-  const float mx = oy * dz - oz * dy;
-  const float my = oz * dx - ox * dz;
-  const float mz = ox * dy - oy * dx;
+    plk_traverse_kernel(PlkView p, RayView r, float t_min, unsigned* next_ray) {
+  const float4* __restrict__ nodes = reinterpret_cast<const float4*>(p.nodes);
   const float4* __restrict__ recs = reinterpret_cast<const float4*>(p.consts);
-  const float t0 = r.t0[i];
-  float t = t0;
-  int32_t slot = -1;
-  int32_t cur = t0 > t_min ? 0 : -1;
-  while (cur >= 0) {
-    if (!slab_hit(p.bmin, p.bmax, cur, ox, oy, oz, ix, iy, iz, t)) {
-      cur = __ldg(p.miss + cur);
-      continue;
+  const int lane = threadIdx.x & 31;
+  int ray = -1;
+  bool open = true;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float ix = 0.0f, iy = 0.0f, iz = 0.0f, mx = 0.0f, my = 0.0f, mz = 0.0f;
+  float t = 0.0f;
+  int32_t slot = -1, cur = -1;
+  while (true) {
+    if (take_rays(next_ray, r.n, kMinIdle, ray, open)) {
+      const int64_t i3 = 3 * static_cast<int64_t>(ray);
+      ox = r.ro[i3], oy = r.ro[i3 + 1], oz = r.ro[i3 + 2];
+      dx = r.rd[i3], dy = r.rd[i3 + 1], dz = r.rd[i3 + 2];
+      ix = plk_safe_inv(dx), iy = plk_safe_inv(dy), iz = plk_safe_inv(dz);
+      // ro x rd in the reference kernel's order (traverse_pallas.py:1107-1109)
+      mx = oy * dz - oz * dy;
+      my = oz * dx - ox * dz;
+      mz = ox * dy - oy * dx;
+      const float t0 = r.t0[ray];
+      t = t0;
+      slot = -1;
+      cur = t0 > t_min ? 0 : -1;
     }
-    const int32_t ss = __ldg(p.slot_start + cur);
-    if (ss >= 0) {
-      const int32_t cnt = __ldg(p.count + cur);
+    if (!__any_sync(kFullWarp, ray >= 0)) break;  // the queue is empty
+    // the cut tree's inner nodes until a fat leaf whose box the ray hits
+    int32_t leaf = -1;
+    if (ray >= 0) {
+      while (cur >= 0) {
+        const float4 lo = __ldg(nodes + 2 * cur), hi = __ldg(nodes + 2 * cur + 1);
+        const int32_t miss = __float_as_int(lo.w);
+        if (!slab_hit_box(lo, hi, ox, oy, oz, ix, iy, iz, t)) {
+          cur = miss;
+          continue;
+        }
+        leaf = __float_as_int(hi.w);
+        if (leaf < 0) {
+          ++cur;  // an inner node's hit link: its first child, next in preorder
+          continue;
+        }
+        cur = miss;  // a fat leaf's hit link is its miss link
+        break;
+      }
+    }
+    // the warp drains each lane's leaf in turn
+    unsigned todo = __ballot_sync(kFullWarp, leaf >= 0);
+    while (todo) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int32_t sl = __shfl_sync(kFullWarp, leaf, src);
+      const float sox = __shfl_sync(kFullWarp, ox, src);
+      const float soy = __shfl_sync(kFullWarp, oy, src);
+      const float soz = __shfl_sync(kFullWarp, oz, src);
+      const float sdx = __shfl_sync(kFullWarp, dx, src);
+      const float sdy = __shfl_sync(kFullWarp, dy, src);
+      const float sdz = __shfl_sync(kFullWarp, dz, src);
+      const float smx = __shfl_sync(kFullWarp, mx, src);
+      const float smy = __shfl_sync(kFullWarp, my, src);
+      const float smz = __shfl_sync(kFullWarp, mz, src);
+      const int32_t ss = sl >> kLeafShift, cnt = sl & kLeafCount;
+      const float4* rec = recs + 4 * (static_cast<int64_t>(ss) + lane);
       int32_t best = kNoHit;
-      const float4* rec = recs + 4 * static_cast<int64_t>(ss);
-      for (int32_t j = 0; j < cnt; ++j, rec += 4) {
-        // (m0, d0, m1, d1, n, n.v0) as (m0x m0y m0z d0x) (d0y d0z m1x m1y)
-        // (m1z d1x d1y d1z) (nx ny nz nv0)
-        const float4 a = __ldg(rec), b = __ldg(rec + 1);
-        const float4 c = __ldg(rec + 2), e = __ldg(rec + 3);
-        const float s0 =
-            ((((a.x * dx + a.y * dy) + a.z * dz) + a.w * mx) + b.x * my) + b.y * mz;
-        const float s1 =
-            ((((b.z * dx + b.w * dy) + c.x * dz) + c.y * mx) + c.z * my) + c.w * mz;
-        const float den = (e.x * dx + e.y * dy) + e.z * dz;
-        const float numn = (((-e.x) * ox + (-e.y) * oy) + (-e.z) * oz) + e.w;
-        const float s2 = (den - s0) - s1;
-        const int32_t idn = __float_as_int(den);
-        const bool signok = ((__float_as_int(s0) ^ idn) | (__float_as_int(s1) ^ idn) |
-                             (__float_as_int(s2) ^ idn)) >= 0;
-        const float tt = numn * (1.0f / den);  // den = 0: inf or NaN, never valid
-        if (signok && tt > t_min) {
-          best = min(best, (__float_as_int(tt) & ~kSlotMask) | j);
+      if (lane < cnt) {
+        best = slot_code(rec, lane, sox, soy, soz, sdx, sdy, sdz, smx, smy, smz, t_min);
+      }
+      if (lane + 32 < cnt) {
+        best = min(best, slot_code(rec + 4 * 32, lane + 32, sox, soy, soz, sdx, sdy,
+                                   sdz, smx, smy, smz, t_min));
+      }
+      best = __reduce_min_sync(kFullWarp, best);
+      if (lane == src) {
+        const float bt = __int_as_float(best & ~kSlotMask);
+        if (bt < t) {
+          t = bt;
+          slot = ss + (best & kSlotMask);
         }
       }
-      const float bt = __int_as_float(best & ~kSlotMask);
-      if (bt < t) {
-        t = bt;
-        slot = ss + (best & kSlotMask);
-      }
-      if (kAnyHit && slot >= 0) break;
     }
-    cur = __ldg(p.hit + cur);
+    if (kAnyHit && slot >= 0) cur = -1;
+    if (ray >= 0 && cur < 0) {
+      r.t[ray] = t;
+      r.prim[ray] = slot >= 0 ? __ldg(p.slot2prim + slot) : -1;
+      ray = -1;
+    }
   }
-  r.t[i] = t;
-  r.prim[i] = slot >= 0 ? __ldg(p.slot2prim + slot) : -1;
+}
+
+template <bool kAnyHit>
+void launch(const PlkView& plk, const RayView& rays, float t_min,
+            unsigned* next_ray, cudaStream_t s) {
+  const int64_t blocks = persistent_blocks(plk_traverse_kernel<kAnyHit>, kBlock, rays.n);
+  plk_traverse_kernel<kAnyHit><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
+      plk, rays, t_min, next_ray);
 }
 
 }  // namespace
 
 int launch_plk_traverse(const PlkView& plk, const RayView& rays, float t_min,
-                        bool any_hit, void* stream) {
+                        bool any_hit, unsigned* next_ray, void* stream) {
   if (rays.n <= 0) return static_cast<int>(cudaSuccess);
-  const int64_t blocks = (rays.n + kBlock - 1) / kBlock;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (any_hit) {
-    plk_traverse_kernel<true><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
-        plk, rays, t_min);
+    launch<true>(plk, rays, t_min, next_ray, s);
   } else {
-    plk_traverse_kernel<false><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
-        plk, rays, t_min);
+    launch<false>(plk, rays, t_min, next_ray, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

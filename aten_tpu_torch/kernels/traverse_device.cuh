@@ -1,5 +1,6 @@
 // Device-side tests shared by the traversal kernels (bvh_traverse.cu,
-// tlas_traverse.cu, smt_traverse.cu).  Each repeats the oracle's operation order
+// plk_traverse.cu, tlas_traverse.cu, smt_traverse.cu), and the ray queue
+// of the persistent ones.  Each repeats the oracle's operation order
 // (aten_tpu/accel/traverse.py, aten_tpu/accel/tlas.py) so that, built
 // with --fmad=false, every float op rounds as in the plain torch walks.
 #pragma once
@@ -33,6 +34,63 @@ __device__ __forceinline__ bool slab_hit(const float* __restrict__ bmin,
   const float t_exit =
       fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
   return t_enter <= t_exit && t_exit > 0.0f && t_enter < t;
+}
+
+// The same test on a packed node record's box, lo = (bmin.xyz, .) and
+// hi = (bmax.xyz, .) (ops/bvh_layout.py), in the same operation order.
+__device__ __forceinline__ bool slab_hit_box(float4 lo, float4 hi, float ox,
+                                             float oy, float oz, float ix,
+                                             float iy, float iz, float t) {
+  const float tx0 = (lo.x - ox) * ix, tx1 = (hi.x - ox) * ix;
+  const float ty0 = (lo.y - oy) * iy, ty1 = (hi.y - oy) * iy;
+  const float tz0 = (lo.z - oz) * iz, tz1 = (hi.z - oz) * iz;
+  const float t_enter =
+      fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+  const float t_exit =
+      fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+  return t_enter <= t_exit && t_exit > 0.0f && t_enter < t;
+}
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// The ray queue of a persistent kernel: each lane of the calling warp
+// whose `ray` is negative takes the next ray index from `next_ray`, with
+// one atomicAdd for the warp, once at least `min_idle` lanes are idle;
+// indices at or past n leave the lane idle.  `open` (warp-uniform) says
+// whether the queue may still hold rays and is cleared once it is empty.
+// Returns whether this lane took a new ray.  Every lane of the warp
+// calls it.
+__device__ __forceinline__ bool take_rays(unsigned* next_ray, int64_t n,
+                                          int min_idle, int& ray,
+                                          bool& open) {
+  if (!open) return false;
+  const unsigned idle = __ballot_sync(kFullWarp, ray < 0);
+  const int n_idle = __popc(idle);
+  if (n_idle < min_idle) return false;
+  const unsigned lane = threadIdx.x & 31u;
+  unsigned base = 0;
+  if (lane == 0) base = atomicAdd(next_ray, static_cast<unsigned>(n_idle));
+  base = __shfl_sync(kFullWarp, base, 0);
+  open = static_cast<int64_t>(base) + n_idle < n;
+  if (ray >= 0) return false;
+  const unsigned k = base + __popc(idle & ((1u << lane) - 1u));
+  if (static_cast<int64_t>(k) >= n) return false;
+  ray = static_cast<int>(k);
+  return true;
+}
+
+// Blocks of `block` threads for a persistent launch of `kernel` over n
+// rays: as many as the card holds at once, and no more than the rays
+// fill.
+template <typename Kernel>
+int64_t persistent_blocks(Kernel kernel, int block, int64_t n) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, 0);
+  const int64_t full = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  const int64_t need = (n + block - 1) / block;
+  return need < full ? need : full;
 }
 
 // Moller-Trumbore of the triangle (v0, e1 = v1 - v0, e2 = v2 - v0).

@@ -1,0 +1,118 @@
+"""Packed node and prim records of the threaded BVH (kernels K1 and K3).
+
+The K1 kernel (kernels/bvh_traverse.cu) and the K3 kernel
+(kernels/plk_traverse.cu) read their tree as one 32-byte record per node,
+16-byte aligned and read as two float4s:
+
+    (bmin.x, bmin.y, bmin.z, miss)  (bmax.x, bmax.y, bmax.z, leaf)
+
+`miss` and `leaf` are int32 bits.  The record needs no hit link: the tree
+is laid out in preorder (accel/build.py), so an internal node's hit link
+is the next node, i + 1, and a leaf's hit link equals its miss link.
+`pack_nodes` checks both facts on every tree it packs and raises if one
+fails.  `leaf` is -1 on an internal node; on a leaf it packs the start
+and count of its range as `start << LEAF_SHIFT | count`: for K1 the
+leaf's prim range in leaf order (count <= LEAF_MAX), for K3 the fat
+leaf's slot range (count <= 64).
+
+K1 also reads one 48-byte record per prim in leaf order, three float4s,
+so a leaf's prims are contiguous and the kernel makes no dependent load
+through `prim_order`:
+
+    triangle  (v0.xyz, id)  (e1.xyz, 0)  (e2.xyz, 0)
+    sphere    (centre.xyz, id)  (radius, 0, 0, 0)  (0, 0, 0, 0)
+
+`id` is the global prim id as int32 bits (triangles first, then
+spheres); the floats are the bits of tri_v0, tri_e1, tri_e2, sph_center
+and sph_radius.  The original arrays stay in the scene: the plain walks,
+`eval_hit` and the two-level kernel read them.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+NODE_WORDS = 8     # float32 words of a node record (32 B)
+PRIM_WORDS = 12    # float32 words of a K1 prim record (48 B)
+LEAF_SHIFT = 7     # a leaf's count fills the low 7 bits (<= 64 for K3)
+LEAF_COUNT = (1 << LEAF_SHIFT) - 1
+MAX_START = 1 << (31 - LEAF_SHIFT)  # starts below this pack into an int32
+
+# the Scene arrays of K1's layout
+ARRAY_KEYS = ("bvh_nodes", "bvh_prims")
+
+
+def pack_nodes(bmin, bmax, hit, miss, start, count, is_leaf):
+    """[K, NODE_WORDS] float32 records of a tree in preorder.
+
+    bmin, bmax [K,3]; hit, miss [K] int links; is_leaf [K] bool; start,
+    count [K] the range of each leaf.  Raises ValueError unless every
+    internal node's hit link is i + 1 and every leaf's equals its miss
+    link, or if a leaf's range does not pack."""
+    hit = np.asarray(hit, np.int64)
+    miss = np.asarray(miss, np.int64)
+    start = np.asarray(start, np.int64)
+    count = np.asarray(count, np.int64)
+    is_leaf = np.asarray(is_leaf, bool)
+    K = hit.shape[0]
+    bad_inner = np.nonzero(~is_leaf & (hit != np.arange(1, K + 1)))[0]
+    if bad_inner.size:
+        raise ValueError(f"internal node {int(bad_inner[0])} has hit link "
+                         f"{int(hit[bad_inner[0]])}, not the next node in preorder")
+    bad_leaf = np.nonzero(is_leaf & (hit != miss))[0]
+    if bad_leaf.size:
+        raise ValueError(f"leaf {int(bad_leaf[0])} has hit link {int(hit[bad_leaf[0]])} "
+                         f"and miss link {int(miss[bad_leaf[0]])}; they must be equal")
+    s, c = start[is_leaf], count[is_leaf]
+    if ((s < 0) | (s >= MAX_START) | (c < 0) | (c > LEAF_COUNT)).any():
+        raise ValueError("a leaf range does not pack into start << "
+                         f"{LEAF_SHIFT} | count (start < {MAX_START}, count <= {LEAF_COUNT})")
+    leaf = np.where(is_leaf, (start << LEAF_SHIFT) | count, -1)
+    rec = np.zeros((K, NODE_WORDS), np.float32)
+    rec[:, 0:3] = bmin
+    rec[:, 4:7] = bmax
+    ints = rec.view(np.int32)
+    ints[:, 3] = miss
+    ints[:, 7] = leaf
+    return rec
+
+
+def unpack_nodes(rec):
+    """The arrays `pack_nodes` packed: (bmin, bmax, hit, miss, leaf, start,
+    count), the ints int32; start and count are -1 and 0 on internal
+    nodes."""
+    ints = np.ascontiguousarray(rec).view(np.int32)
+    miss, leaf = ints[:, 3].copy(), ints[:, 7].copy()
+    is_leaf = leaf >= 0
+    hit = np.where(is_leaf, miss, np.arange(1, rec.shape[0] + 1)).astype(np.int32)
+    start = np.where(is_leaf, leaf >> LEAF_SHIFT, -1).astype(np.int32)
+    count = np.where(is_leaf, leaf & LEAF_COUNT, 0).astype(np.int32)
+    return rec[:, 0:3].copy(), rec[:, 4:7].copy(), hit, miss, leaf, start, count
+
+
+def prim_records(order, tri_v0, tri_e1, tri_e2, sph_center, sph_radius, num_tris):
+    """[P, PRIM_WORDS] float32 records of the prims in leaf order `order`
+    (global ids)."""
+    order = np.asarray(order, np.int64)
+    rec = np.zeros((order.shape[0], PRIM_WORDS), np.float32)
+    tri = order < num_tris
+    t = order[tri]
+    rec[tri, 0:3] = np.asarray(tri_v0, np.float32)[t]
+    rec[tri, 4:7] = np.asarray(tri_e1, np.float32)[t]
+    rec[tri, 8:11] = np.asarray(tri_e2, np.float32)[t]
+    s = order[~tri] - num_tris
+    rec[~tri, 0:3] = np.asarray(sph_center, np.float32)[s]
+    rec[~tri, 4] = np.asarray(sph_radius, np.float32)[s]
+    rec.view(np.int32)[:, 3] = order
+    return rec
+
+
+def build_bvh_layout(bvh, tri_v0, tri_e1, tri_e2, sph_center, sph_radius, num_tris):
+    """K1's layout of a single-level threaded BVH: a dict of numpy arrays
+    under ARRAY_KEYS, bvh_nodes [K, NODE_WORDS] and bvh_prims
+    [P, PRIM_WORDS] float32."""
+    ps = np.asarray(bvh["nodes_prim_start"], np.int64)
+    nodes = pack_nodes(bvh["nodes_bmin"], bvh["nodes_bmax"], bvh["nodes_hit"],
+                       bvh["nodes_miss"], ps, bvh["nodes_prim_count"], ps >= 0)
+    prims = prim_records(bvh["prim_order"], tri_v0, tri_e1, tri_e2, sph_center,
+                         sph_radius, num_tris)
+    return {"bvh_nodes": nodes, "bvh_prims": prims}

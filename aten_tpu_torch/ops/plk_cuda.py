@@ -2,7 +2,8 @@
 
 `plk_traverse` runs the walk of kernels/plk_traverse.cu (closest-hit and
 any-hit instantiations) over a scene's Plücker layout
-(ops/plk_layout.py).  It replaces the TPU kernel
+(ops/plk_layout.py): the packed cut-tree records `plk_nodes`, the slot
+records `plk_consts` and `plk_slot2prim`.  It replaces the TPU kernel
 `_make_plk_treelet_kernel` (aten_tpu/ops/traverse_pallas.py:1058,
 launched by `_traverse_plk_tiles` :1276).  Its arguments are checked on
 every device; for tensors on the CPU it then runs the kernel's plain
@@ -14,8 +15,9 @@ from __future__ import annotations
 
 import torch
 
+from aten_tpu_torch.ops.bvh_layout import NODE_WORDS
 from aten_tpu_torch.ops.plk_layout import RECORD, WINDOW
-from aten_tpu_torch.ops.traverse_cuda import _checked, load_library
+from aten_tpu_torch.ops.traverse_cuda import _checked, _packed, load_library, next_ray_counter
 
 KERNELS = ("plk_traverse_closest", "plk_traverse_any")
 
@@ -31,10 +33,8 @@ def reset_launch_counts():
 
 # (name, dtype, trailing shape) of each scene array the kernel reads
 _SCENE_FIELDS = (
-    ("plk_bmin", torch.float32, (3,)), ("plk_bmax", torch.float32, (3,)),
-    ("plk_hit", torch.int32, ()), ("plk_miss", torch.int32, ()),
-    ("plk_slot_start", torch.int32, ()), ("plk_count", torch.int32, ()),
-    ("plk_consts", torch.float32, (RECORD,)), ("plk_slot2prim", torch.int32, ()),
+    ("plk_nodes", torch.float32, (NODE_WORDS,)), ("plk_consts", torch.float32, (RECORD,)),
+    ("plk_slot2prim", torch.int32, ()),
 )
 
 
@@ -50,7 +50,7 @@ def plk_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
         raise ValueError(f"the scene's Plücker layout has window "
                          f"{scene.get('plk_window')}; the kernel takes {WINDOW}")
     n = ro.shape[0]
-    ptrs = [_checked(k, scene[k], dt, tail, dev) for k, dt, tail in _SCENE_FIELDS]
+    ptrs = _packed(scene, _SCENE_FIELDS, dev)
     ro_p = _checked("ro", ro, torch.float32, (3,), dev)
     rd_p = _checked("rd", rd, torch.float32, (3,), dev)
     t0_p = _checked("t0", t0, torch.float32, (), dev)
@@ -61,18 +61,17 @@ def plk_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
 
         h = _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min)
         return h["t"], h["prim"]
-    if scene["plk_consts"].data_ptr() % 16:
-        raise ValueError("plk_consts must be 16-byte aligned (read as float4)")
     t = torch.empty(n, dtype=torch.float32, device=dev)
     prim = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return t, prim
     lib = load_library()
+    counter = next_ray_counter(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.aten_plk_traverse(
             *ptrs, ro_p, rd_p, t0_p, t.data_ptr(), prim.data_ptr(),
-            n, float(t_min), int(any_hit), stream)
+            n, float(t_min), int(any_hit), counter.data_ptr(), stream)
     if rc != 0:
         what = ("bad arguments" if rc < 0
                 else lib.aten_cuda_error_string(rc).decode())

@@ -19,6 +19,11 @@ kernel gets by an exact negation.  The block itself, [16, 4*WINDOW] per
 leaf laid out for the TPU's matrix unit, holds 19 nonzero entries of 64
 per slot and is not built.
 
+The K3 kernel reads the cut tree as packed 32-byte node records
+(ops/bvh_layout.py::pack_nodes), `plk_nodes`, with a fat leaf's
+`slot_start` and `count` in the record's leaf word; the separate node
+arrays stay for the plain version.
+
 The window is this module's constant and travels with the layout as
 `plk_window`; nothing reads it from the environment.
 
@@ -33,6 +38,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from aten_tpu_torch.ops.bvh_layout import pack_nodes
+
 WINDOW = 64        # fat-leaf capacity; the slot id fills the 6 low bits of t
 PACK = 8           # slots per row: fat leaves start on PACK-slot boundaries
 RESIDENT_MB = 32.0  # reference pools up to this size stay resident (K1)
@@ -43,7 +50,8 @@ RECORD = 16        # float32s per slot record
 
 # the Scene arrays of the layout
 ARRAY_KEYS = ("plk_bmin", "plk_bmax", "plk_hit", "plk_miss",
-              "plk_slot_start", "plk_count", "plk_consts", "plk_slot2prim")
+              "plk_slot_start", "plk_count", "plk_consts", "plk_slot2prim",
+              "plk_nodes")
 
 
 def treelet_cut(bvh):
@@ -145,7 +153,9 @@ def build_plk_layout(bvh, tri_v0, tri_e1, tri_e2, num_tris):
     links of the cut tree), plk_slot_start [Kt] i32 (row_start * PACK on
     fat leaves, else -1), plk_count [Kt] i32 (<= WINDOW), plk_consts
     [n_slots, RECORD] f32 (zero on padding slots), plk_slot2prim
-    [n_slots] i32 (-1 on padding slots)."""
+    [n_slots] i32 (-1 on padding slots), plk_nodes [Kt, NODE_WORDS] f32
+    (the packed records of the cut tree, with each fat leaf's slot start
+    and count)."""
     order = np.asarray(bvh["prim_order"], np.int64)
     if (order >= num_tris).any():
         return None
@@ -157,12 +167,14 @@ def build_plk_layout(bvh, tri_v0, tri_e1, tri_e2, num_tris):
     consts[row_of_prim] = plucker_records(tri_v0, tri_e1, tri_e2, order)
     slot2prim = np.full(n_slots, -1, np.int32)
     slot2prim[row_of_prim] = order
+    slot_start = np.where(row_start >= 0, row_start * PACK, -1)
+    nodes = pack_nodes(bmin, bmax, hit, miss, slot_start, count, slot_start >= 0)
     return {
         "plk_bmin": bmin, "plk_bmax": bmax,
         "plk_hit": hit.astype(np.int32), "plk_miss": miss.astype(np.int32),
-        "plk_slot_start": np.where(row_start >= 0, row_start * PACK, -1).astype(np.int32),
+        "plk_slot_start": slot_start.astype(np.int32),
         "plk_count": count.astype(np.int32),
-        "plk_consts": consts, "plk_slot2prim": slot2prim,
+        "plk_consts": consts, "plk_slot2prim": slot2prim, "plk_nodes": nodes,
         "plk_window": WINDOW,
         "plk_pool_mb": pool_mb(hit.shape[0], n_rows),
     }

@@ -1,7 +1,10 @@
 """Wrapper of the hand-written CUDA traversal kernel.
 
 `bvh_traverse` runs the threaded-BVH walk of kernels/bvh_traverse.cu
-(closest-hit and any-hit instantiations) on CUDA tensors.  It replaces
+(closest-hit and any-hit instantiations) on CUDA tensors, over the
+scene's packed node and prim records (ops/bvh_layout.py, `bvh_nodes`
+and `bvh_prims`), in persistent warps that take their rays from a
+counter the wrapper zeroes.  It replaces
 the TPU treelet kernel `_make_treelet_kernel`
 (aten_tpu/ops/traverse_pallas.py:785, with `_recompute_uv` :1573) and
 serves the uncut-tree case of `_make_kernel` (:102) with the same code.
@@ -25,6 +28,7 @@ import os
 import torch
 
 from aten_tpu_torch import native
+from aten_tpu_torch.ops.bvh_layout import NODE_WORDS, PRIM_WORDS
 
 KERNEL_DIR = os.path.join(native.REPO_ROOT, "aten_tpu_torch", "kernels")
 SOURCES = (os.path.join(KERNEL_DIR, "bvh_traverse.cu"),
@@ -73,15 +77,15 @@ def load_library(verbose=False):
     vp = ctypes.c_void_p
     lib.aten_bvh_traverse.restype = ctypes.c_int
     lib.aten_bvh_traverse.argtypes = (
-        [vp] * 12 + [ctypes.c_int32] + [vp] * 7
-        + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp])
+        [vp] * 2 + [ctypes.c_int32] + [vp] * 7
+        + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp, vp])
     lib.aten_tlas_traverse.restype = ctypes.c_int
     lib.aten_tlas_traverse.argtypes = (
         [vp] * 14 + [ctypes.c_int32] * 2 + [vp] * 8
         + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp])
     lib.aten_plk_traverse.restype = ctypes.c_int
     lib.aten_plk_traverse.argtypes = (
-        [vp] * 13 + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp])
+        [vp] * 8 + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp, vp])
     lib.aten_smt_traverse.restype = ctypes.c_int
     lib.aten_smt_traverse.argtypes = (
         [vp] * 8 + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, ctypes.c_int32, vp])
@@ -93,13 +97,27 @@ def load_library(verbose=False):
 
 # (name, dtype, trailing shape) of each scene array the kernel reads
 _SCENE_FIELDS = (
-    ("nodes_bmin", torch.float32, (3,)), ("nodes_bmax", torch.float32, (3,)),
-    ("nodes_hit", torch.int32, ()), ("nodes_miss", torch.int32, ()),
-    ("nodes_prim_start", torch.int32, ()), ("nodes_prim_count", torch.int32, ()),
-    ("prim_order", torch.int32, ()), ("tri_v0", torch.float32, (3,)),
-    ("tri_e1", torch.float32, (3,)), ("tri_e2", torch.float32, (3,)),
-    ("sph_center", torch.float32, (3,)), ("sph_radius", torch.float32, ()),
+    ("bvh_nodes", torch.float32, (NODE_WORDS,)), ("bvh_prims", torch.float32, (PRIM_WORDS,)),
 )
+
+
+def _packed(scene, fields, device):
+    """Data pointers of the scene's packed records `fields`, checked as
+    `_checked` does and for the 16-byte alignment of float4 reads."""
+    missing = [k for k, _, _ in fields if k not in scene]
+    if missing:
+        raise ValueError(f"the scene lacks the packed records {missing} "
+                         "(ops/bvh_layout.py); its build did not choose this kernel "
+                         "(scene.scene.with_bvh_layout attaches K1's)")
+    ptrs = [_checked(k, scene[k], dt, tail, device) for k, dt, tail in fields]
+    if any(p % 16 for p in ptrs):
+        raise ValueError("packed records must be 16-byte aligned (read as float4)")
+    return ptrs
+
+
+def next_ray_counter(device):
+    """The zeroed ray counter of a persistent launch."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
 
 
 def _checked(name, x, dtype, tail, device):
@@ -127,7 +145,7 @@ def bvh_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
         raise ValueError(f"bvh_traverse: unsupported device {ro.device}")
     dev = ro.device
     n = ro.shape[0]
-    ptrs = [_checked(k, scene[k], dt, tail, dev) for k, dt, tail in _SCENE_FIELDS]
+    ptrs = _packed(scene, _SCENE_FIELDS, dev)
     ro_p = _checked("ro", ro, torch.float32, (3,), dev)
     rd_p = _checked("rd", rd, torch.float32, (3,), dev)
     t0_p = _checked("t0", t0, torch.float32, (), dev)
@@ -140,12 +158,13 @@ def bvh_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
     if n == 0:
         return t, prim, u, v
     lib = load_library()
+    counter = next_ray_counter(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.aten_bvh_traverse(
             *ptrs, int(scene["num_tris"]), ro_p, rd_p, t0_p,
             t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-            n, float(t_min), int(any_hit), stream)
+            n, float(t_min), int(any_hit), counter.data_ptr(), stream)
     if rc != 0:
         what = ("bad arguments" if rc < 0
                 else lib.aten_cuda_error_string(rc).decode())

@@ -13,9 +13,12 @@ policy "smt", a single-level scene on the reference's treelet branch
 and the statics `traversal` = "smt" and `trl_window`.  Under "v3" and
 "plk", one on which the reference would run its Plücker treelet kernel
 K3 (ops/plk_layout.py::uses_plk) gets the port's K3 layout (`plk_*`
-arrays) and the statics `traversal` = "plk" and `plk_window`.  Other
-scenes build without them; `with_trl_layout` attaches the K4 layout to
-a built scene, for `traverse(impl="smt")` under another policy.
+arrays) and the statics `traversal` = "plk" and `plk_window`.  Every
+other single-level scene runs the K1 kernel and gets its packed node and
+prim records (ops/bvh_layout.py, `bvh_nodes` and `bvh_prims`).
+`with_trl_layout` attaches the K4 layout to a built scene, for
+`traverse(impl="smt")` under another policy, and `with_bvh_layout` K1's
+records, for `traverse(impl="cuda")` on a scene built for K3 or K4.
 
 Instanced objects (`create_object`, `add_instance`, `obj=` on the
 geometry adds) build the two-level pool of accel/tlas.py.
@@ -33,7 +36,7 @@ from aten_tpu_torch.accel import traverse
 from aten_tpu_torch.accel.build import LEAF_MAX, build_bvh
 from aten_tpu_torch.accel.tlas import build_two_level
 from aten_tpu_torch.device import resolve_device
-from aten_tpu_torch.ops import plk_layout, trl_layout
+from aten_tpu_torch.ops import bvh_layout, plk_layout, trl_layout
 from aten_tpu_torch.scene.lights import LightTable, LightType
 from aten_tpu_torch.scene.materials import MaterialTable, MaterialType
 
@@ -80,22 +83,39 @@ def to_tensors(arrays: dict, device):
     return out
 
 
+def _host_bvh(scene: Scene, layout: str) -> dict:
+    """The BVH and geometry arrays of `scene`, a built single-level scene,
+    as numpy, to build `layout` from."""
+    from aten_tpu_torch.scene.bridge import BVH_KEYS
+
+    if scene["num_instances"]:
+        raise ValueError(f"{layout}: only single-level scenes have one; this one has instances")
+    return {k: scene[k].cpu().numpy()
+            for k in BVH_KEYS + ("tri_v0", "tri_e1", "tri_e2", "sph_center", "sph_radius")}
+
+
 def with_trl_layout(scene: Scene) -> Scene:
     """`scene`, a built single-level scene, with the K4 layout of its own
     BVH attached (the `trl_*` arrays and the static `trl_window`) and its
     `traversal` left as it was: for `traverse(impl="smt")` under a kernel
     policy whose build did not attach the layout."""
-    from aten_tpu_torch.scene.bridge import BVH_KEYS
-
-    if scene["num_instances"]:
-        raise ValueError("the K4 layout is for single-level scenes; this one has instances")
-    host = {k: scene[k].cpu().numpy()
-            for k in BVH_KEYS + ("tri_v0", "tri_e1", "tri_e2", "sph_center", "sph_radius")}
+    host = _host_bvh(scene, "the K4 layout")
     lay = trl_layout.build_trl_layout(host, host["tri_v0"], host["tri_e1"], host["tri_e2"],
                                       host["sph_center"], host["sph_radius"], scene["num_tris"])
     arrays = {**scene.arrays,
               **to_tensors({k: lay[k] for k in trl_layout.ARRAY_KEYS}, scene.device)}
     return Scene(arrays, {**scene.static, "trl_window": lay["trl_window"]}, scene.device)
+
+
+def with_bvh_layout(scene: Scene) -> Scene:
+    """`scene`, a built single-level scene, with K1's packed records of its
+    own BVH attached (`bvh_nodes`, `bvh_prims`) and its `traversal` left
+    as it was: for `traverse(impl="cuda")` on a scene whose build chose K3
+    or K4."""
+    host = _host_bvh(scene, "K1's records")
+    lay = bvh_layout.build_bvh_layout(host, host["tri_v0"], host["tri_e1"], host["tri_e2"],
+                                      host["sph_center"], host["sph_radius"], scene["num_tris"])
+    return Scene({**scene.arrays, **to_tensors(lay, scene.device)}, scene.static, scene.device)
 
 
 def check_leaf_sizes(prim_count):
@@ -336,7 +356,7 @@ class SceneBuilder:
             check_leaf_sizes(bvh["nodes_prim_count"])
             num_instances = 0
         # each layout only where the kernel policy can run its kernel
-        plk = trl = None
+        plk = trl = k1 = None
         if num_instances == 0:
             n_nodes, n_prims = bvh["nodes_hit"].shape[0], bvh["prim_order"].shape[0]
             treelet = trl_layout.uses_trl(n_nodes, n_prims, num_instances)
@@ -346,6 +366,8 @@ class SceneBuilder:
                 lay = plk_layout.build_plk_layout(bvh, tv0, te1, te2, num_tris)
                 if plk_layout.uses_plk(n_nodes, n_prims, lay, traverse.KERNEL):
                     plk = lay
+            if plk is None and trl is None:
+                k1 = bvh_layout.build_bvh_layout(bvh, tv0, te1, te2, sc, sr, num_tris)
 
         tri_areas = tarea[:num_tris] if num_tris else np.zeros(0, np.float32)
         arrays = {
@@ -391,6 +413,8 @@ class SceneBuilder:
                 {r["type"] for r in rows} | {int(MaterialType.DIFFUSE)}
             )),
         }
+        if k1 is not None:
+            arrays.update(k1)
         if trl is not None:
             arrays.update({k: trl[k] for k in trl_layout.ARRAY_KEYS})
             static["traversal"] = "smt"

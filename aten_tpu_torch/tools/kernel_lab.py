@@ -181,10 +181,15 @@ def tables(scene):
     """The lab's tables on the scene's device: the K4 layout (`nodes`,
     `links`, `recs`; the scene must carry it, see
     scene.scene.with_trl_layout), the Plücker tables (`emat`, `pids`,
-    `tre`) and the scene itself, which `v3` walks."""
+    `tre`) and the scene itself, which `v3` walks with K1 (its records
+    attached here where the scene's build chose another kernel)."""
+    from aten_tpu_torch.scene.scene import with_bvh_layout
+
     if "trl_nodes" not in scene:
         raise ValueError("kernel_lab needs a scene with the K4 layout "
                          "(scene.scene.with_trl_layout)")
+    if "bvh_nodes" not in scene:
+        scene = with_bvh_layout(scene)
     host = {k: scene[k].cpu().numpy() for k in ("trl_nodes", "trl_recs")}
     E, pids, tre = build_plucker_leaves(host)
     dev = scene["trl_nodes"].device

@@ -5,28 +5,30 @@
 
 Run from the root of a checkout on a machine with one CUDA card.  It
 builds the traversal kernels from the checkout's sources, holds the
-threaded-BVH kernel against its plain torch version on two mesh scenes
-(the 2,004-prim one also at the main path's ray count), renders the
-Cornell box against the pinned golden image, renders the 102,404-prim
-and the 2,004-prim mesh scenes through that kernel at 512x512, 16 spp,
-then holds the two-level (instanced) kernel against its plain version on
-the 19-instance fixture and renders that fixture through it, and finally
-holds the Plücker treelet kernel against its plain version and the
-oracle walk on the 512,004-prim mesh scene and renders that scene
-through it.  Phase 9 holds the multi-chain treelet kernel K4 at 1, 2, 4
-and 8 rays per thread against its plain version and the oracle walk on
-the rays of both mesh scenes, times it beside the kernels those scenes
-run by default, renders the 102,404-prim scene through it, and renders
-the 512,004-prim scene in a child process started with
-ATEN_TPU_KERNEL=smt; phase 10 runs the latency labs (pointer chase,
-launch overhead) against their plain versions; phase 11 runs the
-treelet-walk lab L1 (python -m aten_tpu_torch.tools.kernel_lab) on
-1,048,576 primary rays of the 102,404-prim scene, each variant bitwise
-against its plain version, timed beside K1 and held, where it computes a
-closest hit, against the oracle walk.  Each main-path render
-is profiled, with its ten costliest device ops.  It prints the measured
-times and each kernel's bound (the least time the card could take for
-the work).
+threaded-BVH kernel K1 against its plain torch version on two mesh
+scenes and times it at the main path's ray count on both (bound over the
+BVH's own arrays, with the bound over its packed records beside it),
+renders the Cornell box against the pinned golden image, renders the
+102,404-prim and the 2,004-prim mesh scenes through that kernel at
+512x512, 16 spp, then holds the two-level (instanced) kernel against its
+plain version on the 19-instance fixture and renders that fixture
+through it, and finally holds the Plücker treelet kernel K3 against its
+plain version and the oracle walk on the 512,004-prim mesh scene, times
+it, and renders that scene through it. Phase 9 holds the multi-chain
+treelet kernel K4 at 1, 2, 4 and 8 rays per thread against its plain
+version and the oracle walk on the rays of both mesh scenes, times it
+beside the kernels those scenes run by default, renders the 102,404-prim
+scene through it, and renders the 512,004-prim scene in a child process
+started with ATEN_TPU_KERNEL=smt; phase 10 runs the latency labs
+(pointer chase, launch overhead) against their plain versions; phase 11
+runs the treelet-walk lab L1 (python -m aten_tpu_torch.tools.kernel_lab)
+on 1,048,576 primary rays of the 102,404-prim scene, each variant
+bitwise against its plain version, timed beside K1 and held, where it
+computes a closest hit, against the oracle walk.  Each main-path render
+is profiled, with its ten costliest device ops and each traversal
+kernel's summed device time. It prints the measured times and each
+kernel's bound (the least time the card could take for the work).
+
 Every phase raises on failure, so any failure exits non-zero.  The last
 two lines are one JSON object describing the kernels, then
 {"ok": true, "device": {...}}.  Without a card, or outside a checkout,
@@ -35,6 +37,7 @@ it exits non-zero and prints no result.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -260,8 +263,21 @@ def bound(n_rays, out_bytes, pool_bytes, work, ops_ray=OPS_RAY):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
+def array_bytes(scene, names):
+    return sum(scene[k].numel() * scene[k].element_size() for k in names)
+
+
 def pool_bytes(scene, fields):
-    return sum(scene[k].numel() * scene[k].element_size() for k, _, _ in fields)
+    """Bytes of the scene arrays a wrapper's (name, dtype, shape) fields name."""
+    return array_bytes(scene, [k for k, _, _ in fields])
+
+
+# The threaded BVH's own arrays, which the plain walks read: the pool of
+# every traversal bound taken over the query's least work (the oracle
+# walk's node steps and prim tests).
+BVH_ARRAYS = ("nodes_bmin", "nodes_bmax", "nodes_hit", "nodes_miss", "nodes_prim_start",
+              "nodes_prim_count", "prim_order", "tri_v0", "tri_e1", "tri_e2", "sph_center",
+              "sph_radius")
 
 
 def reset_counts():
@@ -356,9 +372,10 @@ def compare_plk(name, scene, ro, rd, t_max):
 
 def profile_render(fn):
     """One profiled call of fn(): (wall ms, device busy ms, traversal
-    kernels' ms, the ten device ops with the most time as (name, ms)),
-    busy being the summed time of the events on the card (kernels,
-    copies, fills; one stream, so they do not overlap)."""
+    kernels' ms, the ten device ops with the most time as (name, ms),
+    {traversal kernel: ms}), busy being the summed time of the events on
+    the card (kernels, copies, fills; one stream, so they do not
+    overlap)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -370,7 +387,7 @@ def profile_render(fn):
         torch.cuda.synchronize()
         wall = (time.time() - t) * 1e3
     busy = trav = 0.0
-    ops = []
+    ops, per_kernel = [], {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue  # host ops: their device time repeats their kernels'
@@ -379,12 +396,15 @@ def profile_render(fn):
         ops.append((e.key, us / 1e3))
         if "traverse_kernel" in e.key:
             trav += us
+            m = re.search(r"\w+_traverse_kernel(<[^>]*>)?", e.key)
+            short = m.group(0) if m else e.key
+            per_kernel[short] = per_kernel.get(short, 0.0) + us / 1e3
     top = sorted(ops, key=lambda kv: -kv[1])[:10]
-    return wall, busy / 1e3, trav / 1e3, top
+    return wall, busy / 1e3, trav / 1e3, top, per_kernel
 
 
 def log_profile(phase, card, prof):
-    wall, busy, trav, top = prof
+    wall, busy, trav, top, per_kernel = prof
     log(f"{phase} profiled render: wall {wall:.1f} ms, device busy {busy:.1f} ms "
         f"(idle share {1.0 - busy / wall:.3f}), traversal kernels {trav:.2f} ms "
         f"({trav / busy if busy else 0.0:.4f} of busy) [{card}]")
@@ -392,6 +412,56 @@ def log_profile(phase, card, prof):
         short = name.replace("void ", "").replace("at::native::", "")
         log(f"{phase}   top device op {ms:9.3f} ms ({ms / busy if busy else 0.0:.4f} of busy) "
             f"{short[:120]}")
+    for name, ms in sorted(per_kernel.items()):
+        log(f"{phase}   traversal kernel in the render: {name[:90]} {ms:.3f} ms "
+            f"({ms / busy if busy else 0.0:.4f} of busy) [{card}]")
+
+
+def render_rays(scene, cam, **kw):
+    """The rays one render_image(scene, cam, **kw) hands to traversal:
+    [(ro, rd, t0, any_hit, t_min)] per call, camera and bounce rays
+    closest-hit, NEE shadow rays any-hit."""
+    from aten_tpu_torch.accel import traverse as trav_mod
+    from aten_tpu_torch.integrator import pathtracer
+
+    calls = []
+    real = trav_mod.traverse_sorted
+
+    def record(sc, ro, rd, t_max=None, any_hit=False, t_min=1e-4, impl="auto"):
+        t0 = trav_mod._t0_of(t_max, ro.shape[0], ro.device)
+        calls.append((ro.detach().clone(), rd.detach().clone(), t0.clone(), any_hit, t_min))
+        return real(sc, ro, rd, t_max=t_max, any_hit=any_hit, t_min=t_min, impl=impl)
+
+    pathtracer.traverse_sorted = trav_mod.traverse_sorted = record
+    try:
+        pathtracer.render_image(scene, cam, **kw)
+    finally:
+        pathtracer.traverse_sorted = trav_mod.traverse_sorted = real
+    return calls
+
+
+def log_render_work(phase, scene, cam, walks, phase_work, n_phase):
+    """Work per ray of one 128x128, 2 spp, depth-5 render's rays under the
+    plain walks `walks` ({name: fn(scene, ro, rd, t0, any_hit, t_min,
+    stats=True)}), per kind (closest, any), beside `phase_work` ({name:
+    {kind: counts}}) of the phase's own n_phase rays."""
+    small = dataclasses.replace(cam, width=128, height=128)
+    calls = render_rays(scene, small, spp=2, max_depth=5, rr_depth=3)
+    for name, walk in walks.items():
+        for kind in ("closest", "any"):
+            tot, live = {}, 0
+            for ro, rd, t0, any_hit, t_min in calls:
+                if any_hit != (kind == "any"):
+                    continue
+                live += int((t0 > t_min).sum())
+                _, st = walk(scene, ro, rd, t0, any_hit, t_min, stats=True)
+                for k, v in st.items():
+                    tot[k] = tot.get(k, 0) + v
+            per = ", ".join(f"{k} {v / max(live, 1):.2f}" for k, v in tot.items())
+            ref = phase_work[name][kind]
+            per_ph = ", ".join(f"{k} {v / n_phase:.2f}" for k, v in ref.items())
+            log(f"{phase} render rays ({kind}-hit, {live} live rays of 128x128 2spp depth 5), "
+                f"{name} walk per ray: {per}; on the phase's own rays: {per_ph}")
 
 
 def timed_ms(fn):
@@ -522,7 +592,6 @@ def lab_phase(card, scene, cam, dev):
     import numpy as np
     import torch
 
-    from aten_tpu_torch.ops import traverse_cuda
     from aten_tpu_torch.tools import kernel_lab as kl
 
     t11 = time.time()
@@ -550,7 +619,7 @@ def lab_phase(card, scene, cam, dev):
     v3 = kl.run(tab, ro, rd, t0, "v3")
     v3_ms = kl.measure(tab, ro, rd, t0, "v3")
     oracle, owork = plain_walk(scene, ro, rd, t_max=t0)
-    pool_bvh = pool_bytes(scene, traverse_cuda._SCENE_FIELDS)
+    pool_bvh = array_bytes(scene, BVH_ARRAYS)
     pool_nodes = sum(tab[k].numel() * tab[k].element_size() for k in ("nodes", "links"))
     pool_trl = pool_nodes + tab["recs"].numel() * 4
     n_prims = scene["num_tris"] + scene["num_spheres"]
@@ -619,9 +688,9 @@ def main():
         raise SystemExit("chip_smoke: no CUDA card is available")
     import numpy as np
 
-    from aten_tpu_torch.accel.traverse import traverse
+    from aten_tpu_torch.accel.traverse import (
+        _t0_of, _traverse_plain, _traverse_plk_plain, traverse)
     from aten_tpu_torch.integrator.pathtracer import render_image
-    from aten_tpu_torch.accel.traverse import _traverse_plk_plain
     from aten_tpu_torch.ops import plk_cuda, plk_layout, tlas_cuda, traverse_cuda
     from aten_tpu_torch.scene.scenedefs import (
         cornell_box, instanced_mesh_scene, large_mesh_scene, procedural_mesh_scene)
@@ -668,35 +737,35 @@ def main():
     max_err["closest"] = max(max_err["closest"], e)
     max_err["any"] = max(max_err["any"], 0.0 if same else 1.0)
     times, bounds = {}, {}
-    pool = pool_bytes(big, traverse_cuda._SCENE_FIELDS)
-    for kind, kw in (("closest", {}), ("any", {"t_max": dist, "any_hit": True, "t_min": 1e-3})):
-        times[kind] = (
-            cuda_ms(lambda: traverse(big, ro, rd, impl="cuda", **kw), reps=10),
-            cuda_ms(lambda: traverse(big, ro, rd, impl="plain", **kw), reps=1),
-        )
-        bounds[kind] = bound(n_main, 16, pool, work[kind])
-        log(f"phase 2 timing {kind}-hit, {n_main} rays, 102,404 prims: kernel "
-            f"{times[kind][0]:.3f} ms, plain torch walk {times[kind][1]:.3f} ms, "
-            f"bound {bounds[kind][0]:.4f} ms by {bounds[kind][1]} "
-            f"({bounds[kind][2]} B, {bounds[kind][3]} fp32 ops) [{card}]")
-    # the same kernel over the 2,004-prim scene's uncut tree (the function
-    # of the reference's _make_kernel, traverse_pallas.py:102), same shape
-    sro, srd = surface_rays(mid, n_main - cro.shape[0], rng, dev)
-    ro2, rd2 = torch.cat([cro, sro]), torch.cat([crd, srd])
-    _, _, work2 = compare_traversal("mesh2k main-path shape", mid, ro2, rd2, dist)
-    pool2 = pool_bytes(mid, traverse_cuda._SCENE_FIELDS)
-    times2, bounds2 = {}, {}
-    for kind, kw in (("closest", {}), ("any", {"t_max": dist, "any_hit": True, "t_min": 1e-3})):
-        times2[kind] = (
-            cuda_ms(lambda: traverse(mid, ro2, rd2, impl="cuda", **kw), reps=10),
-            cuda_ms(lambda: traverse(mid, ro2, rd2, impl="plain", **kw), reps=1),
-        )
-        bounds2[kind] = bound(n_main, 16, pool2, work2[kind])
-        log(f"phase 2 timing {kind}-hit, {n_main} rays, 2,004 prims (K2's function): "
-            f"kernel {times2[kind][0]:.3f} ms, plain torch walk {times2[kind][1]:.3f} ms, "
-            f"bound {bounds2[kind][0]:.4f} ms by {bounds2[kind][1]} "
-            f"({bounds2[kind][2]} B, {bounds2[kind][3]} fp32 ops) [{card}]")
-    del ro2, rd2
+    for name, scene, rs, w in (("102,404 prims", big, (ro, rd), work), ("2,004 prims", mid, None, None)):
+        if rs is None:
+            # the same kernel over the 2,004-prim scene's uncut tree (the
+            # function of the reference's _make_kernel, traverse_pallas.py
+            # :102), same shape
+            sro, srd = surface_rays(mid, n_main - cro.shape[0], rng, dev)
+            rs = (torch.cat([cro, sro]), torch.cat([crd, srd]))
+            _, _, w = compare_traversal("mesh2k main-path shape", mid, *rs, dist)
+        pool = array_bytes(scene, BVH_ARRAYS)
+        pool_k1 = pool_bytes(scene, traverse_cuda._SCENE_FIELDS)
+        log(f"phase 2 {name}: the BVH's arrays {pool} B; K1's packed records "
+            f"{scene['bvh_nodes'].shape[0]} nodes x 32 B + {scene['bvh_prims'].shape[0]} "
+            f"prims x 48 B = {pool_k1} B")
+        for kind, t0k, any_hit, t_min in (("closest", _t0_of(None, n_main, dev), False, 1e-4),
+                                          ("any", dist, True, 1e-3)):
+            kw = {"t_max": t0k, "any_hit": any_hit, "t_min": t_min}
+            times[name, kind] = (
+                cuda_ms(lambda: traverse(scene, *rs, impl="cuda", **kw), reps=10),
+                cuda_ms(lambda: traverse(scene, *rs, impl="plain", **kw), reps=1),
+            )
+            b = bounds[name, kind] = bound(n_main, 16, pool, w[kind])
+            b_k1 = bound(n_main, 16, pool_k1, w[kind])
+            log(f"phase 2 timing {kind}-hit, {n_main} rays, {name}: kernel "
+                f"{times[name, kind][0]:.3f} ms, plain torch walk {times[name, kind][1]:.3f} ms, "
+                f"bound {b[0]:.4f} ms by {b[1]} ({b[2]} B, {b[3]} fp32 ops), "
+                f"{times[name, kind][0] / b[0]:.1f}x the bound; over K1's packed records "
+                f"the bound is {b_k1[0]:.4f} ms by {b_k1[1]} ({b_k1[2]} B) [{card}]")
+        if scene is mid:
+            del rs
 
     # -- phase 3: Cornell box (dense path, no kernel) against the golden
     scene, ccam = cornell_box(64, 64, device=dev)
@@ -733,6 +802,8 @@ def main():
     ik = render_image(big, small, spp=2, max_depth=3, impl="auto").cpu().numpy()
     ip = render_image(big, small, spp=2, max_depth=3, impl="plain").cpu().numpy()
     check_image_bounds("phase 4 128x128 2spp kernel vs plain", ik, ip)
+    log_render_work("phase 4", big, cam, {"K1 (the oracle)": _traverse_plain},
+                    {"K1 (the oracle)": work}, n_main)
     # the 2,004-prim scene's render: the launches of K2's function
     torch.cuda.synchronize()
     reset_counts()
@@ -745,12 +816,15 @@ def main():
         f"wall {wall2 * 1e3:.1f} ms (first render of the scene) [{card}]")
     assert all(launches2[k] > 0 for k in traverse_cuda.KERNELS), launches2
     assert bool(torch.isfinite(img).all()) and float(img.std()) > 0
+    log_profile("phase 4 2,004-prim", card, profile_render(
+        lambda: render_image(mid, cam, spp=16, max_depth=5, rr_depth=3)))
     kernels = [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES, "launches": launches[name],
-         "max_abs_err": max_err[kind], "ms": times[kind][0],
-         "plain_ms": times[kind][1], "bound_ms": bounds[kind][0],
-         "bound_by": bounds[kind][1], "library_ms": None}
+         "max_abs_err": max_err[kind], "ms": times["102,404 prims", kind][0],
+         "plain_ms": times["102,404 prims", kind][1],
+         "bound_ms": bounds["102,404 prims", kind][0],
+         "bound_by": bounds["102,404 prims", kind][1], "library_ms": None}
         for name, kind in zip(traverse_cuda.KERNELS, ("closest", "any"))
     ]
     rays2 = (ro, rd, dist)  # held for phase 9
@@ -839,25 +913,30 @@ def main():
     del cro, crd, sro, srd
     e7, work7, oracle7 = compare_plk("mesh512k main-path shape", large, ro, rd, dist)
     t0 = torch.full((n_main,), 3.4e38, dtype=torch.float32, device=dev)
-    pool7 = pool_bytes(large, plk_cuda._SCENE_FIELDS)
-    pool7_bvh = pool_bytes(large, traverse_cuda._SCENE_FIELDS)
+    pool7 = array_bytes(large, BVH_ARRAYS)
+    pool7_k3 = pool_bytes(large, plk_cuda._SCENE_FIELDS)
+    log(f"phase 7: the BVH's arrays {pool7} B; K3's pool {pool7_k3} B (packed cut tree "
+        f"{large['plk_nodes'].shape[0]} nodes x 32 B, slot records, slot2prim)")
     times7, bounds7 = {}, {}
-    for kind, t0k, kw in (("closest", t0, {}), ("any", dist, {"any_hit": True, "t_min": 1e-3})):
+    for kind, t0k, any_hit, t_min in (("closest", t0, False, 1e-4), ("any", dist, True, 1e-3)):
         times7[kind] = (
-            cuda_ms(lambda: plk_cuda.plk_traverse(large, ro, rd, t0k, **kw), reps=10),
-            cuda_ms(lambda: _traverse_plk_plain(large, ro, rd, t0k, kw.get("any_hit", False),
-                                                kw.get("t_min", 1e-4)), reps=1),
+            cuda_ms(lambda: plk_cuda.plk_traverse(large, ro, rd, t0k, any_hit=any_hit,
+                                                  t_min=t_min), reps=10),
+            cuda_ms(lambda: _traverse_plk_plain(large, ro, rd, t0k, any_hit, t_min), reps=1),
         )
         # the bound: the query's least work on these rays, the oracle
-        # walk's over the BVH; K3's own walk (whole fat leaves) beside it
-        bounds7[kind] = bound(n_main, 8, pool7_bvh, oracle7[kind])
-        b_k3 = bound(n_main, 8, pool7, work7[kind], ops_ray=OPS_RAY_PLK)
+        # walk's over the BVH's arrays; beside it the same work over K3's
+        # pool, and K3's own walk's (whole fat leaves) over its pool
+        b = bounds7[kind] = bound(n_main, 8, pool7, oracle7[kind])
+        b_pool = bound(n_main, 8, pool7_k3, oracle7[kind])
+        b_k3 = bound(n_main, 8, pool7_k3, work7[kind], ops_ray=OPS_RAY_PLK)
+        ms = times7[kind][0]
         log(f"phase 7 timing {kind}-hit, {n_main} rays, 512,004 prims: kernel "
-            f"{times7[kind][0]:.3f} ms, plain torch version {times7[kind][1]:.3f} ms, "
-            f"bound (the query's least work, the oracle walk's) {bounds7[kind][0]:.4f} ms "
-            f"by {bounds7[kind][1]} ({bounds7[kind][2]} B, {bounds7[kind][3]} ops); K3's "
-            f"own walk's work would take {b_k3[0]:.4f} ms by {b_k3[1]} ({b_k3[2]} B, "
-            f"{b_k3[3]} ops) [{card}]")
+            f"{ms:.3f} ms, plain torch version {times7[kind][1]:.3f} ms, "
+            f"bound (the query's least work, the oracle walk's) {b[0]:.4f} ms "
+            f"by {b[1]} ({b[2]} B, {b[3]} ops), {ms / b[0]:.1f}x the bound (over K3's "
+            f"pool {b_pool[0]:.4f} ms); K3's own walk's work would take {b_k3[0]:.4f} ms "
+            f"by {b_k3[1]} ({b_k3[2]} B, {b_k3[3]} ops), {ms / b_k3[0]:.1f}x [{card}]")
     rays7 = (ro, rd, dist)  # held for phase 9
     del t0
     torch.cuda.empty_cache()
@@ -886,6 +965,9 @@ def main():
     ik = render_image(large, small, spp=2, max_depth=3, impl="auto").cpu().numpy()
     ip = render_image(large, small, spp=2, max_depth=3, impl="plk_plain").cpu().numpy()
     check_image_bounds("phase 8 128x128 2spp kernel vs plain", ik, ip)
+    log_render_work("phase 8", large, lcam,
+                    {"K3": _traverse_plk_plain, "the oracle": _traverse_plain},
+                    {"K3": work7, "the oracle": oracle7}, n_main)
     kernels += [
         {"name": name, "route": "cuda", "source": PLK_SOURCE,
          "replaces": PLK_REPLACES, "launches": launches8[name],
@@ -917,7 +999,7 @@ def main():
         e, work, oracle_work, plain_ms = compare_smt(f"phase 9 {name}", scene, ro, rd, dist)
         err9 = max(err9, e)
         pool = pool_bytes(scene, smt_cuda._SCENE_FIELDS)
-        pool_bvh = pool_bytes(scene, traverse_cuda._SCENE_FIELDS)
+        pool_bvh = array_bytes(scene, BVH_ARRAYS)
         for kind, t0k, any_hit, t_min in (
                 ("closest", torch.full((n_main,), 3.4e38, device=dev), False, 1e-4),
                 ("any", dist, True, 1e-3)):

@@ -43,7 +43,7 @@ from aten_tpu.scene.scene import SceneBuilder as JaxSceneBuilder
 from aten_tpu_torch import native
 from aten_tpu_torch.accel import traverse as ttrav
 from aten_tpu_torch.integrator.pathtracer import render_image
-from aten_tpu_torch.ops import plk_cuda, plk_layout, traverse_cuda
+from aten_tpu_torch.ops import bvh_layout, plk_cuda, plk_layout, traverse_cuda
 from aten_tpu_torch.scene import bridge
 from aten_tpu_torch.scene import scenedefs as tdefs
 from aten_tpu_torch.scene.scene import Scene, SceneBuilder, to_tensors
@@ -221,6 +221,33 @@ def test_layout_matches_reference(reference_native):
     assert not E.any()
     used = ps["plk_slot2prim"].numpy() >= 0
     assert not consts[~used].any() and used.sum() == js["num_tris"] + js["num_spheres"]
+
+
+def test_packed_cut_tree_unpacks_bit_for_bit():
+    """K3's packed node records (`plk_nodes`) give back the cut tree's
+    boxes, links, slot starts and counts bit for bit."""
+    _, _, ps, _ = _setup()
+    bmin, bmax, hit, miss, _, start, count = bvh_layout.unpack_nodes(ps["plk_nodes"].numpy())
+    for got, k in ((bmin, "plk_bmin"), (bmax, "plk_bmax")):
+        np.testing.assert_array_equal(got.view(np.int32), ps[k].numpy().view(np.int32))
+    for got, k in ((hit, "plk_hit"), (miss, "plk_miss"), (start, "plk_slot_start"),
+                   (count, "plk_count")):
+        np.testing.assert_array_equal(got, ps[k].numpy(), err_msg=k)
+    fat = start >= 0
+    assert 10 < fat.sum() < fat.shape[0] and (count[fat] <= plk_layout.WINDOW).all()
+    assert (start[fat] % plk_layout.PACK == 0).all()
+
+
+def test_large_mesh_scene_packs_its_cut_tree():
+    """The 512,004-prim scene's fat leaves pack into the leaf word (slot
+    start < 2^24, count <= 64), and it carries K3's records, not K1's."""
+    s, _ = tdefs.large_mesh_scene(8, 8, device="cpu")
+    assert s["traversal"] == "plk" and not any(k in s for k in bvh_layout.ARRAY_KEYS)
+    _, _, hit, _, _, start, count = bvh_layout.unpack_nodes(s["plk_nodes"].numpy())
+    np.testing.assert_array_equal(hit, s["plk_hit"].numpy())
+    np.testing.assert_array_equal(start, s["plk_slot_start"].numpy())
+    np.testing.assert_array_equal(count, s["plk_count"].numpy())
+    assert start.max() + plk_layout.WINDOW <= s["plk_slot2prim"].shape[0] < bvh_layout.MAX_START
 
 
 @pytest.mark.parametrize("n_u,n_v,picks", [(400, 128, False), (1000, 256, True)])
@@ -413,8 +440,8 @@ def test_wrapper_rejects_bad_arguments(reference_native):
         plk_cuda.plk_traverse(ps, ro, rd, t0[:10])
     with pytest.raises(ValueError, match="unsupported device"):
         plk_cuda.plk_traverse(ps, ro.to("meta"), rd.to("meta"), t0.to("meta"))
-    bad = Scene({**ps.arrays, "plk_hit": ps["plk_hit"].long()}, ps.static, ps.device)
-    with pytest.raises(ValueError, match="plk_hit"):
+    bad = Scene({**ps.arrays, "plk_nodes": ps["plk_nodes"].double()}, ps.static, ps.device)
+    with pytest.raises(ValueError, match="plk_nodes"):
         plk_cuda.plk_traverse(bad, ro, rd, t0)
     bad = Scene({**ps.arrays, "plk_consts": ps["plk_consts"][:, :12].contiguous()},
                 ps.static, ps.device)
