@@ -32,7 +32,7 @@ The kernel policy is the reference's (traverse_pallas.py:336-337,
 ATEN_TPU_KERNEL = "v3" (the default: K1, and K3 over the 32 MB pool
 line), "smt" (K4 on every treelet scene), "plk" (K3 on every
 triangle-only treelet scene) or "mt" (K1 on every treelet scene), and
-ATEN_TPU_CHAINS, K4's rays per thread.  The scene build applies it
+ATEN_TPU_CHAINS, K4's rays per lane.  The scene build applies it
 (scene/scene.py) and names the kernel in the static `traversal`.
 
 Instanced scenes (those that carry `tl_bmin`) go to the two-level walk
@@ -50,6 +50,7 @@ import torch
 from aten_tpu_torch.accel.build import LEAF_MAX
 from aten_tpu_torch.core import vecmath as vm
 from aten_tpu_torch.ops.plk_layout import WINDOW as PLK_WINDOW
+from aten_tpu_torch.ops.smt_cuda import CHAIN_COUNTS, DEFAULT_CHAINS
 
 # Below this primitive count every ray tests every prim (reference :34).
 DENSE_MAX_PRIMS = 512
@@ -57,12 +58,18 @@ DENSE_MAX_PRIMS = 512
 # The kernel policy, snapshotted once at import as the reference does.
 KERNEL_POLICIES = ("v3", "smt", "plk", "mt")
 KERNEL = os.environ.get("ATEN_TPU_KERNEL", "v3")
-CHAINS = int(os.environ.get("ATEN_TPU_CHAINS", "4"))
+# K4's rays per lane.  The reference defaults to 4 (traverse_pallas.py:337);
+# the port defaults to the count its kernel ran fastest on the card
+# (ops/smt_cuda.py::DEFAULT_CHAINS, PERF.md).
+CHAINS = int(os.environ.get("ATEN_TPU_CHAINS", str(DEFAULT_CHAINS)))
 if KERNEL not in KERNEL_POLICIES:
     raise ValueError(
         f"ATEN_TPU_KERNEL={KERNEL!r} is not a kernel policy of the port "
         f"{KERNEL_POLICIES}; the reference knows no other either (ROADMAP.md "
         "queue 2, the kernel table)")
+if CHAINS not in CHAIN_COUNTS:
+    raise ValueError(f"ATEN_TPU_CHAINS={CHAINS} is not one of the rays per lane K4 is "
+                     f"built for {CHAIN_COUNTS}")
 
 
 def _safe_inv(rd):
@@ -550,7 +557,7 @@ def _traverse_plk(scene, ro, rd, t0, any_hit, t_min, impl):
 
 
 def _traverse_smt(scene, ro, rd, t0, any_hit, t_min, impl):
-    """K4 (impl "smt": the kernel at CHAINS rays per thread, or its plain
+    """K4 (impl "smt": the kernel at CHAINS rays per lane, or its plain
     version for CPU tensors) or its plain version (impl "smt_plain"),
     then the winner's u/v for closest-hit rays; any-hit rays get
     u = v = 0, as in the reference (traverse_pallas.py:2150-2158)."""

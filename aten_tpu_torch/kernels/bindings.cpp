@@ -37,32 +37,21 @@ int aten_bvh_traverse(const float* nodes, const float* prims, int32_t num_tris,
 }
 
 // The two-level walk; returns as aten_bvh_traverse does.
-int aten_tlas_traverse(const float* tl_bmin, const float* tl_bmax,
-                       const int32_t* tl_hit, const int32_t* tl_miss,
-                       const int32_t* tl_ps, const int32_t* tl_pc,
-                       const int32_t* tl_inst, const int32_t* tl_prim_order,
-                       const float* inst_w2l, const float* tri_v0,
-                       const float* tri_e1, const float* tri_e2,
-                       const float* sph_center, const float* sph_radius,
-                       int32_t num_tris, int32_t num_instances,
-                       const float* ro, const float* rd, const float* t0,
-                       float* t, int32_t* prim, int32_t* inst, float* u,
-                       float* v, int64_t n, float t_min, int32_t any_hit,
-                       void* stream) {
-  if (n < 0 || num_tris < 0 || num_instances <= 0) return -1;
-  if (n > 0 && (!ro || !rd || !t0 || !t || !prim || !inst || !u || !v))
+int aten_tlas_traverse(const float* nodes, const float* insts, const float* prims,
+                       int32_t num_tris, int32_t num_instances, const float* ro,
+                       const float* rd, const float* t0, float* t, int32_t* prim,
+                       int32_t* inst, float* u, float* v, int64_t n, float t_min,
+                       int32_t any_hit, unsigned* next_ray, void* stream) {
+  if (n < 0 || n >= kMaxRays || num_tris < 0 || num_instances <= 0) return -1;
+  if (n > 0 && (!ro || !rd || !t0 || !t || !prim || !inst || !u || !v || !next_ray))
     return -1;
-  if (!tl_bmin || !tl_bmax || !tl_hit || !tl_miss || !tl_ps || !tl_pc ||
-      !tl_inst || !tl_prim_order || !inst_w2l || !tri_v0 || !tri_e1 ||
-      !tri_e2 || !sph_center || !sph_radius)
+  if (!nodes || !insts || !prims || !aligned16(nodes) || !aligned16(insts) ||
+      !aligned16(prims))
     return -1;
-  const aten_tpu_torch::TlasView tlas{
-      tl_bmin, tl_bmax,  tl_hit, tl_miss, tl_ps,      tl_pc,
-      tl_inst, tl_prim_order, inst_w2l, tri_v0, tri_e1, tri_e2,
-      sph_center, sph_radius, num_tris, num_instances};
+  const aten_tpu_torch::TlasView tlas{nodes, insts, prims, num_tris, num_instances};
   const aten_tpu_torch::TlasRayView rays{{ro, rd, t0, t, prim, u, v, n}, inst};
   return aten_tpu_torch::launch_tlas_traverse(tlas, rays, t_min, any_hit != 0,
-                                              stream);
+                                              next_ray, stream);
 }
 
 // The Plücker treelet walk; returns as aten_bvh_traverse does.
@@ -86,9 +75,9 @@ int aten_smt_traverse(const float* nodes, const int32_t* links,
                       const float* recs, const float* ro, const float* rd,
                       const float* t0, float* t, int32_t* prim, int64_t n,
                       float t_min, int32_t any_hit, int32_t chains,
-                      void* stream) {
-  if (n < 0) return -1;
-  if (n > 0 && (!ro || !rd || !t0 || !t || !prim)) return -1;
+                      unsigned* next_ray, void* stream) {
+  if (n < 0 || n >= kMaxRays || !(t_min >= 0.0f)) return -1;
+  if (n > 0 && (!ro || !rd || !t0 || !t || !prim || !next_ray)) return -1;
   if (!nodes || !links || !recs) return -1;
   if (!aligned16(nodes) || !aligned16(recs) ||
       reinterpret_cast<uintptr_t>(links) % 8 != 0)
@@ -96,7 +85,7 @@ int aten_smt_traverse(const float* nodes, const int32_t* links,
   const aten_tpu_torch::TrlView trl{nodes, links, recs};
   const aten_tpu_torch::RayView rays{ro, rd, t0, t, prim, nullptr, nullptr, n};
   return aten_tpu_torch::launch_smt_traverse(trl, rays, t_min, any_hit != 0,
-                                             chains, stream);
+                                             chains, next_ray, stream);
 }
 
 const char* aten_cuda_error_string(int code) {

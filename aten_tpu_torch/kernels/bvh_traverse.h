@@ -43,25 +43,20 @@ int launch_bvh_traverse(const BvhView& bvh, const RayView& rays,
                         float t_min, bool any_hit, unsigned* next_ray,
                         void* stream);
 
-// The two-level pool of accel/tlas.py::build_two_level; device pointers.
+// The packed records of ops/tlas_layout.py; device pointers, 16-byte
+// aligned (read as float4).
 struct TlasView {
-  const float* tl_bmin;         // [K,3]
-  const float* tl_bmax;         // [K,3]
-  const int32_t* tl_hit;        // [K] next node when the box is hit; -1
-                                //     done, -2 back to the top level
-  const int32_t* tl_miss;       // [K] next node when it is missed
-  const int32_t* tl_ps;         // [K] BLAS leaf range start, else -1
-  const int32_t* tl_pc;         // [K] <= LEAF_MAX
-  const int32_t* tl_inst;       // [K] instance at TLAS leaves, else -1
-  const int32_t* tl_prim_order;  // [P] leaf ranges -> global prim id
-  const float* inst_w2l;        // [I+1,3,4] world-to-local rows
-  const float* tri_v0;          // [T,3] object-local
-  const float* tri_e1;          // [T,3]
-  const float* tri_e2;          // [T,3]
-  const float* sph_center;      // [S,3]
-  const float* sph_radius;      // [S]
-  int32_t num_tris;             // prims below this id are triangles
-  int32_t num_instances;        // I
+  const float* nodes;     // [K,8] (bmin.xyz, miss) (bmax.xyz, leaf), links
+                          //       as int bits, -2 back to the top level;
+                          //       leaf -1 when inner, start << 7 | count
+                          //       at a BLAS leaf, -2 - instance at a TLAS
+                          //       leaf
+  const float* insts;     // [I,16] W2L rows (3 x (m0, m1, m2, m3)), then
+                          //        (BLAS root as int bits, 0, 0, 0)
+  const float* prims;     // [P,12] BvhView's prim records, object-local, in
+                          //        tl_prim_order order
+  int32_t num_tris;       // prims below this id are triangles
+  int32_t num_instances;  // I
 };
 
 // RayView plus the instance of each hit.
@@ -70,8 +65,10 @@ struct TlasRayView {
   int32_t* inst;  // [n] out: instance of the winner, -1 on a miss
 };
 
+// As launch_bvh_traverse.
 int launch_tlas_traverse(const TlasView& tlas, const TlasRayView& rays,
-                         float t_min, bool any_hit, void* stream);
+                         float t_min, bool any_hit, unsigned* next_ray,
+                         void* stream);
 
 // The Plücker treelet layout of ops/plk_layout.py; device pointers,
 // `nodes` and `consts` 16-byte aligned (read as float4).
@@ -98,10 +95,13 @@ struct TrlView {
   const float* recs;     // [S,12] slot records (ops/trl_layout.py)
 };
 
-// Writes rays.t and rays.prim with `chains` rays per thread (1, 2, 4 or
-// 8; -1 for any other); rays.u and rays.v are not used.
+// Writes rays.t and rays.prim with `chains` rays per lane (1, 2, 4 or 8;
+// -1 for any other); rays.u and rays.v are not used.  As
+// launch_bvh_traverse; slot starts < 2^24 and t_min >= 0 (the drain orders
+// a hit's t by its bits).
 int launch_smt_traverse(const TrlView& trl, const RayView& rays, float t_min,
-                        bool any_hit, int chains, void* stream);
+                        bool any_hit, int chains, unsigned* next_ray,
+                        void* stream);
 
 const char* cuda_error_string(int code);
 

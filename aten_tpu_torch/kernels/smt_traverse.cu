@@ -1,5 +1,6 @@
 // Closest-hit / any-hit traversal of the treelet-cut BVH along
-// direction-ordered links, C rays ("chains") per thread.
+// direction-ordered links, C rays ("chains") per lane, in persistent warps
+// that drain fat leaves together.
 //
 // Replaces the TPU kernel `_make_smt_kernel`
 // (aten_tpu/ops/traverse_pallas.py:1335, launched by `_traverse_smt_tiles`
@@ -7,12 +8,9 @@
 // independent 1024-ray tiles per grid step, each tile with one node
 // cursor chosen by vote, so that the C dependent row loads of a step can
 // overlap; a tile drains the fat leaf it latched on the previous step.
-// Here one thread holds C rays and each loop iteration advances every
-// live chain by one step: first the C node loads (a 32-byte node record
-// and the ray's 8-byte link pair), which do not depend on each other, so
-// the card can have them in flight together, then per chain the step in
-// the plain version's order.  The TPU's tile vote and its `lax.cond`
-// drain have no counterpart: each chain is one ray with its own cursor.
+// Here each lane holds C rays and issues the node loads of its walking
+// chains together; the TPU's tile vote and its `lax.cond` drain have no
+// counterpart: each chain is one ray with its own cursor.
 //
 // What it computes is accel/traverse.py::_traverse_trl_plain, in the same
 // operation order, built with --fmad=false so every float op rounds as
@@ -20,23 +18,37 @@
 //   * each ray takes the link set of its ordering o = 2*axis + neg, the
 //     dominant |component| with ties to x then y, `>= 0` positive;
 //   * K4's safe inverse (1/d, or 1e12 for |d| <= 1e-12) and slab test;
-//   * per step: the box test against the current t (any-hit rays that
-//     already have a prim test no box); the drain of the leaf latched on
-//     the previous step, slot by slot, Moller-Trumbore or the sphere test
-//     with a strict `<`; the latch of this node's fat leaf if its box was
-//     hit; the hit or miss link; an any-hit ray drops its cursor once it
-//     has a prim, but still drains the leaf it latched;
+//   * one step, in this order: the box test of the current node against
+//     the ray's t from before the drain (any-hit rays that already have a
+//     prim test no box); the drain of the fat leaf latched on the step
+//     before, Moller-Trumbore or the sphere test per slot; the latch of
+//     this node's fat leaf if its box was hit; the hit or miss link; an
+//     any-hit ray drops its cursor once it has a prim, but still drains
+//     the leaf it latched;
+//   * the drain keeps the least t of the leaf's hits, a tie to the smaller
+//     slot, and merges it with a strict `<`: the slot-by-slot loop's
+//     winner;
 //   * a ray with t0 <= t_min never walks.
 // u/v come from accel/traverse.py::recompute_uv on the winner.
 //
 // Bound: each step is a dependent load of 40 B of node and links, then a
-// fat leaf of up to 64 slot records of 48 B, read once per ray that
-// drains it (the records of the 512k-prim scene, 26 MB, fit the 50 MB L2
-// cache); ~25 operations per box test and ~53 per slot test.  The loads
-// of the C chains are independent; the drain loops of the chains are
-// not interleaved (each runs to its leaf's count), so a warp's time is
-// set by its longest leaves.  Shared-memory leaf staging and persistent
-// threads are later work.
+// fat leaf of up to 64 slot records of 48 B (the records of the 512k-prim
+// scene, 26 MB, fit the 50 MB L2 cache); ~25 operations per box test and
+// ~53 per slot test.  The design, K3's (plk_traverse.cu):
+//   * persistent warps taking rays from one counter (take_rays), C per
+//     lane, so a lane whose ray is done takes another;
+//   * each lane steps its chains, their node loads issued together, until
+//     every chain waits for a drain or has ended.  A step that must drain
+//     a leaf first runs its box test, then waits: so the box test sees the
+//     t from before the drain, as in the plain version, while steps with
+//     no leaf to drain run on;
+//   * then the warp drains the waiting leaves one after another: the
+//     leaf's owner hands its ray over with shuffles, lane l tests slots l
+//     and l + 32 (neighbouring 48-byte records, coalesced loads), and two
+//     __reduce_min_sync give the leaf's least t, as float bits (exact: a
+//     hit's t > t_min >= 0), then its least slot with that t; the owner
+//     merges the winner with `<`.  No warp waits on the lane with the
+//     longest leaf, and idle lanes help drain.
 #include <cuda_runtime.h>
 
 #include "bvh_traverse.h"
@@ -46,6 +58,8 @@ namespace aten_tpu_torch {
 namespace {
 
 constexpr int kBlock = 128;
+constexpr int kMinIdle = 8;            // idle chains at which a warp takes rays
+constexpr unsigned kNoHit = 0xFFFFFFFFu;  // above every hit's t bits
 
 // K4's safe inverse (traverse_pallas.py:1348-1351).
 __device__ __forceinline__ float trl_safe_inv(float d) {
@@ -63,131 +77,196 @@ __device__ __forceinline__ int32_t pick_ordering(float dx, float dy, float dz) {
 
 struct Chain {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz, t;
-  int32_t cur, prim, pstart, pcount, ord;
+  int32_t ray;   // ray index, -1 when the chain is idle
+  int32_t cur;   // node, -1 when the walk has no node left
+  int32_t prim, ord;
+  int32_t pend;  // fat leaf latched on the step before, start << 7 | count, or -1
+  int32_t next;  // the latch of a tested step that waits for pend's drain
+  bool tested;   // this step's box test is done; it waits for the drain
 };
 
-// Tests slots ss .. ss+cnt-1 of the records in order; a hit with a
-// smaller t than the ray's replaces it.  Record lanes: a = (v0 | centre,
-// e1x | radius), b = (e1y e1z e2x e2y), c = (e2z, prim id, is_tri, 0).
-__device__ __forceinline__ void drain_leaf(const float* __restrict__ recs,
-                                           Chain& ch, float t_min) {
-  const float4* rec =
-      reinterpret_cast<const float4*>(recs) + 3 * static_cast<int64_t>(ch.pstart);
-  for (int32_t j = 0; j < ch.pcount; ++j, rec += 3) {
-    const float4 a = __ldg(rec), b = __ldg(rec + 1), c = __ldg(rec + 2);
-    float tp = 0.0f, u, v;
-    const bool hp =
-        __float_as_int(c.z) > 0
-            ? moller_trumbore_at(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, ch.ox,
-                                 ch.oy, ch.oz, ch.dx, ch.dy, ch.dz, t_min, tp, u, v)
-            : sphere_at(a.x, a.y, a.z, a.w, ch.ox, ch.oy, ch.oz, ch.dx, ch.dy, ch.dz,
-                        t_min, tp);
-    if (hp && tp < ch.t) {
-      ch.t = tp;
-      ch.prim = __float_as_int(c.y);
+__device__ __forceinline__ void start_chain(Chain& h, const RayView& r, float t_min) {
+  const int64_t i3 = 3 * static_cast<int64_t>(h.ray);
+  h.ox = r.ro[i3], h.oy = r.ro[i3 + 1], h.oz = r.ro[i3 + 2];
+  h.dx = r.rd[i3], h.dy = r.rd[i3 + 1], h.dz = r.rd[i3 + 2];
+  h.ix = trl_safe_inv(h.dx), h.iy = trl_safe_inv(h.dy), h.iz = trl_safe_inv(h.dz);
+  h.ord = pick_ordering(h.dx, h.dy, h.dz);
+  h.t = r.t0[h.ray];
+  h.prim = h.pend = h.next = -1;
+  h.tested = false;
+  h.cur = h.t > t_min ? 0 : -1;
+}
+
+// The test of the slot record `rec` against the ray (o, d): its t bits
+// and prim id where it is hit, kNoHit else.  Record lanes: a = (v0 |
+// centre, e1x | radius), b = (e1y e1z e2x e2y), c = (e2z, prim id,
+// is_tri, 0).
+__device__ __forceinline__ unsigned slot_key(const float4* __restrict__ rec, float ox,
+                                             float oy, float oz, float dx, float dy,
+                                             float dz, float t_min, int32_t& pid) {
+  const float4 a = __ldg(rec), b = __ldg(rec + 1), c = __ldg(rec + 2);
+  float tp = 0.0f, u, v;
+  const bool hp =
+      __float_as_int(c.z) > 0
+          ? moller_trumbore_at(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, ox, oy, oz,
+                               dx, dy, dz, t_min, tp, u, v)
+          : sphere_at(a.x, a.y, a.z, a.w, ox, oy, oz, dx, dy, dz, t_min, tp);
+  pid = __float_as_int(c.y);
+  return hp ? __float_as_uint(tp) : kNoHit;
+}
+
+template <bool kAnyHit, int C>
+__global__ void __launch_bounds__(kBlock)
+    smt_traverse_kernel(TrlView p, RayView r, float t_min, unsigned* next_ray) {
+  const float4* __restrict__ nodes = reinterpret_cast<const float4*>(p.nodes);
+  const int2* __restrict__ links = reinterpret_cast<const int2*>(p.links);
+  const float4* __restrict__ recs = reinterpret_cast<const float4*>(p.recs);
+  const int lane = threadIdx.x & 31;
+  Chain ch[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    ch[c] = Chain{};
+    ch[c].ray = -1;
+  }
+  bool open = true;
+  while (true) {
+    bool live = false;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (take_rays(next_ray, r.n, kMinIdle, ch[c].ray, open)) start_chain(ch[c], r, t_min);
+      live |= ch[c].ray >= 0;
+    }
+    if (!__any_sync(kFullWarp, live)) break;  // the queue is empty
+    // step the chains until each waits for a drain or has ended
+    while (true) {
+      float4 na[C], nb[C];
+      int2 lk[C];
+      bool go[C], moved = false;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {  // the node loads, independent of each other
+        go[c] = ch[c].ray >= 0 && ch[c].cur >= 0 && !ch[c].tested;
+        if (go[c]) {
+          const int64_t k = ch[c].cur;
+          na[c] = __ldg(nodes + 2 * k);
+          nb[c] = __ldg(nodes + 2 * k + 1);
+          lk[c] = __ldg(links + 6 * k + ch[c].ord);
+          moved = true;
+        }
+      }
+      if (!moved) break;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (!go[c]) continue;
+        Chain& h = ch[c];
+        bool hitv = false;
+        if (!kAnyHit || h.prim < 0) {
+          // (bmin.xyz, bmax.x) (bmax.yz, slot start, count)
+          const float tx0 = (na[c].x - h.ox) * h.ix, tx1 = (na[c].w - h.ox) * h.ix;
+          const float ty0 = (na[c].y - h.oy) * h.iy, ty1 = (nb[c].x - h.oy) * h.iy;
+          const float tz0 = (na[c].z - h.oz) * h.iz, tz1 = (nb[c].y - h.oz) * h.iz;
+          const float t_enter =
+              fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+          const float t_exit =
+              fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+          hitv = t_enter <= t_exit && t_exit > 0.0f && t_enter < h.t;
+        }
+        const int32_t ss = __float_as_int(nb[c].z);
+        const int32_t latch =
+            hitv && ss >= 0 ? (ss << kLeafShift) | __float_as_int(nb[c].w) : -1;
+        h.cur = hitv ? lk[c].x : lk[c].y;
+        if (h.pend < 0) {
+          h.pend = latch;  // nothing to drain first: the step is complete
+        } else {
+          h.next = latch;  // the latched leaf drains before this step ends
+          h.tested = true;
+        }
+      }
+    }
+    // the warp drains the waiting leaves, chain slot by chain slot
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      Chain& h = ch[c];
+      const bool ready = h.ray >= 0 && h.pend >= 0 && (h.tested || h.cur < 0);
+      unsigned todo = __ballot_sync(kFullWarp, ready);
+      while (todo) {
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int32_t sl = __shfl_sync(kFullWarp, h.pend, src);
+        const float sox = __shfl_sync(kFullWarp, h.ox, src);
+        const float soy = __shfl_sync(kFullWarp, h.oy, src);
+        const float soz = __shfl_sync(kFullWarp, h.oz, src);
+        const float sdx = __shfl_sync(kFullWarp, h.dx, src);
+        const float sdy = __shfl_sync(kFullWarp, h.dy, src);
+        const float sdz = __shfl_sync(kFullWarp, h.dz, src);
+        const int32_t ss = sl >> kLeafShift, cnt = sl & kLeafCount;
+        const float4* rec = recs + 3 * (static_cast<int64_t>(ss) + lane);
+        unsigned key = kNoHit;
+        int32_t j = lane, pid = -1;
+        if (lane < cnt) key = slot_key(rec, sox, soy, soz, sdx, sdy, sdz, t_min, pid);
+        if (lane + 32 < cnt) {
+          int32_t pid2;
+          const unsigned key2 =
+              slot_key(rec + 3 * 32, sox, soy, soz, sdx, sdy, sdz, t_min, pid2);
+          if (key2 < key) {  // a tie stays with the smaller slot
+            key = key2;
+            j = lane + 32;
+            pid = pid2;
+          }
+        }
+        const unsigned kmin = __reduce_min_sync(kFullWarp, key);
+        const unsigned jmin =
+            __reduce_min_sync(kFullWarp, key == kmin ? static_cast<unsigned>(j) : kNoHit);
+        const int32_t wpid = __shfl_sync(kFullWarp, pid, static_cast<int>(jmin & 31u));
+        if (lane == src) {
+          const float bt = __uint_as_float(kmin);  // NaN when no slot is hit
+          if (bt < h.t) {
+            h.t = bt;
+            h.prim = wpid;
+          }
+        }
+      }
+      if (ready) {  // the rest of the step that waited
+        h.pend = h.tested ? h.next : -1;
+        h.tested = false;
+        if (kAnyHit && h.prim >= 0) h.cur = -1;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      Chain& h = ch[c];
+      if (h.ray >= 0 && h.cur < 0 && h.pend < 0) {
+        r.t[h.ray] = h.t;
+        r.prim[h.ray] = h.prim;
+        h.ray = -1;
+      }
     }
   }
 }
 
 template <bool kAnyHit, int C>
-__global__ void __launch_bounds__(kBlock)
-    smt_traverse_kernel(TrlView p, RayView r, float t_min) {
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * (kBlock * C) + threadIdx.x;
-  const float4* __restrict__ nodes = reinterpret_cast<const float4*>(p.nodes);
-  const int2* __restrict__ links = reinterpret_cast<const int2*>(p.links);
-  Chain ch[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int64_t i = base + static_cast<int64_t>(c) * kBlock;
-    Chain& h = ch[c];
-    h.cur = -1;
-    h.prim = -1;
-    h.pstart = -1;
-    h.pcount = 0;
-    if (i < r.n) {
-      h.ox = r.ro[3 * i];
-      h.oy = r.ro[3 * i + 1];
-      h.oz = r.ro[3 * i + 2];
-      h.dx = r.rd[3 * i];
-      h.dy = r.rd[3 * i + 1];
-      h.dz = r.rd[3 * i + 2];
-      h.ix = trl_safe_inv(h.dx);
-      h.iy = trl_safe_inv(h.dy);
-      h.iz = trl_safe_inv(h.dz);
-      h.ord = pick_ordering(h.dx, h.dy, h.dz);
-      h.t = r.t0[i];
-      h.cur = h.t > t_min ? 0 : -1;
-    }
-  }
-  for (;;) {
-    // the C node loads of this step, independent of each other
-    float4 na[C], nb[C];
-    int2 lk[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if (ch[c].cur >= 0) {
-        const int64_t k = ch[c].cur;
-        na[c] = __ldg(nodes + 2 * k);
-        nb[c] = __ldg(nodes + 2 * k + 1);
-        lk[c] = __ldg(links + 6 * k + ch[c].ord);
-      }
-    }
-    bool live = false;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      Chain& h = ch[c];
-      const bool active = h.cur >= 0;
-      if (!active && h.pstart < 0) continue;
-      bool hitv = false;
-      if (active && (!kAnyHit || h.prim < 0)) {
-        // (bmin.xyz, bmax.x) (bmax.yz, slot start, count)
-        const float tx0 = (na[c].x - h.ox) * h.ix, tx1 = (na[c].w - h.ox) * h.ix;
-        const float ty0 = (na[c].y - h.oy) * h.iy, ty1 = (nb[c].x - h.oy) * h.iy;
-        const float tz0 = (na[c].z - h.oz) * h.iz, tz1 = (nb[c].y - h.oz) * h.iz;
-        const float t_enter =
-            fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
-        const float t_exit =
-            fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
-        hitv = t_enter <= t_exit && t_exit > 0.0f && t_enter < h.t;
-      }
-      if (h.pstart >= 0) drain_leaf(p.recs, h, t_min);
-      const int32_t ss = active ? __float_as_int(nb[c].z) : -1;
-      const bool enter = hitv && ss >= 0;
-      h.pstart = enter ? ss : -1;
-      h.pcount = enter ? __float_as_int(nb[c].w) : 0;
-      if (active) h.cur = hitv ? lk[c].x : lk[c].y;
-      if (kAnyHit && h.prim >= 0) h.cur = -1;
-      live |= h.cur >= 0 || h.pstart >= 0;
-    }
-    if (!live) break;
-  }
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int64_t i = base + static_cast<int64_t>(c) * kBlock;
-    if (i < r.n) {
-      r.t[i] = ch[c].t;
-      r.prim[i] = ch[c].prim;
-    }
-  }
+void launch(const TrlView& trl, const RayView& rays, float t_min, unsigned* next_ray,
+            cudaStream_t s) {
+  const int64_t blocks =
+      persistent_blocks(smt_traverse_kernel<kAnyHit, C>, kBlock, (rays.n + C - 1) / C);
+  smt_traverse_kernel<kAnyHit, C><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
+      trl, rays, t_min, next_ray);
 }
 
 template <bool kAnyHit>
-int launch_chains(const TrlView& trl, const RayView& rays, float t_min,
-                  int chains, cudaStream_t s) {
-  const int64_t per_block = static_cast<int64_t>(kBlock) * chains;
-  const unsigned blocks = static_cast<unsigned>((rays.n + per_block - 1) / per_block);
+int launch_chains(const TrlView& trl, const RayView& rays, float t_min, int chains,
+                  unsigned* next_ray, cudaStream_t s) {
   switch (chains) {
     case 1:
-      smt_traverse_kernel<kAnyHit, 1><<<blocks, kBlock, 0, s>>>(trl, rays, t_min);
+      launch<kAnyHit, 1>(trl, rays, t_min, next_ray, s);
       break;
     case 2:
-      smt_traverse_kernel<kAnyHit, 2><<<blocks, kBlock, 0, s>>>(trl, rays, t_min);
+      launch<kAnyHit, 2>(trl, rays, t_min, next_ray, s);
       break;
     case 4:
-      smt_traverse_kernel<kAnyHit, 4><<<blocks, kBlock, 0, s>>>(trl, rays, t_min);
+      launch<kAnyHit, 4>(trl, rays, t_min, next_ray, s);
       break;
     case 8:
-      smt_traverse_kernel<kAnyHit, 8><<<blocks, kBlock, 0, s>>>(trl, rays, t_min);
+      launch<kAnyHit, 8>(trl, rays, t_min, next_ray, s);
       break;
     default:
       return -1;
@@ -198,12 +277,12 @@ int launch_chains(const TrlView& trl, const RayView& rays, float t_min,
 }  // namespace
 
 int launch_smt_traverse(const TrlView& trl, const RayView& rays, float t_min,
-                        bool any_hit, int chains, void* stream) {
+                        bool any_hit, int chains, unsigned* next_ray, void* stream) {
   if (chains != 1 && chains != 2 && chains != 4 && chains != 8) return -1;
   if (rays.n <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return any_hit ? launch_chains<true>(trl, rays, t_min, chains, s)
-                 : launch_chains<false>(trl, rays, t_min, chains, s);
+  return any_hit ? launch_chains<true>(trl, rays, t_min, chains, next_ray, s)
+                 : launch_chains<false>(trl, rays, t_min, chains, next_ray, s);
 }
 
 }  // namespace aten_tpu_torch

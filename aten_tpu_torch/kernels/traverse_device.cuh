@@ -18,26 +18,9 @@ __device__ __forceinline__ float safe_inv(float d) {
   return s * 1e12f + 1e12f;
 }
 
-// Slab test of node `k`'s box against the ray (o, 1/d) with best t `t`.
-__device__ __forceinline__ bool slab_hit(const float* __restrict__ bmin,
-                                         const float* __restrict__ bmax,
-                                         int32_t k, float ox, float oy,
-                                         float oz, float ix, float iy,
-                                         float iz, float t) {
-  const float* lo = bmin + 3 * k;
-  const float* hi = bmax + 3 * k;
-  const float tx0 = (__ldg(lo) - ox) * ix, tx1 = (__ldg(hi) - ox) * ix;
-  const float ty0 = (__ldg(lo + 1) - oy) * iy, ty1 = (__ldg(hi + 1) - oy) * iy;
-  const float tz0 = (__ldg(lo + 2) - oz) * iz, tz1 = (__ldg(hi + 2) - oz) * iz;
-  const float t_enter =
-      fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
-  const float t_exit =
-      fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
-  return t_enter <= t_exit && t_exit > 0.0f && t_enter < t;
-}
-
-// The same test on a packed node record's box, lo = (bmin.xyz, .) and
-// hi = (bmax.xyz, .) (ops/bvh_layout.py), in the same operation order.
+// Slab test of a packed node record's box, lo = (bmin.xyz, .) and
+// hi = (bmax.xyz, .) (ops/bvh_layout.py), against the ray (o, 1/d) with
+// best t `t`.
 __device__ __forceinline__ bool slab_hit_box(float4 lo, float4 hi, float ox,
                                              float oy, float oz, float ix,
                                              float iy, float iz, float t) {
@@ -114,16 +97,6 @@ __device__ __forceinline__ bool moller_trumbore_at(
   return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min;
 }
 
-// The same with the triangle read from three [.,3] rows.
-__device__ __forceinline__ bool moller_trumbore(
-    const float* __restrict__ v0, const float* __restrict__ e1,
-    const float* __restrict__ e2, float ox, float oy, float oz, float dx,
-    float dy, float dz, float t_min, float& t, float& u, float& v) {
-  return moller_trumbore_at(__ldg(v0), __ldg(v0 + 1), __ldg(v0 + 2), __ldg(e1),
-                            __ldg(e1 + 1), __ldg(e1 + 2), __ldg(e2), __ldg(e2 + 1),
-                            __ldg(e2 + 2), ox, oy, oz, dx, dy, dz, t_min, t, u, v);
-}
-
 // Nearest root past t_min for a unit direction (traverse.py's _sphere).
 __device__ __forceinline__ bool sphere_at(float cx, float cy, float cz, float r,
                                           float ox, float oy, float oz, float dx,
@@ -140,23 +113,14 @@ __device__ __forceinline__ bool sphere_at(float cx, float cy, float cz, float r,
   return disc > 0.0f && t > t_min;
 }
 
-// The same with the centre read from a [.,3] row.
-__device__ __forceinline__ bool sphere(const float* __restrict__ c, float r,
-                                       float ox, float oy, float oz, float dx,
-                                       float dy, float dz, float t_min,
-                                       float& t) {
-  return sphere_at(__ldg(c), __ldg(c + 1), __ldg(c + 2), r, ox, oy, oz, dx, dy, dz,
-                   t_min, t);
-}
-
 // The same for a non-unit (object-space) direction: a t^2 + 2 b t + c
 // (tlas.py's _isect_sphere_general).
-__device__ __forceinline__ bool sphere_general(const float* __restrict__ c,
-                                               float r, float ox, float oy,
-                                               float oz, float dx, float dy,
-                                               float dz, float t_min,
-                                               float& t) {
-  const float sx = ox - __ldg(c), sy = oy - __ldg(c + 1), sz = oz - __ldg(c + 2);
+__device__ __forceinline__ bool sphere_general_at(float cx, float cy, float cz,
+                                                  float r, float ox, float oy,
+                                                  float oz, float dx, float dy,
+                                                  float dz, float t_min,
+                                                  float& t) {
+  const float sx = ox - cx, sy = oy - cy, sz = oz - cz;
   const float a = dx * dx + dy * dy + dz * dz;
   const float b = sx * dx + sy * dy + sz * dz;
   const float cq = sx * sx + sy * sy + sz * sz - r * r;

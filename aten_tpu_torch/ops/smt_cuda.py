@@ -1,8 +1,9 @@
 """Wrapper of the hand-written CUDA multi-chain treelet kernel (K4).
 
 `smt_traverse` runs the walk of kernels/smt_traverse.cu (closest-hit and
-any-hit instantiations, 1, 2, 4 or 8 rays per thread) over a scene's
-treelet layout (ops/trl_layout.py).  It replaces the TPU kernel
+any-hit instantiations, 1, 2, 4 or 8 rays per lane) over a scene's
+treelet layout (ops/trl_layout.py), in persistent warps that take their
+rays from a counter the wrapper zeroes.  It replaces the TPU kernel
 `_make_smt_kernel` (aten_tpu/ops/traverse_pallas.py:1335, launched by
 `_traverse_smt_tiles` :1542).  Its arguments are checked on every
 device; for tensors on the CPU it then runs the kernel's plain version,
@@ -14,10 +15,15 @@ from __future__ import annotations
 
 import torch
 
-from aten_tpu_torch.ops.traverse_cuda import _checked, load_library
+from aten_tpu_torch.ops.bvh_layout import MAX_START
+from aten_tpu_torch.ops.traverse_cuda import _checked, load_library, next_ray_counter
 from aten_tpu_torch.ops.trl_layout import ORDERINGS, RECORD, TRL_NODE, WINDOW
 
 CHAIN_COUNTS = (1, 2, 4, 8)
+# The rays per lane that the card ran fastest (PERF.md §6: every count
+# timed in turns on the same rays); the reference's default is 4
+# (traverse_pallas.py:337), which on the H100 cost more.
+DEFAULT_CHAINS = 1
 KERNELS = tuple(f"smt_traverse_{kind}_c{c}" for kind in ("closest", "any")
                 for c in CHAIN_COUNTS)
 
@@ -43,17 +49,18 @@ _SCENE_FIELDS = (
 )
 
 
-def smt_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4, chains=4):
+def smt_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4, chains=DEFAULT_CHAINS):
     """Closest (or any) hit of rays ro, rd [N,3] with t_max t0 [N] against
-    the scene's treelet layout, `chains` rays per thread.  Returns
-    (t, prim), each [N]: the winner's t (t0 on a miss) and its global id
-    (-1 on a miss)."""
+    the scene's treelet layout, `chains` rays per lane.  Returns (t, prim),
+    each [N]: the winner's t (t0 on a miss) and its global id (-1 on a
+    miss).  On a card t_min must be >= 0: the kernel orders a hit's t by
+    its bits."""
     dev = ro.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"smt_traverse: unsupported device {dev}")
     if chains not in CHAIN_COUNTS:
         raise ValueError(f"smt_traverse: chains={chains!r}; the kernel is built "
-                         f"for {CHAIN_COUNTS} rays per thread")
+                         f"for {CHAIN_COUNTS} rays per lane")
     if scene.get("trl_window") != WINDOW:
         raise ValueError(f"the scene's treelet layout has window "
                          f"{scene.get('trl_window')}; the kernel takes {WINDOW}")
@@ -72,16 +79,22 @@ def smt_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4, chains=4):
     if ptrs[0] % 16 or ptrs[1] % 8 or ptrs[2] % 16:
         raise ValueError("trl_nodes and trl_recs must be 16-byte aligned, "
                          "trl_links 8-byte aligned")
+    if not t_min >= 0.0:
+        raise ValueError(f"smt_traverse: t_min={t_min!r}; the kernel takes t_min >= 0")
+    if scene["trl_recs"].shape[0] > MAX_START:
+        raise ValueError(f"smt_traverse: {scene['trl_recs'].shape[0]} slots; the kernel "
+                         f"takes at most {MAX_START}")
     t = torch.empty(n, dtype=torch.float32, device=dev)
     prim = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return t, prim
     lib = load_library()
+    counter = next_ray_counter(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.aten_smt_traverse(
             *ptrs, ro_p, rd_p, t0_p, t.data_ptr(), prim.data_ptr(),
-            n, float(t_min), int(any_hit), int(chains), stream)
+            n, float(t_min), int(any_hit), int(chains), counter.data_ptr(), stream)
     if rc != 0:
         what = ("bad arguments" if rc < 0
                 else lib.aten_cuda_error_string(rc).decode())

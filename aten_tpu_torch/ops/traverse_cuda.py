@@ -12,7 +12,7 @@ For tensors on the CPU it runs the kernel's plain version,
 accel/traverse.py::_traverse_plain; on a CUDA tensor it launches the
 kernel or raises, never falling back.
 
-The library, which also holds the two-level kernel of ops/tlas_cuda.py,
+The library, which also holds the two-level kernel K5 of ops/tlas_cuda.py,
 the Plücker treelet kernel of ops/plk_cuda.py and the multi-chain
 treelet kernel of ops/smt_cuda.py, is built at first
 use from the repository's sources with torch.utils.cpp_extension.load
@@ -81,14 +81,14 @@ def load_library(verbose=False):
         + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp, vp])
     lib.aten_tlas_traverse.restype = ctypes.c_int
     lib.aten_tlas_traverse.argtypes = (
-        [vp] * 14 + [ctypes.c_int32] * 2 + [vp] * 8
-        + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp])
+        [vp] * 3 + [ctypes.c_int32] * 2 + [vp] * 8
+        + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp, vp])
     lib.aten_plk_traverse.restype = ctypes.c_int
     lib.aten_plk_traverse.argtypes = (
         [vp] * 8 + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp, vp])
     lib.aten_smt_traverse.restype = ctypes.c_int
     lib.aten_smt_traverse.argtypes = (
-        [vp] * 8 + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, ctypes.c_int32, vp])
+        [vp] * 8 + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, ctypes.c_int32, vp, vp])
     lib.aten_cuda_error_string.restype = ctypes.c_char_p
     lib.aten_cuda_error_string.argtypes = [ctypes.c_int]
     _lib = lib
@@ -101,14 +101,17 @@ _SCENE_FIELDS = (
 )
 
 
-def _packed(scene, fields, device):
+_K1_HINT = ("(ops/bvh_layout.py); its build did not choose this kernel "
+            "(scene.scene.with_bvh_layout attaches K1's)")
+
+
+def _packed(scene, fields, device, hint=_K1_HINT):
     """Data pointers of the scene's packed records `fields`, checked as
-    `_checked` does and for the 16-byte alignment of float4 reads."""
+    `_checked` does and for the 16-byte alignment of float4 reads; `hint`
+    says where such records come from."""
     missing = [k for k, _, _ in fields if k not in scene]
     if missing:
-        raise ValueError(f"the scene lacks the packed records {missing} "
-                         "(ops/bvh_layout.py); its build did not choose this kernel "
-                         "(scene.scene.with_bvh_layout attaches K1's)")
+        raise ValueError(f"the scene lacks the packed records {missing} {hint}")
     ptrs = [_checked(k, scene[k], dt, tail, device) for k, dt, tail in fields]
     if any(p % 16 for p in ptrs):
         raise ValueError("packed records must be 16-byte aligned (read as float4)")

@@ -5,16 +5,17 @@ into numpy by the caller (nested dicts for the material and light
 tables), and its static dict, and returns the port's Scene on `device`.
 It is how a test holds both packages to the identical scene without the
 port importing JAX.  Instanced scenes come with their two-level pool
-(`tl_*`, `inst_*`) in place of the single-level BVH.  A single-level
+(`tl_*`, `inst_*`) in place of the single-level BVH, and get the K5
+kernel's packed records of it (ops/tlas_layout.py).  A single-level
 scene runs the K1 kernel, so it gets K1's packed records
-(ops/bvh_layout.py), built from its BVH as the scene builder builds
-them.  The reference's TPU kernel layouts are dropped; features the
-port has not ported yet raise NotImplementedError.
+(ops/bvh_layout.py).  Both are built as the scene builder builds them.
+The reference's TPU kernel layouts are dropped; features the port has
+not ported yet raise NotImplementedError.
 """
 from __future__ import annotations
 
 from aten_tpu_torch.device import resolve_device
-from aten_tpu_torch.ops import bvh_layout
+from aten_tpu_torch.ops import bvh_layout, tlas_layout
 from aten_tpu_torch.scene.scene import Scene, check_leaf_sizes, to_tensors
 
 # arrays the port uses
@@ -57,9 +58,9 @@ def from_numpy(arrays: dict, static: dict, device) -> Scene:
     lights = {k: v for k, v in arrays["lights"].items() if k != "num"}
     picked = {k: arrays[k] for k in keys}
     picked["lights"] = lights
-    if "tl_bmin" not in arrays:
-        picked.update(bvh_layout.build_bvh_layout(
-            arrays, arrays["tri_v0"], arrays["tri_e1"], arrays["tri_e2"],
-            arrays["sph_center"], arrays["sph_radius"], static["num_tris"]))
+    layout = (tlas_layout.build_tlas_layout if "tl_bmin" in arrays
+              else bvh_layout.build_bvh_layout)
+    picked.update(layout(arrays, arrays["tri_v0"], arrays["tri_e1"], arrays["tri_e2"],
+                         arrays["sph_center"], arrays["sph_radius"], static["num_tris"]))
     return Scene(to_tensors(picked, dev),
                  {k: static[k] for k in STATIC_KEYS}, dev)

@@ -21,7 +21,9 @@ prim records (ops/bvh_layout.py, `bvh_nodes` and `bvh_prims`).
 records, for `traverse(impl="cuda")` on a scene built for K3 or K4.
 
 Instanced objects (`create_object`, `add_instance`, `obj=` on the
-geometry adds) build the two-level pool of accel/tlas.py.
+geometry adds) build the two-level pool of accel/tlas.py, with the K5
+kernel's packed records of it (ops/tlas_layout.py, `tl_nodes`,
+`tl_insts` and `tl_prims`).
 
 Not ported yet (they raise NotImplementedError): envmaps, textures,
 participating media, and voxel LOD.  Alpha and stencil
@@ -36,7 +38,7 @@ from aten_tpu_torch.accel import traverse
 from aten_tpu_torch.accel.build import LEAF_MAX, build_bvh
 from aten_tpu_torch.accel.tlas import build_two_level
 from aten_tpu_torch.device import resolve_device
-from aten_tpu_torch.ops import bvh_layout, plk_layout, trl_layout
+from aten_tpu_torch.ops import bvh_layout, plk_layout, tlas_layout, trl_layout
 from aten_tpu_torch.scene.lights import LightTable, LightType
 from aten_tpu_torch.scene.materials import MaterialTable, MaterialType
 
@@ -347,10 +349,12 @@ class SceneBuilder:
             boxes_max.append(sc + sr[:, None] + 1e-5)
         all_bmin = np.concatenate(boxes_min)
         all_bmax = np.concatenate(boxes_max)
+        k5 = None
         if self._instances:
             bvh = self._two_level(all_bmin, all_bmax)
             check_leaf_sizes(bvh["tl_pc"])
             num_instances = bvh["inst_obj"].shape[0]
+            k5 = tlas_layout.build_tlas_layout(bvh, tv0, te1, te2, sc, sr, num_tris)
         else:
             bvh = build_bvh(all_bmin, all_bmax)
             check_leaf_sizes(bvh["nodes_prim_count"])
@@ -413,8 +417,9 @@ class SceneBuilder:
                 {r["type"] for r in rows} | {int(MaterialType.DIFFUSE)}
             )),
         }
-        if k1 is not None:
-            arrays.update(k1)
+        for lay in (k1, k5):
+            if lay is not None:
+                arrays.update(lay)
         if trl is not None:
             arrays.update({k: trl[k] for k in trl_layout.ARRAY_KEYS})
             static["traversal"] = "smt"

@@ -1,22 +1,31 @@
-"""K1 and K3 against their first design, in turns on one card.
+"""Traversal kernels against their first design, in turns on one card.
 
-    python3 -m aten_tpu_torch.tools.first_design_ab DIR
+    python3 -m aten_tpu_torch.tools.first_design_ab DIR [k1k3|k5k4]
 
 Run from the root of a checkout on a machine with one CUDA card.  DIR
-holds a checkout whose kernels are the first design of K1
-(kernels/bvh_traverse.cu) and K3 (kernels/plk_traverse.cu): one thread
-per ray over the BVH's and the cut tree's own arrays, with that design's
-C interface (`aten_bvh_traverse` taking the twelve `nodes_*`,
-`prim_order`, `tri_*` and `sph_*` arrays, `aten_plk_traverse` the eight
-`plk_*` arrays; for example the commit before the packed records
-arrived, unpacked with `git archive` into a directory that .gitignore
-lists).  The tool builds DIR's kernels into build/, beside this
-checkout's, and on rays made as chip_smoke.py's phases 2 and 7 make them
-(4,194,304 each: jittered camera rays and surface or first-hit rays)
-holds the two designs' outputs bitwise equal and times them in turns
-(old, new, new, old), closest-hit and any-hit: K1 on the 102,404-prim
-and the 2,004-prim mesh scenes, K3 on the 512,004-prim scene.  The last
-line is one JSON object of the times.
+holds a checkout whose kernels are the first design of the group named
+(default k1k3), with that design's C interface; for example the commit
+before the group's redesign, unpacked with `git archive` into a
+directory that .gitignore lists.  The tool builds DIR's kernels into
+build/, beside this checkout's, holds the two designs' outputs bitwise
+equal and times them in turns (old, new, new, old), closest-hit and
+any-hit, on 4,194,304 rays made as chip_smoke.py makes them:
+
+* k1k3: K1 (kernels/bvh_traverse.cu) and K3 (kernels/plk_traverse.cu),
+  whose first design is one thread per ray over the BVH's and the cut
+  tree's own arrays (`aten_bvh_traverse` taking the twelve `nodes_*`,
+  `prim_order`, `tri_*` and `sph_*` arrays, `aten_plk_traverse` the
+  eight `plk_*` arrays).  K1 on the 102,404-prim and the 2,004-prim mesh
+  scenes (phase 2's rays), K3 on the 512,004-prim scene (phase 7's).
+* k5k4: K5 (kernels/tlas_traverse.cu) and K4 (kernels/smt_traverse.cu),
+  whose first design is one thread per ray over the pool's own `tl_*`
+  arrays (`aten_tlas_traverse` taking the fourteen arrays of
+  ops/tlas_cuda.py's _PLAIN_FIELDS) and C rays per thread on a plain grid
+  (`aten_smt_traverse` without a ray counter).  K5 on the 19-instance
+  fixture (phase 5's rays), K4 at C = 1, 2, 4 and 8 on the 102,404-prim
+  and the 512,004-prim scenes (phase 9's rays: phases 2 and 7).
+
+The last line is one JSON object of the times.
 """
 from __future__ import annotations
 
@@ -30,8 +39,8 @@ import torch
 
 from aten_tpu_torch import native
 
-# The first design's sources, and the scene arrays its two entry points
-# read, in the order of their C arguments.
+# The first design's sources, and the scene arrays its entry points read,
+# in the order of their C arguments.
 SOURCES = ("bvh_traverse.cu", "tlas_traverse.cu", "plk_traverse.cu", "smt_traverse.cu",
            "bindings.cpp")
 BVH_ARRAYS = ("nodes_bmin", "nodes_bmax", "nodes_hit", "nodes_miss", "nodes_prim_start",
@@ -39,13 +48,19 @@ BVH_ARRAYS = ("nodes_bmin", "nodes_bmax", "nodes_hit", "nodes_miss", "nodes_prim
               "sph_radius")
 PLK_ARRAYS = ("plk_bmin", "plk_bmax", "plk_hit", "plk_miss", "plk_slot_start", "plk_count",
               "plk_consts", "plk_slot2prim")
+TLAS_ARRAYS = ("tl_bmin", "tl_bmax", "tl_hit", "tl_miss", "tl_ps", "tl_pc", "tl_inst",
+               "tl_prim_order", "inst_w2l", "tri_v0", "tri_e1", "tri_e2", "sph_center",
+               "sph_radius")
+TRL_ARRAYS = ("trl_nodes", "trl_links", "trl_recs")
+GROUPS = ("k1k3", "k5k4")
 SEED = 20261016
 N_RAYS = 512 * 512 * 16
 
 
-def load_first_design(path):
+def load_first_design(path, group):
     """Build the kernels of the checkout at `path` and return the ctypes
-    library, its two entry points typed as the first design has them."""
+    library, the entry points of `group` typed as the first design has
+    them."""
     from torch.utils.cpp_extension import load
 
     from aten_tpu_torch.ops.traverse_cuda import CUDA_FLAGS
@@ -59,37 +74,57 @@ def load_first_design(path):
               extra_cuda_cflags=list(CUDA_FLAGS), extra_include_paths=[kdir],
               is_python_module=False, verbose=False)
     lib = ctypes.CDLL(so)
-    vp = ctypes.c_void_p
-    lib.aten_bvh_traverse.restype = ctypes.c_int
-    lib.aten_bvh_traverse.argtypes = (
-        [vp] * len(BVH_ARRAYS) + [ctypes.c_int32] + [vp] * 7
-        + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp])
-    lib.aten_plk_traverse.restype = ctypes.c_int
-    lib.aten_plk_traverse.argtypes = (
-        [vp] * (len(PLK_ARRAYS) + 5) + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp])
+    vp, i32 = ctypes.c_void_p, ctypes.c_int32
+    tail = [ctypes.c_int64, ctypes.c_float, i32]
+    if group == "k1k3":
+        lib.aten_bvh_traverse.restype = ctypes.c_int
+        lib.aten_bvh_traverse.argtypes = [vp] * len(BVH_ARRAYS) + [i32] + [vp] * 7 + tail + [vp]
+        lib.aten_plk_traverse.restype = ctypes.c_int
+        lib.aten_plk_traverse.argtypes = [vp] * (len(PLK_ARRAYS) + 5) + tail + [vp]
+    else:
+        lib.aten_tlas_traverse.restype = ctypes.c_int
+        lib.aten_tlas_traverse.argtypes = [vp] * len(TLAS_ARRAYS) + [i32] * 2 + [vp] * 8 + tail + [vp]
+        lib.aten_smt_traverse.restype = ctypes.c_int
+        lib.aten_smt_traverse.argtypes = [vp] * (len(TRL_ARRAYS) + 5) + tail + [i32, vp]
     return lib
 
 
-def first_design_run(lib, kernel, scene, ro, rd, t0, any_hit, t_min):
-    """One launch of the first design's K1 ("k1": (t, prim, u, v)) or K3
-    ("k3": (t, prim)) on the scene's own arrays."""
+def first_design_run(lib, kernel, scene, ro, rd, t0, any_hit, t_min, chains=None):
+    """One launch of the first design's K1 ("k1": (t, prim, u, v)), K3
+    ("k3": (t, prim)), K5 ("k5": (t, prim, inst, u, v)) or K4 at `chains`
+    rays per thread ("k4": (t, prim)) on the scene's own arrays."""
     n = ro.shape[0]
-    t = torch.empty(n, dtype=torch.float32, device=ro.device)
-    prim = torch.empty(n, dtype=torch.int32, device=ro.device)
-    uv = [torch.empty(n, dtype=torch.float32, device=ro.device) for _ in range(2)]
-    stream = torch.cuda.current_stream(ro.device).cuda_stream
+    dev = ro.device
+
+    def f32():
+        return torch.empty(n, dtype=torch.float32, device=dev)
+
+    def i32():
+        return torch.empty(n, dtype=torch.int32, device=dev)
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rays = (ro.data_ptr(), rd.data_ptr(), t0.data_ptr())
     if kernel == "k1":
+        out = (f32(), i32(), f32(), f32())
         rc = lib.aten_bvh_traverse(
-            *(scene[k].data_ptr() for k in BVH_ARRAYS), int(scene["num_tris"]),
-            ro.data_ptr(), rd.data_ptr(), t0.data_ptr(), t.data_ptr(), prim.data_ptr(),
-            uv[0].data_ptr(), uv[1].data_ptr(), n, float(t_min), int(any_hit), stream)
-        out = (t, prim, *uv)
-    else:
+            *(scene[k].data_ptr() for k in BVH_ARRAYS), int(scene["num_tris"]), *rays,
+            *(x.data_ptr() for x in out), n, float(t_min), int(any_hit), stream)
+    elif kernel == "k3":
+        out = (f32(), i32())
         rc = lib.aten_plk_traverse(
-            *(scene[k].data_ptr() for k in PLK_ARRAYS), ro.data_ptr(), rd.data_ptr(),
-            t0.data_ptr(), t.data_ptr(), prim.data_ptr(), n, float(t_min), int(any_hit),
-            stream)
-        out = (t, prim)
+            *(scene[k].data_ptr() for k in PLK_ARRAYS), *rays, *(x.data_ptr() for x in out),
+            n, float(t_min), int(any_hit), stream)
+    elif kernel == "k5":
+        out = (f32(), i32(), i32(), f32(), f32())
+        rc = lib.aten_tlas_traverse(
+            *(scene[k].data_ptr() for k in TLAS_ARRAYS), int(scene["num_tris"]),
+            int(scene["num_instances"]), *rays, *(x.data_ptr() for x in out), n,
+            float(t_min), int(any_hit), stream)
+    else:
+        out = (f32(), i32())
+        rc = lib.aten_smt_traverse(
+            *(scene[k].data_ptr() for k in TRL_ARRAYS), *rays, *(x.data_ptr() for x in out),
+            n, float(t_min), int(any_hit), int(chains), stream)
     if rc != 0:
         raise RuntimeError(f"the first design's {kernel} launch failed ({rc})")
     return out
@@ -111,8 +146,94 @@ def ab_times(name, card, old_fn, new_fn, cuda_ms, reps=10):
     return old, new
 
 
+def _ray_sets(smoke, rng, dev, cases):
+    """Per (name, scene, cam, kind) of `cases`, the N_RAYS rays chip_smoke.py
+    makes for it: jittered camera rays, then surface rays ("surface") or
+    rays from first hits of the camera rays ("first_hit", "first_hit_plk"),
+    and t_max distances for any-hit."""
+    import numpy as np
+
+    for name, scene, cam, kind in cases:
+        cro, crd = smoke.camera_rays(cam, dev, jitter_rng=rng, subsamples=8)
+        if kind == "surface":
+            sro, srd = smoke.surface_rays(scene, N_RAYS - cro.shape[0], rng, dev)
+        else:
+            sro, srd = smoke.first_hit_rays(scene, cro, crd, N_RAYS - cro.shape[0], rng,
+                                            impl="plk" if kind == "first_hit_plk" else "cuda")
+        dist = torch.tensor(rng.uniform(0.0, 20.0, N_RAYS), dtype=torch.float32, device=dev)
+        yield name, scene, torch.cat([cro, sro]), torch.cat([crd, srd]), dist
+
+
+def _ab_k1k3(lib, smoke, card, rng, dev):
+    from aten_tpu_torch.ops import plk_cuda, traverse_cuda
+    from aten_tpu_torch.scene.scenedefs import large_mesh_scene, procedural_mesh_scene
+
+    big, cam = procedural_mesh_scene(512, 512, device=dev)
+    mid, _ = procedural_mesh_scene(512, 512, n_u=40, n_v=25, device=dev)
+    large, lcam = large_mesh_scene(512, 512, device=dev)
+    cases = (("K1 102,404 prims", big, cam, "surface"), ("K1 2,004 prims", mid, cam, "surface"),
+             ("K3 512,004 prims", large, lcam, "first_hit_plk"))
+    results = {}
+    for name, scene, ro, rd, dist in _ray_sets(smoke, rng, dev, cases):
+        kernel = "k3" if name.startswith("K3") else "k1"
+        walk = traverse_cuda.bvh_traverse if kernel == "k1" else plk_cuda.plk_traverse
+        for kind, t0k, any_hit, t_min in _kinds(dist):
+            old, cur = ab_times(
+                f"{name} {kind}-hit, {N_RAYS} rays", card,
+                lambda: first_design_run(lib, kernel, scene, ro, rd, t0k, any_hit, t_min),
+                lambda: walk(scene, ro, rd, t0k, any_hit=any_hit, t_min=t_min), smoke.cuda_ms)
+            results[f"{name} {kind}"] = {"first_design_ms": old, "ms": cur}
+    return results
+
+
+def _ab_k5k4(lib, smoke, card, rng, dev):
+    from aten_tpu_torch.ops import smt_cuda, tlas_cuda
+    from aten_tpu_torch.scene.scene import with_trl_layout
+    from aten_tpu_torch.scene.scenedefs import (instanced_mesh_scene, large_mesh_scene,
+                                                procedural_mesh_scene)
+
+    inst, icam = instanced_mesh_scene(512, 512, device=dev)
+    big, cam = procedural_mesh_scene(512, 512, device=dev)
+    large, lcam = large_mesh_scene(512, 512, device=dev)
+    cases = (("K5 19 instances", inst, icam, "first_hit"),
+             ("K4 102,404 prims", big, cam, "surface"),
+             ("K4 512,004 prims", large, lcam, "first_hit_plk"))
+    results = {}
+    for name, scene, ro, rd, dist in _ray_sets(smoke, rng, dev, cases):
+        if name.startswith("K5"):
+            for kind, t0k, any_hit, t_min in _kinds(dist):
+                old, cur = ab_times(
+                    f"{name} {kind}-hit, {N_RAYS} rays", card,
+                    lambda: first_design_run(lib, "k5", scene, ro, rd, t0k, any_hit, t_min),
+                    lambda: tlas_cuda.tlas_traverse(scene, ro, rd, t0k, any_hit=any_hit,
+                                                    t_min=t_min), smoke.cuda_ms)
+                results[f"{name} {kind}"] = {"first_design_ms": old, "ms": cur}
+            continue
+        trl = with_trl_layout(scene)  # as phase 9 attaches it
+        for kind, t0k, any_hit, t_min in _kinds(dist):
+            for c in smt_cuda.CHAIN_COUNTS:
+                old, cur = ab_times(
+                    f"{name} {kind}-hit C={c}, {N_RAYS} rays", card,
+                    lambda: first_design_run(lib, "k4", trl, ro, rd, t0k, any_hit, t_min, c),
+                    lambda: smt_cuda.smt_traverse(trl, ro, rd, t0k, any_hit=any_hit,
+                                                  t_min=t_min, chains=c), smoke.cuda_ms)
+                results[f"{name} {kind} C={c}"] = {"first_design_ms": old, "ms": cur}
+        del trl
+    return results
+
+
+def _kinds(dist):
+    """(kind, t0, any_hit, t_min): closest-hit to infinity, any-hit to `dist`."""
+    from aten_tpu_torch.accel.traverse import _t0_of
+
+    return (("closest", _t0_of(None, N_RAYS, dist.device), False, 1e-4),
+            ("any", dist, True, 1e-3))
+
+
 def main(argv):
-    if len(argv) != 2 or not os.path.isdir(os.path.join(argv[1], "aten_tpu_torch", "kernels")):
+    group = argv[2] if len(argv) == 3 else "k1k3"
+    if (len(argv) not in (2, 3) or group not in GROUPS
+            or not os.path.isdir(os.path.join(argv[1], "aten_tpu_torch", "kernels"))):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("first_design_ab: no CUDA card is available")
@@ -121,43 +242,18 @@ def main(argv):
 
     # the ray makers and the timer of chip_smoke.py, at the checkout's root
     import chip_smoke as smoke
-    from aten_tpu_torch.accel.traverse import _t0_of
-    from aten_tpu_torch.ops import plk_cuda, traverse_cuda
-    from aten_tpu_torch.scene.scenedefs import large_mesh_scene, procedural_mesh_scene
+    from aten_tpu_torch.ops import traverse_cuda
 
     card = smoke.card_line()
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     t = time.time()
     traverse_cuda.load_library()
-    lib = load_first_design(argv[1])
+    lib = load_first_design(argv[1], group)
     print(f"built both designs in {time.time() - t:.1f} s", flush=True)
-    rng = np.random.default_rng(SEED)
-    big, cam = procedural_mesh_scene(512, 512, device=dev)
-    mid, _ = procedural_mesh_scene(512, 512, n_u=40, n_v=25, device=dev)
-    large, lcam = large_mesh_scene(512, 512, device=dev)
-    results = {}
-    for name, scene, kernel in (("K1 102,404 prims", big, "k1"), ("K1 2,004 prims", mid, "k1"),
-                                ("K3 512,004 prims", large, "k3")):
-        c = lcam if kernel == "k3" else cam
-        cro, crd = smoke.camera_rays(c, dev, jitter_rng=rng, subsamples=8)
-        if kernel == "k3":
-            sro, srd = smoke.first_hit_rays(scene, cro, crd, N_RAYS - cro.shape[0], rng,
-                                            impl="plk")
-        else:
-            sro, srd = smoke.surface_rays(scene, N_RAYS - cro.shape[0], rng, dev)
-        ro, rd = torch.cat([cro, sro]), torch.cat([crd, srd])
-        dist = torch.tensor(rng.uniform(0.0, 20.0, N_RAYS), dtype=torch.float32, device=dev)
-        walk = traverse_cuda.bvh_traverse if kernel == "k1" else plk_cuda.plk_traverse
-        for kind, t0k, any_hit, t_min in (("closest", _t0_of(None, N_RAYS, dev), False, 1e-4),
-                                          ("any", dist, True, 1e-3)):
-            old, cur = ab_times(
-                f"{name} {kind}-hit, {N_RAYS} rays", card,
-                lambda: first_design_run(lib, kernel, scene, ro, rd, t0k, any_hit, t_min),
-                lambda: walk(scene, ro, rd, t0k, any_hit=any_hit, t_min=t_min), smoke.cuda_ms)
-            results[f"{name} {kind}"] = {"first_design_ms": old, "ms": cur}
-        del ro, rd, cro, crd, sro, srd, dist
-    print(json.dumps({"card": card, "rays": N_RAYS, "ab": results}), flush=True)
+    run = _ab_k1k3 if group == "k1k3" else _ab_k5k4
+    results = run(lib, smoke, card, np.random.default_rng(SEED), dev)
+    print(json.dumps({"card": card, "rays": N_RAYS, "group": group, "ab": results}), flush=True)
 
 
 if __name__ == "__main__":

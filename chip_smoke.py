@@ -12,10 +12,11 @@ renders the Cornell box against the pinned golden image, renders the
 102,404-prim and the 2,004-prim mesh scenes through that kernel at
 512x512, 16 spp, then holds the two-level (instanced) kernel against its
 plain version on the 19-instance fixture and renders that fixture
-through it, and finally holds the Plücker treelet kernel K3 against its
-plain version and the oracle walk on the 512,004-prim mesh scene, times
-it, and renders that scene through it. Phase 9 holds the multi-chain
-treelet kernel K4 at 1, 2, 4 and 8 rays per thread against its plain
+through it (bitwise: t, prim, inst, u and v), and finally holds the
+Plücker treelet kernel K3 against its plain version and the oracle walk
+on the 512,004-prim mesh scene, times it, and renders that scene
+through it. Phase 9 holds the multi-chain treelet kernel K4 at 1, 2, 4
+and 8 rays per lane bitwise against its plain
 version and the oracle walk on the rays of both mesh scenes, times it
 beside the kernels those scenes run by default, renders the 102,404-prim
 scene through it, and renders the 512,004-prim scene in a child process
@@ -187,10 +188,11 @@ def plain_walk(scene, ro, rd, t_max=None, any_hit=False, t_min=1e-4):
     return walk(scene, ro, rd, t0, any_hit, t_min, stats=True)
 
 
-def compare_traversal(name, scene, ro, rd, t_max):
+def compare_traversal(name, scene, ro, rd, t_max, exact=False):
     """Kernel vs plain walk on the same rays, closest-hit and then any-hit
-    with distances t_max; raises outside the bounds.  Returns the max abs
-    error of (t, u, v) where prims agree, whether the any-hit verdicts
+    with distances t_max; raises outside the bounds, and with `exact`
+    unless every output of both kinds is bitwise equal.  Returns the max
+    abs error of (t, u, v) where prims agree, whether the any-hit verdicts
     were equal, and the plain walks' work counts per kind."""
     import numpy as np
     import torch
@@ -205,9 +207,9 @@ def compare_traversal(name, scene, ro, rd, t_max):
     m = (pp >= 0) & (pk == pp)
     errs = {k: float(np.abs(hk[k].cpu().numpy()[m] - hp[k].cpu().numpy()[m]).max(initial=0.0))
             for k in ("t", "u", "v")}
-    exact = bool(all(torch.equal(hk[k], hp[k]) for k in keys))
+    exact_closest = bool(all(torch.equal(hk[k], hp[k]) for k in keys))
     log(f"{name}: {ro.shape[0]} rays, hit {float((pp >= 0).mean()):.4f}, "
-        f"prim agreement {agree:.6f}, bitwise equal {exact}, "
+        f"prim agreement {agree:.6f}, bitwise equal {exact_closest}, "
         f"max |dt| {errs['t']:.3e} |du| {errs['u']:.3e} |dv| {errs['v']:.3e}")
     assert agree >= PRIM_AGREE, (name, agree)
     tk, tp = hk["t"].cpu().numpy()[m], hp["t"].cpu().numpy()[m]
@@ -228,6 +230,7 @@ def compare_traversal(name, scene, ro, rd, t_max):
         f"verdicts equal {same}, bitwise equal {exact_any}")
     log(f"{name} work: closest {st_closest}, any {st_any}")
     assert same, name
+    assert not exact or (exact_closest and exact_any), (name, exact_closest, exact_any)
     return max(errs.values()), same, {"closest": st_closest, "any": st_any}
 
 
@@ -479,7 +482,7 @@ def timed_ms(fn):
 
 
 def smt_hits(scene, ro, rd, t0, any_hit, t_min, chains):
-    """K4 at `chains` rays per thread, with the u/v step of
+    """K4 at `chains` rays per lane, with the u/v step of
     traverse(impl="smt")."""
     import torch
 
@@ -842,21 +845,29 @@ def main():
     sro, srd = first_hit_rays(inst, cro, crd, n_main - cro.shape[0], rng)
     ro, rd = torch.cat([cro, sro]), torch.cat([crd, srd])
     dist = torch.tensor(rng.uniform(0.0, 20.0, n_main), dtype=torch.float32, device=dev)
-    e, same, work = compare_traversal("instanced main-path shape", inst, ro, rd, dist)
+    e, same, work = compare_traversal("instanced main-path shape", inst, ro, rd, dist,
+                                      exact=True)
     max_err5 = {"closest": e, "any": 0.0 if same else 1.0}
     times5, bounds5 = {}, {}
-    pool = pool_bytes(inst, tlas_cuda._SCENE_FIELDS)
+    # the bound over the pool's own arrays (the query's least work), and
+    # over K5's packed records beside it
+    pool = pool_bytes(inst, tlas_cuda._PLAIN_FIELDS)
+    pool_k5 = pool_bytes(inst, tlas_cuda._SCENE_FIELDS)
+    log(f"phase 5: the pool's arrays {pool} B; K5's packed records "
+        f"{inst['tl_nodes'].shape[0]} nodes x 32 B + {inst['tl_insts'].shape[0]} instances "
+        f"x 64 B + {inst['tl_prims'].shape[0]} prims x 48 B = {pool_k5} B")
     for kind, kw in (("closest", {}), ("any", {"t_max": dist, "any_hit": True, "t_min": 1e-3})):
         times5[kind] = (
             cuda_ms(lambda: traverse(inst, ro, rd, impl="cuda", **kw), reps=10),
             cuda_ms(lambda: traverse(inst, ro, rd, impl="plain", **kw), reps=1),
         )
-        bounds5[kind] = bound(n_main, 20, pool, work[kind])
+        b = bounds5[kind] = bound(n_main, 20, pool, work[kind])
+        b_k5 = bound(n_main, 20, pool_k5, work[kind])
         log(f"phase 5 timing {kind}-hit, {n_main} rays, 19 instances over "
             f"102,405 prims: kernel {times5[kind][0]:.3f} ms, plain torch walk "
-            f"{times5[kind][1]:.3f} ms, bound {bounds5[kind][0]:.4f} ms by "
-            f"{bounds5[kind][1]} ({bounds5[kind][2]} B, {bounds5[kind][3]} fp32 ops) "
-            f"[{card}]")
+            f"{times5[kind][1]:.3f} ms, bound {b[0]:.4f} ms by {b[1]} ({b[2]} B, "
+            f"{b[3]} fp32 ops), {times5[kind][0] / b[0]:.1f}x the bound; over K5's packed "
+            f"records the bound is {b_k5[0]:.4f} ms by {b_k5[1]} ({b_k5[2]} B) [{card}]")
     del ro, rd, cro, crd, sro, srd, dist
 
     # -- phase 6: the instanced path, 512x512 x 16 spp, depth 5, RR depth 3

@@ -21,11 +21,14 @@ import torch
 from aten_tpu.scene import scenedefs as jdefs
 from aten_tpu.scene.scene import SceneBuilder as JaxSceneBuilder
 from aten_tpu_torch.accel import traverse as ttrav
-from aten_tpu_torch.ops import bvh_layout, plk_layout, traverse_cuda, trl_layout
+from aten_tpu_torch.ops import bvh_layout, plk_layout, tlas_layout, traverse_cuda, trl_layout
 from aten_tpu_torch.scene import bridge
 from aten_tpu_torch.scene import scenedefs as tdefs
 from aten_tpu_torch.scene.scene import Scene, with_bvh_layout, with_trl_layout
 from aten_tpu_torch.tools import first_design_ab, kernel_lab
+from test_torch_bvh_scene import reference_native  # noqa: F401  (the one guard)
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 # Tier-1 runs these files in parallel workers; torch's default of one
 # intra-op thread per core makes the workers' small ops contend.
@@ -139,11 +142,13 @@ def test_builder_checks_every_tree_it_packs():
                                     _np(s, "sph_center"), _np(s, "sph_radius"), s["num_tris"])
 
 
-# (policy, scene): whether K1's records, K3's and K4's layout are attached
+# (policy, scene): whether K1's records, K3's and K4's layout or K5's
+# records are attached
 _POLICY_CASES = [
     ("v3", "mesh102k", "k1"), ("mt", "mesh102k", "k1"), ("plk", "mesh102k", "k3"),
     ("smt", "mesh102k", "k4"), ("v3", "knot2k", "k1"), ("smt", "knot2k", "k1"),
-    ("plk", "knot2k", "k1"), ("v3", "cornell", "k1"), ("v3", "instanced", None),
+    ("plk", "knot2k", "k1"), ("v3", "cornell", "k1"), ("v3", "instanced", "k5"),
+    ("smt", "instanced", "k5"),
 ]
 
 
@@ -159,9 +164,11 @@ def test_builder_attaches_records_where_the_policy_runs_the_kernel(monkeypatch, 
     assert all((k in s) == (kernel == "k1") for k in bvh_layout.ARRAY_KEYS)
     assert ("plk_nodes" in s) == (kernel == "k3")
     assert ("trl_nodes" in s) == (kernel == "k4")
+    assert all((k in s) == (kernel == "k5") for k in tlas_layout.ARRAY_KEYS)
     assert s.get("traversal") == {"k3": "plk", "k4": "smt"}.get(kernel)
     # the original arrays stay: the plain walks and the first design read them
-    first = {"k1": first_design_ab.BVH_ARRAYS, "k3": first_design_ab.PLK_ARRAYS}
+    first = {"k1": first_design_ab.BVH_ARRAYS, "k3": first_design_ab.PLK_ARRAYS,
+             "k4": first_design_ab.TRL_ARRAYS, "k5": first_design_ab.TLAS_ARRAYS}
     assert all(k in s for k in first.get(kernel, ()))
     if kernel == "k1":
         assert ttrav.traverse(s, torch.zeros(1, 3), torch.tensor([[0.0, 0.0, -1.0]]),
@@ -179,6 +186,7 @@ def test_bridge_attaches_records_to_single_level_scenes(name):
     s = bridge.from_numpy(jax.tree_util.tree_map(np.asarray, js.arrays), js.static, "cpu")
     single = name == "cornell"
     assert all((k in s) == single for k in bvh_layout.ARRAY_KEYS)
+    assert all((k in s) != single for k in tlas_layout.ARRAY_KEYS)
     assert not any(k in s for k in plk_layout.ARRAY_KEYS + trl_layout.ARRAY_KEYS)
 
 

@@ -6,7 +6,15 @@
 K1's packed records (`bvh_nodes`, `bvh_prims`) are the port's own and
 have no counterpart there; tests/test_torch_bvh_layout.py holds them to
 the tables they pack.
+
+`reference_native`, defined here, is the one guard of every port test
+that builds a reference BVH above the native builder's 512-prim line;
+the other test_torch_*.py files import it from this module.
 """
+import os
+import subprocess
+import time
+
 import jax
 import numpy as np
 import pytest
@@ -15,6 +23,7 @@ import torch
 from aten_tpu.accel import build as jbuild
 from aten_tpu.scene import scenedefs as jdefs
 from aten_tpu.scene.scene import SceneBuilder as JaxSceneBuilder
+from aten_tpu_torch import native
 from aten_tpu_torch.accel import build as tbuild
 from aten_tpu_torch.ops import bvh_layout
 from aten_tpu_torch.scene import bridge
@@ -25,6 +34,36 @@ from aten_tpu_torch.scene.scene import SceneBuilder
 # Tier-1 runs these files in parallel workers; torch's default of one
 # intra-op thread per core makes the workers' small ops contend.
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def reference_native():
+    """The reference compiles native/libbvh.so in place at first use,
+    with no lock (aten_tpu/accel/build.py:42-51).  A process that loads
+    the file while another one writes it keeps "no native builder" for
+    its life (:41, :72-73) and builds objects over 512 prims with NumPy,
+    which gives the same nodes but another prim_order.  So build the file
+    here first, with the reference's flags, into a temporary file moved
+    into place at once, and retry the reference's load until it
+    succeeds."""
+    src = os.path.join(jbuild._NATIVE_DIR, "bvh_builder.cpp")
+    so = os.path.join(jbuild._NATIVE_DIR, "libbvh.so")
+    with native.build_lock("reference_libbvh"):
+        if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
+            tmp = f"{so}.{os.getpid()}.tmp"
+            subprocess.run(["g++", "-O3", "-march=native", "-shared", "-fPIC",
+                            "-std=c++17", "-o", tmp, src],
+                           check=True, capture_output=True, timeout=300)
+            os.replace(tmp, so)
+    for _ in range(60):
+        if jbuild._load_native() is not None:
+            return
+        jbuild._native_tried = False
+        time.sleep(1.0)
+    pytest.fail("the reference's native BVH builder did not load")
+
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 
 def _boxes(rng, n):

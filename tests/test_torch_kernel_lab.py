@@ -23,8 +23,6 @@ computes for CPU tensors) walk the port's K4 layout of the same BVH.
 import dataclasses
 import importlib.util
 import os
-import subprocess
-import time
 
 import jax
 import jax.numpy as jnp
@@ -33,16 +31,15 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from aten_tpu.accel import build as jbuild
 from aten_tpu.accel.traverse import traverse as jax_traverse
 from aten_tpu.core import camera as jcam
 from aten_tpu.ops import traverse_pallas as jtp
 from aten_tpu.scene.scene import SceneBuilder as JaxSceneBuilder
-from aten_tpu_torch import native
 from aten_tpu_torch.scene import bridge
 from aten_tpu_torch.scene import scenedefs as tdefs
 from aten_tpu_torch.scene.scene import with_trl_layout
 from aten_tpu_torch.tools import kernel_lab as kl
+from test_torch_bvh_scene import reference_native  # noqa: F401  (the one guard)
 
 torch.set_num_threads(1)
 
@@ -50,27 +47,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAYOUT_ARGS = ("tri_v0", "tri_e1", "tri_e2", "sph_center", "sph_radius")
 N = 2048
 
-
-@pytest.fixture(scope="module")
-def reference_native():
-    """The reference's native BVH builder, built under a lock and loaded
-    (see tests/test_torch_smt.py: the reference compiles it in place with
-    no lock)."""
-    src = os.path.join(jbuild._NATIVE_DIR, "bvh_builder.cpp")
-    so = os.path.join(jbuild._NATIVE_DIR, "libbvh.so")
-    with native.build_lock("reference_libbvh"):
-        if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            subprocess.run(["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                            "-std=c++17", "-o", tmp, src],
-                           check=True, capture_output=True, timeout=300)
-            os.replace(tmp, so)
-    for _ in range(60):
-        if jbuild._load_native() is not None:
-            return
-        jbuild._native_tried = False
-        time.sleep(1.0)
-    pytest.fail("the reference's native BVH builder did not load")
 
 
 _CACHE = {}

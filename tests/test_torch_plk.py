@@ -23,9 +23,6 @@
 """
 import dataclasses
 import inspect
-import os
-import subprocess
-import time
 
 import jax
 import jax.numpy as jnp
@@ -34,19 +31,18 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from aten_tpu.accel import build as jbuild
 from aten_tpu.accel.traverse import traverse as jax_traverse
 from aten_tpu.core import camera as jcam
 from aten_tpu.integrator.pathtracer import render_image as jax_render_image
 from aten_tpu.ops import traverse_pallas as jtp
 from aten_tpu.scene.scene import SceneBuilder as JaxSceneBuilder
-from aten_tpu_torch import native
 from aten_tpu_torch.accel import traverse as ttrav
 from aten_tpu_torch.integrator.pathtracer import render_image
 from aten_tpu_torch.ops import bvh_layout, plk_cuda, plk_layout, traverse_cuda
 from aten_tpu_torch.scene import bridge
 from aten_tpu_torch.scene import scenedefs as tdefs
 from aten_tpu_torch.scene.scene import Scene, SceneBuilder, to_tensors
+from test_torch_bvh_scene import reference_native  # noqa: F401  (the one guard)
 
 # Tier-1 runs these files in parallel workers; torch's default of one
 # intra-op thread per core makes the workers' small ops contend.
@@ -55,30 +51,6 @@ torch.set_num_threads(1)
 KNOT = {"n_u": 40, "n_v": 25}  # 2,000 knot triangles + 4: 2,004 prims
 TILE_ROWS = 16  # the reference's K3 tile height (traverse_pallas.py:340)
 
-
-@pytest.fixture(scope="module")
-def reference_native():
-    """The reference compiles native/libbvh.so in place at first use,
-    with no lock (aten_tpu/accel/build.py:42-51); a process that loads a
-    half-written file builds large scenes with NumPy, another tree.  So
-    build it here first, into a temporary file moved into place at once,
-    and retry the reference's load until it succeeds (as
-    test_torch_tlas.py does)."""
-    src = os.path.join(jbuild._NATIVE_DIR, "bvh_builder.cpp")
-    so = os.path.join(jbuild._NATIVE_DIR, "libbvh.so")
-    with native.build_lock("reference_libbvh"):
-        if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            subprocess.run(["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                            "-std=c++17", "-o", tmp, src],
-                           check=True, capture_output=True, timeout=300)
-            os.replace(tmp, so)
-    for _ in range(60):
-        if jbuild._load_native() is not None:
-            return
-        jbuild._native_tried = False
-        time.sleep(1.0)
-    pytest.fail("the reference's native BVH builder did not load")
 
 
 def _np(h):

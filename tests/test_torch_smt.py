@@ -24,10 +24,10 @@
   TPU kernel, not the oracle.
 """
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
-import time
 
 import jax
 import jax.numpy as jnp
@@ -36,20 +36,19 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from aten_tpu.accel import build as jbuild
 from aten_tpu.accel.traverse import traverse as jax_traverse
 from aten_tpu.core import camera as jcam
 from aten_tpu.integrator.pathtracer import render_image as jax_render_image
 from aten_tpu.ops import traverse_pallas as jtp
 from aten_tpu.scene import scenedefs as jdefs
 from aten_tpu.scene.scene import SceneBuilder as JaxSceneBuilder
-from aten_tpu_torch import native
 from aten_tpu_torch.accel import traverse as ttrav
 from aten_tpu_torch.integrator.pathtracer import render_image
 from aten_tpu_torch.ops import plk_cuda, plk_layout, smt_cuda, traverse_cuda, trl_layout
 from aten_tpu_torch.scene import bridge
 from aten_tpu_torch.scene import scenedefs as tdefs
 from aten_tpu_torch.scene.scene import Scene, SceneBuilder, with_trl_layout
+from test_torch_bvh_scene import reference_native  # noqa: F401  (the one guard)
 
 torch.set_num_threads(1)
 
@@ -57,30 +56,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KNOT = {"n_u": 40, "n_v": 25}  # 2,000 knot triangles + 4: 2,004 prims
 LAYOUT_ARGS = ("tri_v0", "tri_e1", "tri_e2", "sph_center", "sph_radius")
 
-
-@pytest.fixture(scope="module")
-def reference_native():
-    """The reference compiles native/libbvh.so in place at first use,
-    with no lock (aten_tpu/accel/build.py:42-51); a process that loads a
-    half-written file builds large scenes with NumPy, another tree.  So
-    build it here first, into a temporary file moved into place at once,
-    and retry the reference's load until it succeeds (as
-    test_torch_plk.py does)."""
-    src = os.path.join(jbuild._NATIVE_DIR, "bvh_builder.cpp")
-    so = os.path.join(jbuild._NATIVE_DIR, "libbvh.so")
-    with native.build_lock("reference_libbvh"):
-        if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            subprocess.run(["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                            "-std=c++17", "-o", tmp, src],
-                           check=True, capture_output=True, timeout=300)
-            os.replace(tmp, so)
-    for _ in range(60):
-        if jbuild._load_native() is not None:
-            return
-        jbuild._native_tried = False
-        time.sleep(1.0)
-    pytest.fail("the reference's native BVH builder did not load")
 
 
 def _np(h):
@@ -357,6 +332,104 @@ def test_pick_ordering_rule():
         assert ttrav.pick_ordering(torch.tensor(r[None]))[0].item() == want
 
 
+class _Chain:
+    def __init__(self, ray, t0, t_min):
+        self.ray, self.t, self.prim = ray, t0, -1
+        self.cur = 0 if t0 > t_min else -1
+        self.pend = self.next = None  # latched fat leaves (slot start, count)
+        self.tested = False
+
+
+def _k4_schedule(scene, ro, rd, t0, any_hit, t_min, chains, drain_first=False):
+    """The redesigned K4's schedule (kernels/smt_traverse.cu) for one lane
+    holding `chains` rays, in Python over the plain version's own box and
+    leaf tests (`_slab_hit`, `_trl_leaves`): each chain steps until its
+    step must drain the leaf latched on the step before, which it does
+    after that step's box test; then the latched leaves drain and the
+    waiting steps end.  `drain_first` drains before the box test
+    instead.  Returns (t, prim, box tests)."""
+    nodes, links, recs = scene["trl_nodes"], scene["trl_links"], scene["trl_recs"]
+    ints = nodes.view(torch.int32)
+    inv = ttrav._plk_safe_inv(rd)
+    order2 = 2 * ttrav.pick_ordering(rd)
+    t_out, p_out = t0.clone(), torch.full(t0.shape, -1, dtype=torch.int32)
+    queue, lane, boxes = list(range(ro.shape[0]))[::-1], [None] * chains, 0
+
+    def drain(h):
+        ss, cnt = (torch.tensor([x]) for x in h.pend)
+        tn, pn = ttrav._trl_leaves(recs, ss, cnt, ro[h.ray:h.ray + 1], rd[h.ray:h.ray + 1],
+                                   h.t.view(1), t_min)
+        if int(pn[0]) >= 0:
+            h.t, h.prim = tn[0], int(pn[0])
+
+    while True:
+        for c in range(chains):
+            if lane[c] is None and queue:
+                i = queue.pop()
+                lane[c] = _Chain(i, t0[i], t_min)
+        live = [h for h in lane if h is not None]
+        if not live:
+            break
+        while True:  # step the chains until each waits for a drain or has ended
+            walking = [h for h in live if h.cur >= 0 and not h.tested]
+            if not walking:
+                break
+            for h in walking:
+                if drain_first and h.pend is not None:
+                    drain(h)
+                    h.pend = None
+                k, i = h.cur, h.ray
+                boxes += 1
+                hitv = (not any_hit or h.prim < 0) and bool(ttrav._slab_hit(
+                    nodes[k:k + 1, 0:3], nodes[k:k + 1, 3:6], ro[i:i + 1], inv[i:i + 1],
+                    h.t.view(1))[0])
+                ss = int(ints[k, 6])
+                latch = (ss, int(ints[k, 7])) if hitv and ss >= 0 else None
+                h.cur = int(links[k, order2[i] + (0 if hitv else 1)])
+                if h.pend is None:
+                    h.pend = latch
+                    if any_hit and h.prim >= 0:
+                        h.cur = -1
+                else:
+                    h.next, h.tested = latch, True
+        for h in live:  # the drains, then the rest of the waiting steps
+            if h.pend is not None and (h.tested or h.cur < 0):
+                drain(h)
+                h.pend = h.next if h.tested else None
+                h.next, h.tested = None, False
+                if any_hit and h.prim >= 0:
+                    h.cur = -1
+        for c, h in enumerate(lane):
+            if h is not None and h.cur < 0 and h.pend is None:
+                t_out[h.ray], p_out[h.ray] = h.t, h.prim
+                lane[c] = None
+    return t_out, p_out, boxes
+
+
+@pytest.mark.parametrize("chains", [1, 3])
+def test_k4_schedule_keeps_the_step_order(reference_native, chains):
+    """The redesigned K4's schedule gives the plain version's t and prim
+    bit for bit and tests the same boxes (its node steps), closest-hit and
+    any-hit.  The rewrite that drains before the box test does not: on
+    these surface rays it tests other boxes (closest-hit) and picks
+    another any-hit winner.  On the card chip_smoke.py holds the kernel
+    itself bitwise to the plain version."""
+    _, _, ps, _ = _setup("knot")
+    ro, rd = (torch.tensor(a) for a in _rays("surface"))
+    for any_hit, rays, t_min in ((False, slice(0, 400), 1e-4), (True, slice(800, 960), 1e-3)):
+        r, d = ro[rays], rd[rays]
+        t0 = torch.full((r.shape[0],), 3.4e38)
+        h, st = ttrav._traverse_trl_plain(ps, r, d, t0, any_hit, t_min, stats=True)
+        t, prim, boxes = _k4_schedule(ps, r, d, t0, any_hit, t_min, chains)
+        assert torch.equal(t, h["t"]) and torch.equal(prim, h["prim"]), any_hit
+        assert boxes == st["node_steps"], (boxes, st)
+        t, prim, boxes = _k4_schedule(ps, r, d, t0, any_hit, t_min, chains, drain_first=True)
+        if any_hit:
+            assert not torch.equal(prim, h["prim"])
+        else:
+            assert boxes != st["node_steps"]
+
+
 def test_plain_stats_count_the_work(reference_native):
     _, _, ps, _ = _setup("knot")
     ro, rd = (torch.tensor(a) for a in _rays("surface"))
@@ -409,7 +482,7 @@ def test_kernel_policy_dispatch(monkeypatch, policy, scene, kernel):
     """Each value of ATEN_TPU_KERNEL builds the layouts its kernel needs
     and `traverse(impl="auto")` reaches that kernel: v3 and mt K1 (K3 is
     the v3 choice over the pool line, tests/test_torch_plk.py), smt K4
-    at ATEN_TPU_CHAINS rays per thread, plk K3 below the line too."""
+    at ATEN_TPU_CHAINS rays per lane, plk K3 below the line too."""
     monkeypatch.setattr(ttrav, "KERNEL", policy)
     monkeypatch.setattr(ttrav, "CHAINS", 8)
     fn = tdefs.procedural_mesh_scene if scene == "mesh102k" else tdefs.large_mesh_scene
@@ -490,6 +563,29 @@ def test_wrapper_rejects_bad_arguments(reference_native):
     bad = Scene(ps.arrays, {**ps.static, "trl_window": 128}, ps.device)
     with pytest.raises(ValueError, match="window"):
         smt_cuda.smt_traverse(bad, ro, rd, t0)
+
+
+def test_chain_count_default_and_accepted_values():
+    """K4 takes 1, 2, 4 or 8 rays per lane.  Without ATEN_TPU_CHAINS the
+    port runs smt_cuda.DEFAULT_CHAINS, the count the card measured
+    fastest (the reference's default is 4); the wrapper's default is the
+    same; another count raises when accel/traverse.py is imported."""
+    assert smt_cuda.CHAIN_COUNTS == (1, 2, 4, 8)
+    assert smt_cuda.DEFAULT_CHAINS in smt_cuda.CHAIN_COUNTS
+    default = inspect.signature(smt_cuda.smt_traverse).parameters["chains"].default
+    assert default == smt_cuda.DEFAULT_CHAINS
+    code = ("import sys; sys.path.insert(0, %r); from aten_tpu_torch.accel import traverse; "
+            "print(traverse.CHAINS)" % ROOT)
+    env = {k: v for k, v in os.environ.items() if k != "ATEN_TPU_CHAINS"}
+    for value, want in ((None, smt_cuda.DEFAULT_CHAINS), ("8", 8), ("3", None)):
+        if value is not None:
+            env["ATEN_TPU_CHAINS"] = value
+        out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                             text=True, timeout=120)
+        if want is None:
+            assert out.returncode != 0 and "ATEN_TPU_CHAINS" in out.stderr, out.stderr[-2000:]
+        else:
+            assert out.returncode == 0 and out.stdout.split() == [str(want)], out.stderr[-2000:]
 
 
 def _image_bounds(img, ref):

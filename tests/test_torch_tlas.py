@@ -18,34 +18,40 @@
   within the full-image radiance bounds.
 * The counterparts of tests/test_tlas.py, and the kernel wrapper's
   argument checks.
+* The reference's own K5 Pallas kernel (`traverse_pallas_tlas`, run in
+  TPU interpret mode) against the port's two-level walk on the blob
+  scene of test_pallas_tpu.py: closest-hit at that test's bounds;
+  any-hit verdicts equal (the TPU kernel walks tile by tile and may stop
+  on another leaf, as test_pallas_tpu.py's any-hit gate allows).
+* K5's packed records (ops/tlas_layout.py): they unpack bit for bit to
+  the pool they pack, the packer refuses broken links and wrong BLAS
+  roots, and every instanced scene carries them.
 """
 import dataclasses
-import os
-import subprocess
-import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
-from aten_tpu.accel import build as jbuild
 from aten_tpu.accel import tlas as jtlas
 from aten_tpu.accel.traverse import occluded as jax_occluded
 from aten_tpu.core.camera import PinholeCamera as JaxPinholeCamera
 from aten_tpu.integrator.pathtracer import eval_hit as jax_eval_hit
 from aten_tpu.integrator.pathtracer import render_image as jax_render_image
+from aten_tpu.ops import traverse_pallas as jtp
 from aten_tpu.scene.scene import SceneBuilder as JaxSceneBuilder
-from aten_tpu_torch import native
 from aten_tpu_torch.accel import tlas as ttlas
 from aten_tpu_torch.accel import traverse as ttrav
 from aten_tpu_torch.integrator.pathtracer import eval_hit, render_image
-from aten_tpu_torch.ops import tlas_cuda, traverse_cuda
+from aten_tpu_torch.ops import bvh_layout, tlas_cuda, tlas_layout, traverse_cuda
 from aten_tpu_torch.scene import bridge
 from aten_tpu_torch.scene import scenedefs as tdefs
 from aten_tpu_torch.scene.materials import MaterialType
 from aten_tpu_torch.scene.scene import Scene, SceneBuilder
+from test_torch_bvh_scene import reference_native  # noqa: F401  (the one guard)
 
 # Tier-1 runs these files in parallel workers; torch's default of one
 # intra-op thread per core makes the workers' small ops contend.
@@ -53,31 +59,6 @@ torch.set_num_threads(1)
 
 SMALL = {"n_u": 48, "n_v": 16}  # 1,536 knot triangles: native BLAS build
 
-
-@pytest.fixture(scope="module")
-def reference_native():
-    """The reference compiles native/libbvh.so in place at first use,
-    with no lock (aten_tpu/accel/build.py:42-51).  A process that loads
-    the file while another one writes it keeps "no native builder" for
-    its life (:41, :72-73) and builds large objects with NumPy, which
-    gives another tree.  So build the file here first, with the
-    reference's flags, into a temporary file moved into place at once,
-    and retry the reference's load until it succeeds."""
-    src = os.path.join(jbuild._NATIVE_DIR, "bvh_builder.cpp")
-    so = os.path.join(jbuild._NATIVE_DIR, "libbvh.so")
-    with native.build_lock("reference_libbvh"):
-        if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            subprocess.run(["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                            "-std=c++17", "-o", tmp, src],
-                           check=True, capture_output=True, timeout=300)
-            os.replace(tmp, so)
-    for _ in range(60):
-        if jbuild._load_native() is not None:
-            return
-        jbuild._native_tried = False
-        time.sleep(1.0)
-    pytest.fail("the reference's native BVH builder did not load")
 
 
 def _bridged(js):
@@ -595,3 +576,151 @@ def test_wrapper_rejects_bad_arguments(reference_native):
     bad = Scene({**ts.arrays, "inst_w2l": ts["inst_w2l"][:-1]}, ts.static, ts.device)
     with pytest.raises(ValueError, match="inst_w2l"):
         tlas_cuda.tlas_traverse(bad, ro, rd, t0)
+    bad = Scene({**ts.arrays, "tl_insts": ts["tl_insts"][:-1]}, ts.static, ts.device)
+    with pytest.raises(ValueError, match="tl_insts"):
+        tlas_cuda.tlas_traverse(bad, ro, rd, t0)
+
+
+@pytest.mark.parametrize("key", tlas_layout.ARRAY_KEYS)
+def test_wrapper_refuses_a_scene_without_the_records(reference_native, key):
+    """The wrapper checks K5's packed records on every device, so on a
+    CUDA tensor it never launches over a scene that lacks one; here, on
+    the CPU, it raises before its plain walk."""
+    _, ts, ro, rd = _setup("fixture_random")
+    ro, rd = torch.tensor(ro[:64]), torch.tensor(rd[:64])
+    t0 = torch.full((64,), 5.0)
+    bare = Scene({k: v for k, v in ts.arrays.items() if k != key}, ts.static, ts.device)
+    with pytest.raises(ValueError, match=key):
+        tlas_cuda.tlas_traverse(bare, ro, rd, t0)
+    shifted = torch.empty(ts[key].numel() + 1)[1:].view(ts[key].shape)
+    shifted.copy_(ts[key])
+    bad = Scene({**ts.arrays, key: shifted}, ts.static, ts.device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tlas_cuda.tlas_traverse(bad, ro, rd, t0)
+
+
+# -- K5 against the reference's own Pallas kernel ----------------------------
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_k5_matches_reference_pallas_kernel(reference_native, kind):
+    """aten_tpu's `traverse_pallas_tlas` (`_make_tlas_treelet_kernel`)
+    in TPU interpret mode and the port's two-level walk (impl="cuda", the
+    kernel's plain version on the CPU) on the same numpy rays: 32x32 rays
+    of test_pallas_tpu.py's grid over the 16-instance blob scene, their
+    directions jittered.  Closest-hit: hits equal, prim agreement >=
+    0.999, instances equal and t within rtol = atol = 1e-4 where prims
+    agree.  Any-hit: verdicts equal."""
+    js, ts, _, _ = _setup("blob_grid")
+    n = 32
+    rng = np.random.default_rng(5)
+    gx, gy = np.meshgrid(np.linspace(-6, 6, n, dtype=np.float32),
+                         np.linspace(-2, 2, n, dtype=np.float32))
+    ro = np.stack([gx, gy, np.full((n, n), 8.0, np.float32)], -1).reshape(-1, 3)
+    d = np.tile([[0.0, 0.0, -1.0]], (n * n, 1)) + rng.uniform(-0.15, 0.15, (n * n, 3))
+    rd = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    dist = rng.uniform(0.0, 12.0, n * n).astype(np.float32)
+    kw = {} if kind == "closest" else {"any_hit": True, "t_min": 1e-3}
+    with pltpu.force_tpu_interpret_mode():
+        ref = jtp.traverse_pallas_tlas(
+            js, jnp.asarray(ro), jnp.asarray(rd),
+            t_max=None if kind == "closest" else jnp.asarray(dist), **kw)
+    ref = _np(ref)
+    got = _np(ttrav.traverse(ts, torch.tensor(ro), torch.tensor(rd),
+                             t_max=None if kind == "closest" else torch.tensor(dist),
+                             impl="cuda", **kw))
+    np.testing.assert_array_equal(got["hit"], ref["hit"])
+    assert 0.1 < got["hit"].mean() < 0.9
+    if kind == "any":
+        return
+    m0, m1 = ref["prim"], got["prim"]
+    assert (m0 == m1).mean() >= 0.999, (m0 == m1).mean()
+    mask = (m0 >= 0) & (m0 == m1)
+    np.testing.assert_array_equal(got["inst"][mask], ref["inst"][mask])
+    np.testing.assert_allclose(got["t"][mask], ref["t"][mask], rtol=1e-4, atol=1e-4)
+    assert len(np.unique(got["inst"][mask])) == 16
+
+
+# -- K5's packed records -------------------------------------------------------
+
+def _bits(x):
+    return np.ascontiguousarray(x).view(np.uint8)
+
+
+@pytest.mark.parametrize("name", ["fixture", "blob", "one_instance"])
+def test_records_unpack_to_the_pool(reference_native, name):
+    """tl_nodes and tl_insts unpack bit for bit to the tl_* arrays and
+    inst_w2l they pack; tl_prims are K1's records of tl_prim_order."""
+    if name == "fixture":
+        s = _fixture()[1]
+    elif name == "blob":
+        s = _blob_scenes(SceneBuilder).build("cpu")
+    else:
+        sb = SceneBuilder()
+        m = sb.add_material(MaterialType.DIFFUSE)
+        o = sb.create_object()
+        sb.add_sphere((0.0, 0.0, 0.0), 1.0, m, obj=o)
+        sb.add_instance(o, _rot_scale(0.4, (1, 2, 1), (1, 0, 0)))
+        s = sb.build("cpu")
+    u = tlas_layout.unpack_two_level(s["tl_nodes"].numpy(), s["tl_insts"].numpy())
+    for k in ("tl_bmin", "tl_bmax", "tl_hit", "tl_miss", "tl_ps", "tl_pc", "tl_inst"):
+        assert u[k].dtype == s[k].numpy().dtype, k
+        np.testing.assert_array_equal(_bits(u[k]), _bits(s[k].numpy()), err_msg=k)
+    n_inst = s["num_instances"]
+    np.testing.assert_array_equal(_bits(u["inst_w2l"]), _bits(s["inst_w2l"].numpy()[:n_inst]))
+    kt, roots = tlas_layout.blas_roots(*(s[k].numpy() for k in ("tl_hit", "tl_miss", "tl_ps",
+                                                                  "tl_inst")))
+    np.testing.assert_array_equal(u["inst_root"], roots[s["inst_obj"].numpy()])
+    assert (u["inst_root"] >= kt).all()
+    want = bvh_layout.prim_records(s["tl_prim_order"].numpy(), *(s[k].numpy() for k in (
+        "tri_v0", "tri_e1", "tri_e2", "sph_center", "sph_radius")), s["num_tris"])
+    np.testing.assert_array_equal(_bits(s["tl_prims"].numpy()), _bits(want))
+
+
+def _pool():
+    return {k: (v.numpy().copy() if torch.is_tensor(v) else v)
+            for k, v in _fixture()[1].arrays.items() if not isinstance(v, dict)}
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("inner_hit", "not the next node"), ("blas_leaf_hit", "must be equal"),
+    ("root", "BLAS root"), ("twice", "TLAS leaves, not one"),
+    ("tlas_end", "miss link -1"), ("count", "does not pack"),
+])
+def test_packer_raises_on_a_broken_pool(reference_native, fault, match):
+    p = _pool()
+    inst, ps = p["tl_inst"], p["tl_ps"]
+    leaves = np.nonzero(inst >= 0)[0]
+    blas_inner = np.nonzero((ps < 0) & (inst < 0) & (np.arange(len(ps)) > leaves.max()))[0]
+    if fault == "inner_hit":
+        p["tl_hit"][blas_inner[1]] = p["tl_miss"][blas_inner[1]]
+    elif fault == "blas_leaf_hit":
+        k = int(np.nonzero(ps >= 0)[0][3])
+        p["tl_hit"][k] = k  # a BLAS leaf whose hit link is not its miss link
+    elif fault == "root":  # a TLAS leaf into the middle of its object's tree
+        p["tl_hit"][leaves[0]] += 1
+    elif fault == "twice":
+        p["tl_inst"][leaves[1]] = inst[leaves[0]]
+    elif fault == "tlas_end":
+        p["tl_miss"][leaves[np.argmax(p["tl_miss"][leaves] == -1)]] = 0
+    else:
+        p["tl_pc"][int(np.nonzero(ps >= 0)[0][0])] = 200
+    with pytest.raises(ValueError, match=match):
+        tlas_layout.build_tlas_layout(p, p["tri_v0"], p["tri_e1"], p["tri_e2"],
+                                      p["sph_center"], p["sph_radius"],
+                                      _fixture()[1]["num_tris"])
+
+
+def test_every_instanced_scene_carries_the_records(reference_native):
+    """The builder (both policies that matter to instancing) and the
+    bridge attach the records, equal bit for bit; a single-level scene
+    gets none."""
+    js, ts, _ = _fixture()
+    own, _ = tdefs.instanced_mesh_scene(64, 64, **SMALL, device="cpu")
+    for k in tlas_layout.ARRAY_KEYS:
+        np.testing.assert_array_equal(_bits(own[k].numpy()), _bits(ts[k].numpy()), err_msg=k)
+        assert own[k].dtype == torch.float32 and own[k].is_contiguous()
+    assert own["tl_nodes"].shape[0] == own["tl_bmin"].shape[0]
+    assert own["tl_insts"].shape == (own["num_instances"], tlas_layout.INST_WORDS)
+    assert own["tl_prims"].shape[0] == own["tl_prim_order"].shape[0]
+    single = _single_level()[1]
+    assert not any(k in single for k in tlas_layout.ARRAY_KEYS)

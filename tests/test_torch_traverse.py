@@ -32,6 +32,9 @@ from aten_tpu_torch.accel import traverse as ttrav
 from aten_tpu_torch.ops import traverse_cuda
 from aten_tpu_torch.scene import bridge
 from aten_tpu_torch.scene import scenedefs as tdefs
+from test_torch_bvh_scene import reference_native  # noqa: F401  (the one guard)
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 # Tier-1 runs these files in parallel workers; torch's default of one
 # intra-op thread per core makes the workers' small ops contend.
