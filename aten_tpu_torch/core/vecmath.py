@@ -68,6 +68,15 @@ def to_world(local_dir, n):
     )
 
 
+def spherical_dir(sin_theta, cos_theta, phi):
+    return torch.cat(
+        [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], dim=-1)
+
+
+def luminance(rgb):
+    return 0.2126 * rgb[..., 0:1] + 0.7152 * rgb[..., 1:2] + 0.0722 * rgb[..., 2:3]
+
+
 def ipow(x, y: int):
     """x**y for a static positive int y by binary exponentiation, in the
     multiplication order of JAX's integer_pow (x**5 = x * (x2 * x2))."""

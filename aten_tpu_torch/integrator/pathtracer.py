@@ -11,10 +11,14 @@ Seeding uses global pixel ids and the (frame, sample, bounce) of each
 draw, exactly as the reference, so the port draws the reference's
 random numbers bit for bit.
 
+Each bounce applies the scene's albedo, roughness and normal maps at the
+hit's uv, then the car-paint flake fields, before shading; a miss picks
+up the envmap, MIS-weighted against its image-based light, or the
+background colour.
+
 Not ported yet (a scene that needs them raises NotImplementedError):
-toon and stylized materials, car-paint flakes, alpha and stencil
-punch-through, textures, envmaps, voxel LOD, blue-noise sampling and the
-AOV outputs.
+toon and stylized materials, alpha and stencil punch-through, voxel LOD,
+thin-lens and equirect cameras, blue-noise sampling and the AOV outputs.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ from aten_tpu_torch.core import camera as cam_mod
 from aten_tpu_torch.core import sampler as smp
 from aten_tpu_torch.core import vecmath as vm
 from aten_tpu_torch.integrator.film import Film
+from aten_tpu_torch.scene import textures as tex_mod
+from aten_tpu_torch.scene.envmap import eval_env
 from aten_tpu_torch.scene.materials import MaterialType, gather_material
 from aten_tpu_torch.shading import brdf as brdf_mod
 from aten_tpu_torch.shading import nee
@@ -33,6 +39,7 @@ from aten_tpu_torch.shading import nee
 _EMISSIVE = int(MaterialType.EMISSIVE)
 _SPECULAR = int(MaterialType.SPECULAR)
 _REFRACTION = int(MaterialType.REFRACTION)
+_CAR_PAINT = int(MaterialType.CAR_PAINT)
 
 # lanes per dispatch: 512x512x16 keeps the path state to a few hundred MB
 MAX_LANES = 4 << 20
@@ -50,8 +57,8 @@ def check_scene(scene):
 
 def eval_hit(scene, ro, rd, hit):
     """Hit attributes (EvaluateHitResult.h:10-72): position, shading and
-    geometric normals, material and light id.  The reference's uv and
-    mesh id feed textures and SVGF, which are not ported yet.
+    geometric normals, uv (0.5 on spheres), material, light id and mesh
+    id (spheres get (1 << 20) + sphere id).
 
     On an instanced hit the prim data is object-local: the sphere normal
     comes from the local position W2L*p, and both normals go to world
@@ -81,6 +88,7 @@ def eval_hit(scene, ro, rd, hit):
     e1, e2 = scene["tri_e1"][tid], scene["tri_e2"][tid]
     ns_tri = vm.normalize(w * n0 + u * n1 + v * n2)
     ng_tri = vm.normalize(vm.cross(e1, e2))
+    uv_tri = w * scene["tri_uv0"][tid] + u * scene["tri_uv1"][tid] + v * scene["tri_uv2"][tid]
 
     c = scene["sph_center"][sid]
     r = scene["sph_radius"][sid][..., None]
@@ -97,8 +105,10 @@ def eval_hit(scene, ro, rd, hit):
         "p": p,
         "ns": ns,
         "ng": ng,
+        "uv": torch.where(m3, uv_tri, 0.5),
         "mtl": torch.where(is_tri, scene["tri_mtl"][tid], scene["sph_mtl"][sid]),
         "light": torch.where(is_tri, scene["tri_light"][tid], scene["sph_light"][sid]),
+        "mesh": torch.where(is_tri, scene["tri_mesh"][tid], (1 << 20) + sid.to(torch.int32)),
     }
 
 
@@ -138,11 +148,20 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
             scene, ro, rd, t_max=torch.where(alive, vm.INF, 0.0), impl=impl)
         h = eval_hit(scene, ro, rd, hit)
         mat = gather_material(scene["materials"], h["mtl"])
+        # shade-time texture fetches, then the car-paint flakes at this uv
+        mat = tex_mod.apply_albedo(scene, mat, h["uv"])
+        mat = tex_mod.apply_roughness_map(scene, mat, h["uv"])
+        h["ns"] = tex_mod.apply_normal_map(scene, mat, h["ns"], h["uv"])
+        if _CAR_PAINT in used:
+            mat = brdf_mod.carpaint_flake_fields(mat, h["uv"], h["ns"])
 
-        # miss: background
+        # miss: the envmap, MIS-weighted against its light, or the background
         miss = alive & ~hit["hit"]
-        radiance = radiance + torch.where(
-            miss[..., None], throughput * scene["bg"], 0.0)
+        le_bg, w_bg = scene["bg"], 1.0
+        if "envmap" in scene:
+            le_bg = eval_env(scene, rd)
+            w_bg = nee.env_miss_weight(scene, rd, pdf_prev, prev_singular)[..., None]
+        radiance = radiance + torch.where(miss[..., None], throughput * le_bg * w_bg, 0.0)
 
         # per-bounce sampler re-seed (reference bounce-dim offset)
         state = smp.make_state(pixel_seed, frame, samp_idx, spp, bounce=bounce + 1)

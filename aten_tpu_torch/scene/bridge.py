@@ -9,13 +9,18 @@ port importing JAX.  Instanced scenes come with their two-level pool
 kernel's packed records of it (ops/tlas_layout.py).  A single-level
 scene runs the K1 kernel, so it gets K1's packed records
 (ops/bvh_layout.py).  Both are built as the scene builder builds them.
-The reference's TPU kernel layouts are dropped; features the port has
-not ported yet raise NotImplementedError.
+An envmap comes with its tables (scene/envmap.py) and textures with
+their stack, sizes and mip chain (scene/textures.py), taken as they are.
+The reference's TPU layouts (its kernel layouts, the packed `tri_attr`
+gather table and the staged `env_quad` rows) are dropped; participating
+media and voxel LOD, which the port has not ported yet, raise
+NotImplementedError.
 """
 from __future__ import annotations
 
 from aten_tpu_torch.device import resolve_device
 from aten_tpu_torch.ops import bvh_layout, tlas_layout
+from aten_tpu_torch.scene.envmap import TABLE_KEYS as ENV_KEYS
 from aten_tpu_torch.scene.scene import Scene, check_leaf_sizes, to_tensors
 
 # arrays the port uses
@@ -34,9 +39,12 @@ TWO_LEVEL_KEYS = (
     "tl_bmin", "tl_bmax", "tl_hit", "tl_miss", "tl_ps", "tl_pc", "tl_inst",
     "tl_prim_order", "inst_obj", "inst_w2l", "inst_nmtx", "inst_l2w",
 )
+# texture arrays: the stack, the sizes and the mip levels tex_mip1...
+TEX_KEYS = ("tex_stack", "tex_size")
+TEX_MIP_PREFIX = "tex_mip"
 # TPU layouts (Pallas node/prim rows, the instanced tt_ rows, the packed
-# tri_attr gather table)
-TPU_LAYOUT_PREFIXES = ("pl_", "trl_", "tt_", "tri_attr")
+# tri_attr gather table, the staged envmap quad rows)
+TPU_LAYOUT_PREFIXES = ("pl_", "trl_", "tt_", "tri_attr", "env_quad")
 STATIC_KEYS = (
     "num_tris", "num_spheres", "num_lights", "num_instances", "has_alpha",
     "has_stencil", "has_albedo_maps", "has_roughness_maps",
@@ -47,6 +55,10 @@ STATIC_KEYS = (
 def from_numpy(arrays: dict, static: dict, device) -> Scene:
     dev = resolve_device(device)
     keys = PORT_KEYS + (TWO_LEVEL_KEYS if "tl_bmin" in arrays else BVH_KEYS)
+    if "envmap" in arrays:
+        keys += ENV_KEYS
+    if "tex_stack" in arrays:
+        keys += TEX_KEYS + tuple(k for k in arrays if k.startswith(TEX_MIP_PREFIX))
     unported = sorted(
         k for k in arrays
         if k not in keys and not k.startswith(TPU_LAYOUT_PREFIXES))

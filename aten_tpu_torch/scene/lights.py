@@ -1,9 +1,8 @@
 """Light table and batched light sampling.
 
-Counterpart of aten_tpu/scene/lights.py for area (triangle-range or
-sphere), point, spot and directional lights.  Image-based lights need
-the envmap tables, which are not ported yet: a scene with one cannot be
-built (scene/scene.py, scene/bridge.py).
+Counterpart of aten_tpu/scene/lights.py: area (triangle-range or
+sphere), image-based (the scene's envmap, scene/envmap.py), point, spot
+and directional lights, sampled per lane and selected by light type.
 """
 from __future__ import annotations
 
@@ -13,6 +12,7 @@ import numpy as np
 import torch
 
 from aten_tpu_torch.core import vecmath as vm
+from aten_tpu_torch.scene.envmap import sample_ibl
 
 TWO_PI = float(np.float32(2.0 * np.pi))
 
@@ -206,9 +206,9 @@ def sample_light(scene, light_idx, p, u1, uv):
     res_point = _sample_point_light(lrow, p)
     res_spot = _sample_spot_light(lrow, p)
     res_dir = _sample_directional_light(lrow, p)
-    # IBL rows exist only with an envmap, which the port rejects; the
-    # reference selects the directional result for them in that case
-    res_ibl = res_dir
+    # without an envmap an IBL row takes the directional result, as in
+    # the reference
+    res_ibl = sample_ibl(scene, p, uv) if "envmap" in scene else res_dir
 
     def sel(key):
         vals = [res_area[key], res_ibl[key], res_dir[key], res_point[key], res_spot[key]]

@@ -25,9 +25,14 @@ geometry adds) build the two-level pool of accel/tlas.py, with the K5
 kernel's packed records of it (ops/tlas_layout.py, `tl_nodes`,
 `tl_insts` and `tl_prims`).
 
-Not ported yet (they raise NotImplementedError): envmaps, textures,
-participating media, and voxel LOD.  Alpha and stencil
-materials build, but the path tracer refuses scenes that use them.
+`set_envmap` adds the envmap's tables (scene/envmap.py) and, by default,
+an image-based light; `add_texture` registers a texture, and the build
+adds the texture stack and its mip chain (scene/textures.py) with the
+statics `has_albedo_maps`, `has_roughness_maps` and `has_normal_maps`.
+
+Not ported yet (they raise NotImplementedError): participating media and
+voxel LOD.  Alpha and stencil materials build, but the path tracer
+refuses scenes that use them.
 """
 from __future__ import annotations
 
@@ -39,8 +44,10 @@ from aten_tpu_torch.accel.build import LEAF_MAX, build_bvh
 from aten_tpu_torch.accel.tlas import build_two_level
 from aten_tpu_torch.device import resolve_device
 from aten_tpu_torch.ops import bvh_layout, plk_layout, tlas_layout, trl_layout
+from aten_tpu_torch.scene.envmap import build_env_tables
 from aten_tpu_torch.scene.lights import LightTable, LightType
 from aten_tpu_torch.scene.materials import MaterialTable, MaterialType
+from aten_tpu_torch.scene.textures import TextureTable
 
 
 class Scene:
@@ -131,6 +138,7 @@ class SceneBuilder:
     def __init__(self):
         self.materials = MaterialTable()
         self.lights = LightTable()
+        self.textures = TextureTable()
         self._vpos = []  # per-mesh [V,3] float32 chunks
         self._vnml = []
         self._vuv = []
@@ -146,6 +154,7 @@ class SceneBuilder:
         self._mesh_counter = 0
         self._num_objects = 0
         self._instances = []  # (obj_id, l2w 4x4)
+        self._envmap = None
         self._bg = (0.0, 0.0, 0.0)
 
     # -- materials ---------------------------------------------------------
@@ -153,7 +162,9 @@ class SceneBuilder:
         return self.materials.add(mtype, **kw)
 
     def add_texture(self, img) -> int:
-        raise NotImplementedError("textures are not ported yet")
+        """Register an [H, W] or [H, W, 3|4] image; returns its id, for a
+        material's albedo_map, normal_map or roughness_map."""
+        return self.textures.add(img)
 
     def add_medium(self, **kw) -> int:
         raise NotImplementedError("participating media are not ported yet")
@@ -281,7 +292,11 @@ class SceneBuilder:
         return self.lights.add(LightType.DIRECTIONAL, le=le, dir=dir)
 
     def set_envmap(self, img, add_light=True) -> None:
-        raise NotImplementedError("envmaps and IBL are not ported yet")
+        """Equirect [H, W, 3] radiance map for misses and, with add_light,
+        an image-based light sampled by NEE."""
+        self._envmap = np.asarray(img, np.float32)
+        if add_light:
+            self.lights.add(LightType.IBL)
 
     def set_background(self, color) -> None:
         self._bg = tuple(float(c) for c in color)
@@ -397,10 +412,11 @@ class SceneBuilder:
             "bg": np.asarray(self._bg, np.float32),
             **bvh,
         }
+        if self._envmap is not None:
+            arrays.update(build_env_tables(self._envmap))
+        if self.textures.images:
+            arrays.update(self.textures.numpy_arrays())
         rows = self.materials.rows
-        if any(r[k] >= 0 for r in rows
-               for k in ("albedo_map", "normal_map", "roughness_map")):
-            raise NotImplementedError("texture maps are not ported yet")
         if any(r["medium"] >= 0 for r in rows):
             raise NotImplementedError("participating media are not ported yet")
         static = {
@@ -410,9 +426,9 @@ class SceneBuilder:
             "num_instances": num_instances,
             "has_alpha": any(r["alpha"] < 1.0 for r in rows),
             "has_stencil": any(r["stencil"] != 0.0 for r in rows),
-            "has_albedo_maps": False,
-            "has_roughness_maps": False,
-            "has_normal_maps": False,
+            "has_albedo_maps": any(r["albedo_map"] >= 0 for r in rows),
+            "has_roughness_maps": any(r["roughness_map"] >= 0 for r in rows),
+            "has_normal_maps": any(r["normal_map"] >= 0 for r in rows),
             "used_mtl_types": tuple(sorted(
                 {r["type"] for r in rows} | {int(MaterialType.DIFFUSE)}
             )),

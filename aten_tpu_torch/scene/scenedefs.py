@@ -3,7 +3,7 @@
 Counterpart of aten_tpu/scene/scenedefs.py.  Each scene is a `populate_*`
 function that fills any builder with the reference builder's interface
 (add_material, add_mesh, add_quad, add_sphere, add_area_light_tris,
-set_background) and returns the camera, plus a wrapper that builds the
+set_background, set_envmap) and returns the camera, plus a wrapper that builds the
 port's Scene on a device, the card unless the caller names the CPU.  The tests hand the same populate
 functions the reference `aten_tpu` builder, so both packages hold the
 identical scene.
@@ -49,6 +49,113 @@ def populate_cornell_box(b, width, height, use_spheres=True):
 def cornell_box(width=512, height=512, use_spheres=True, *, device="cuda"):
     b = SceneBuilder()
     cam = populate_cornell_box(b, width, height, use_spheres)
+    return b.build(device), cam
+
+
+def populate_material_test_scene(b, width, height, envmap=None):
+    """The material zoo (reference scenedefs.py:59): a diffuse floor and
+    one unit sphere per BRDF family, eleven in a row, under a quad area
+    light and a blue-grey background, or under the envmap `envmap`
+    ([H, W, 3]) and its image-based light."""
+    floor = b.add_material(MaterialType.DIFFUSE, base_color=(0.6, 0.6, 0.6))
+    mats = [
+        b.add_material(MaterialType.DIFFUSE, base_color=(0.7, 0.3, 0.3)),
+        b.add_material(MaterialType.OREN_NAYAR, base_color=(0.7, 0.6, 0.2), roughness=0.8),
+        b.add_material(MaterialType.SPECULAR, base_color=(0.95, 0.95, 0.95)),
+        b.add_material(MaterialType.REFRACTION, base_color=(0.98, 0.98, 0.98), ior=1.5),
+        b.add_material(MaterialType.GGX, base_color=(0.9, 0.7, 0.3), roughness=0.25, ior=2.0),
+        b.add_material(MaterialType.BECKMANN, base_color=(0.3, 0.6, 0.9), roughness=0.35,
+                       ior=2.0),
+        b.add_material(MaterialType.VELVET, base_color=(0.6, 0.2, 0.5), roughness=0.4),
+        b.add_material(MaterialType.DISNEY, base_color=(0.8, 0.3, 0.2), roughness=0.35,
+                       metallic=0.6, sheen=0.3, clearcoat=0.5),
+        b.add_material(MaterialType.MICROFACET_REFRACTION, base_color=(0.95, 0.95, 0.98),
+                       roughness=0.15, ior=1.5),
+        b.add_material(MaterialType.RETROREFLECTIVE, base_color=(0.9, 0.9, 0.6),
+                       roughness=0.15),
+        b.add_material(MaterialType.CAR_PAINT, base_color=(0.7, 0.1, 0.1), roughness=0.3),
+    ]
+    ext = 40.0
+    b.add_quad([-ext, 0, ext], [ext, 0, ext], [ext, 0, -ext], [-ext, 0, -ext], floor)
+    n = len(mats)
+    for i, m in enumerate(mats):
+        b.add_sphere(((i - (n - 1) / 2.0) * 2.2, 1.0, 0.0), 1.0, m)
+    if envmap is not None:
+        b.set_envmap(envmap)
+    else:
+        emit = b.add_material(MaterialType.EMISSIVE, base_color=(18.0, 17.0, 15.0))
+        ls, lc = b.add_quad([-4, 8, 4], [-4, 8, -4], [4, 8, -4], [4, 8, 4], emit)
+        b.add_area_light_tris(ls, lc, le=(18.0, 17.0, 15.0))
+        b.set_background((0.25, 0.3, 0.4))
+    return PinholeCamera(
+        origin=(0.0, 3.5, 14.0), lookat=(0.0, 1.0, 0.0), vfov_deg=40.0,
+        width=width, height=height,
+    )
+
+
+def material_test_scene(width=512, height=512, envmap=None, *, device="cuda"):
+    """The material zoo: 15 prims with its area light, 13 with an envmap."""
+    b = SceneBuilder()
+    cam = populate_material_test_scene(b, width, height, envmap)
+    return b.build(device), cam
+
+
+def sky_envmap(height=64, width=128):
+    """The procedural sky-and-sun equirect map of the reference bench's
+    material-zoo IBL config (bench.py:208-216): a blue gradient over
+    theta plus a gaussian sun of peak 60 near theta 0.9, phi 1.2."""
+    th = np.linspace(0, np.pi, height)[:, None]
+    ph = np.linspace(0, 2 * np.pi, width)[None, :]
+    sky = np.stack([
+        0.35 + 0.4 * np.cos(th / 2) + 0 * ph,
+        0.45 + 0.35 * np.cos(th / 2) + 0 * ph,
+        0.7 + 0.25 * np.cos(th / 2) + 0 * ph,
+    ], -1)
+    sun = 60.0 * np.exp(-((th - 0.9) ** 2 + (ph - 1.2) ** 2) / 0.01)
+    return (sky + sun[..., None] * np.array([1.0, 0.9, 0.7])).astype(np.float32)
+
+
+def texture_maps(seed=0, n=16):
+    """Seeded [n, n] test maps: a two-tone checker albedo (RGB), a
+    tangent-space normal map tilted up to 0.35 per axis, and a roughness
+    map in [0.3, 1]."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:n, 0:n]
+    check = ((x + y) % 2)[..., None]
+    albedo = np.where(check, rng.uniform(0.6, 1.0, 3), rng.uniform(0.1, 0.4, 3))
+    tilt = rng.uniform(-0.35, 0.35, (n, n, 2))
+    nrm = np.concatenate([tilt, np.sqrt(1.0 - (tilt ** 2).sum(-1, keepdims=True))], -1)
+    rough = rng.uniform(0.3, 1.0, (n, n))
+    return (albedo.astype(np.float32), (nrm * 0.5 + 0.5).astype(np.float32),
+            rough.astype(np.float32))
+
+
+def populate_textured_scene(b, width, height, seed=0):
+    """A GGX floor carrying an albedo, a normal and a roughness map, its uv
+    running over [-1, 2] so that the maps wrap, a GGX sphere and a quad
+    area light (the port's texture fixture)."""
+    albedo, nrm, rough = (b.add_texture(t) for t in texture_maps(seed))
+    floor = b.add_material(MaterialType.GGX, base_color=(0.9, 0.9, 0.9), roughness=0.6,
+                           ior=1.8, albedo_map=albedo, normal_map=nrm, roughness_map=rough)
+    ball = b.add_material(MaterialType.GGX, base_color=(0.9, 0.6, 0.3), roughness=0.3, ior=2.0)
+    emit = b.add_material(MaterialType.EMISSIVE, base_color=(20.0, 19.0, 17.0))
+    e = 4.0
+    b.add_mesh([[-e, 0, e], [e, 0, e], [e, 0, -e], [-e, 0, -e]], [[0, 1, 2], [0, 2, 3]], floor,
+               uv=[[-1.0, -1.0], [2.0, -1.0], [2.0, 2.0], [-1.0, 2.0]])
+    b.add_sphere((0.8, 0.8, -0.5), 0.8, ball)
+    ls, lc = b.add_quad([-1, 5, 1], [-1, 5, -1], [1, 5, -1], [1, 5, 1], emit)
+    b.add_area_light_tris(ls, lc, le=(20.0, 19.0, 17.0))
+    b.set_background((0.2, 0.25, 0.3))
+    return PinholeCamera(
+        origin=(0.0, 3.0, 6.0), lookat=(0.0, 0.3, 0.0), vfov_deg=50.0,
+        width=width, height=height,
+    )
+
+
+def textured_scene(width=512, height=512, seed=0, *, device="cuda"):
+    """The texture fixture: 5 prims, three 16x16 maps with mip chains."""
+    b = SceneBuilder()
+    cam = populate_textured_scene(b, width, height, seed)
     return b.build(device), cam
 
 

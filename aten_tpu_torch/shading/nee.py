@@ -1,9 +1,10 @@
 """Next-event estimation and multiple importance sampling.
 
-Counterpart of aten_tpu/shading/nee.py (the reference's SampleLight /
-FillShadowRay, ComputeRadianceNEE and HitImplicitLight) without the
-environment-map terms, which wait for the IBL port.  The light pick is
-uniform (1/N) as in the reference.
+Counterpart of aten_tpu/shading/nee.py: the reference's SampleLight /
+FillShadowRay, ComputeRadianceNEE, HitImplicitLight and the envmap's MIS
+weight on a miss (ShadeMiss).  The light pick is uniform (1/N) as in the
+reference.  An image-based light sample is in solid-angle measure and
+lies at distance 1e30, so its shadow ray runs to 1e30.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import torch
 
 from aten_tpu_torch.core import sampler as smp
 from aten_tpu_torch.core import vecmath as vm
+from aten_tpu_torch.scene.envmap import pdf_env
 from aten_tpu_torch.scene.lights import sample_light
 from aten_tpu_torch.shading import brdf as brdf_mod
 
@@ -99,4 +101,15 @@ def implicit_light_weight(scene, hit_light_id, pdf_prev, prev_singular, t_dist, 
     pdf_light_solid = pdf_area * dist2 / torch.clamp(torch.abs(cos_l), min=1e-6)
     pdf_light_solid = pdf_light_solid / num_lights
     w = mis_balance(pdf_prev, pdf_light_solid)
+    return torch.where(prev_singular, 1.0, w)
+
+
+def env_miss_weight(scene, rd, pdf_prev, prev_singular):
+    """MIS weight of envmap radiance reached by a BSDF-sampled ray that
+    misses the scene (1 where the scene has no envmap)."""
+    if "envmap" not in scene:
+        return torch.ones(rd.shape[:-1], dtype=torch.float32, device=rd.device)
+    num_lights = max(scene["num_lights"], 1)
+    p_env = pdf_env(scene, rd) / num_lights
+    w = mis_balance(pdf_prev, p_env)
     return torch.where(prev_singular, 1.0, w)

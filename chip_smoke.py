@@ -25,7 +25,12 @@ started with ATEN_TPU_KERNEL=smt; phase 10 runs the latency labs
 runs the treelet-walk lab L1 (python -m aten_tpu_torch.tools.kernel_lab)
 on 1,048,576 primary rays of the 102,404-prim scene, each variant
 bitwise against its plain version, timed beside K1 and held, where it
-computes a closest hit, against the oracle walk.  Each main-path render
+computes a closest hit, against the oracle walk.  Phase 12 runs the
+material zoo, which needs no kernel (13-15 prims take the dense test):
+the zoo against tests/golden/mtrl_zoo.npz, the reference bench's
+zoo+IBL config (512x512, 32 spp, depth 5, under the procedural sky)
+timed with its peak memory, and the zoo+IBL and texture fixtures on the
+card against the port on this machine's CPU.  Each main-path render
 is profiled, with its ten costliest device ops and each traversal
 kernel's summed device time. It prints the measured times and each
 kernel's bound (the least time the card could take for the work).
@@ -680,6 +685,100 @@ def lab_phase(card, scene, cam, dev):
     return entries
 
 
+def golden_zoo_bounds(name, img, gold):
+    """The zoo's golden gate: the full-image radiance bounds over the whole
+    image, and the golden-test bounds (max < 5e-3, mean < 5e-4 absolute)
+    over at least 99.8% of its pixels; a few firefly paths through the
+    rough-dielectric and retroreflective spheres are too ill-conditioned
+    to hold to the golden's own bounds (ROADMAP.md queue 3)."""
+    import numpy as np
+
+    assert img.shape == gold.shape and np.isfinite(img).all(), name
+    check_image_bounds(name, img, gold)
+    err = np.abs(img - gold).max(axis=-1)
+    ok = err < 5e-3
+    log(f"{name}: max abs {err.max():.3e}, mean abs {err.mean():.3e}; {int((~ok).sum())} of "
+        f"{ok.size} pixels over 5e-3, mean abs over the others {err[ok].mean():.3e} (< 5e-4)")
+    assert ok.mean() >= 0.998 and err[ok].mean() < 5e-4, name
+
+
+def zoo_phase(card, dev):
+    """Phase 12: the material zoo, IBL and textures (no kernel: the zoo
+    has 13-15 prims, so traversal is the dense test).  12a: the zoo
+    against its golden on the card; 12b: the reference bench's zoo+IBL
+    config, 512x512 x 32 spp, depth 5, RR depth 3, timed and profiled;
+    12c and 12d: zoo+IBL and the texture fixture on the card against the
+    port on this machine's CPU, at the full-image bounds."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.integrator import pathtracer
+    from aten_tpu_torch.scene.scenedefs import material_test_scene, sky_envmap, textured_scene
+
+    t12 = time.time()
+    # 12a: the zoo against the golden
+    scene, cam = material_test_scene(96, 48, device=dev)
+    img = pathtracer.render_image(scene, cam, spp=8, max_depth=4).cpu().numpy()
+    with np.load(os.path.join(ROOT, "tests", "golden", "mtrl_zoo.npz")) as z:
+        gold = z["img"]
+    golden_zoo_bounds("phase 12a zoo 96x48 8spp depth 4 vs golden", img, gold)
+
+    # 12b: the bench's zoo+IBL config
+    sky = sky_envmap()
+    scene, cam = material_test_scene(512, 512, envmap=sky, device=dev)
+    assert scene["num_tris"] + scene["num_spheres"] == 13 and "envmap" in scene
+    kw = {"spp": 32, "max_depth": 5, "rr_depth": 3}
+    pathtracer.render_image(scene, cam, **kw)  # warm-up
+    torch.cuda.synchronize()
+    dispatches = []
+    real = pathtracer.render_sample
+
+    def counted(*a, **k):
+        dispatches.append(k.get("spp_chunk"))
+        return real(*a, **k)
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    pathtracer.render_sample = counted
+    try:
+        t = time.time()
+        img = pathtracer.render_image(scene, cam, **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+    finally:
+        pathtracer.render_sample = real
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    img = img.cpu().numpy()
+    log(f"phase 12b launches: {launches} (the zoo runs the dense test, no kernel)")
+    assert not any(launches.values()), launches
+    assert np.isfinite(img).all() and (img >= 0).all()
+    assert 1e-2 <= img.mean() <= 1e2 and img.std() > 0, (img.mean(), img.std())
+    log(f"phase 12b zoo+IBL 512x512 32spp depth 5: {len(dispatches)} dispatches of "
+        f"spp_chunk {dispatches}, mean {img.mean():.5f} std {img.std():.5f} finite "
+        f"{bool(np.isfinite(img).all())}, wall {wall * 1e3:.1f} ms, "
+        f"{512 * 512 * 32 / wall / 1e6:.3f} Mpaths/s, peak allocated "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    assert len(dispatches) == 2 and dispatches == [16, 16], dispatches
+    log_profile("phase 12b", card,
+                profile_render(lambda: pathtracer.render_image(scene, cam, **kw)))
+    del scene, img
+    torch.cuda.empty_cache()
+
+    # 12c and 12d: the card against the port on the CPU
+    for name, make, w, h in (
+            ("12c zoo+IBL", lambda w, h, d: material_test_scene(w, h, envmap=sky, device=d),
+             64, 32),
+            ("12d textured", lambda w, h, d: textured_scene(w, h, device=d), 32, 32)):
+        imgs = []
+        for d in (dev, "cpu"):
+            sc, c = make(w, h, d)
+            imgs.append(pathtracer.render_image(sc, c, spp=4, max_depth=4).cpu().numpy())
+        assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 1e-2, name
+        check_image_bounds(f"phase {name} {w}x{h} 4spp depth 4, card vs CPU", *imgs)
+    log(f"phase 12 took {time.time() - t12:.1f} s")
+
+
 def main():
     sys.path.insert(0, ROOT)
     if not os.path.isdir(os.path.join(ROOT, "aten_tpu_torch")):
@@ -1187,6 +1286,10 @@ def main():
     log(f"phase 10 took {time.time() - t10:.1f} s")
 
     kernels += lab_phase(card, big, cam, dev)
+    del big
+    torch.cuda.empty_cache()
+
+    zoo_phase(card, dev)
 
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

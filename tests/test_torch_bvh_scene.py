@@ -27,6 +27,7 @@ from aten_tpu_torch import native
 from aten_tpu_torch.accel import build as tbuild
 from aten_tpu_torch.ops import bvh_layout
 from aten_tpu_torch.scene import bridge
+from aten_tpu_torch.scene import envmap as tenv
 from aten_tpu_torch.scene import scenedefs as tdefs
 from aten_tpu_torch.scene.materials import MaterialType
 from aten_tpu_torch.scene.scene import SceneBuilder
@@ -140,24 +141,33 @@ def test_bridge_matches_reference_and_builder(name):
 def test_bridge_rejects_unported_features():
     ref = jdefs.cornell_box(16, 16)[0]
     arrays = jax.tree_util.tree_map(np.asarray, ref.arrays)
-    with pytest.raises(NotImplementedError):
-        bridge.from_numpy({**arrays, "envmap": np.zeros((2, 4, 3), np.float32)},
+    with pytest.raises(NotImplementedError, match="med_sigma_a"):
+        bridge.from_numpy({**arrays, "med_sigma_a": np.zeros((1, 3), np.float32)},
                           ref.static, "cpu")
     with pytest.raises(NotImplementedError):
         bridge.from_numpy(arrays, {**ref.static, "has_voxel_lod": True}, "cpu")
+    # envmaps and textures are ported: their arrays come across
+    both = bridge.from_numpy({**arrays, **tenv.build_env_tables(np.ones((2, 4, 3), np.float32))},
+                             ref.static, "cpu")
+    assert both["envmap"].shape == (2, 4, 3)
 
 
 def test_builder_rejects_unported_features():
     b = SceneBuilder()
-    for call in (lambda: b.set_envmap(np.ones((4, 8, 3), np.float32)),
-                 lambda: b.add_texture(np.ones((4, 4, 4), np.float32)),
-                 lambda: b.add_medium(sigma_a=1.0)):
-        with pytest.raises(NotImplementedError):
-            call()
-    b.add_material(MaterialType.DIFFUSE, albedo_map=0)
-    b.add_quad([0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], 0)
     with pytest.raises(NotImplementedError):
+        b.add_medium(sigma_a=1.0)
+    b.add_material(MaterialType.DIFFUSE, medium=0)
+    b.add_quad([0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], 0)
+    with pytest.raises(NotImplementedError, match="media"):
         b.build("cpu")
+    # envmaps and textures are ported: they build
+    b = SceneBuilder()
+    tex = b.add_texture(np.ones((4, 4, 4), np.float32))
+    b.add_material(MaterialType.DIFFUSE, albedo_map=tex)
+    b.add_quad([0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], 0)
+    b.set_envmap(np.ones((4, 8, 3), np.float32))
+    scene = b.build("cpu")
+    assert scene["has_albedo_maps"] and "envmap" in scene and scene["num_lights"] == 1
 
 
 def test_cuda_device_without_card_raises():

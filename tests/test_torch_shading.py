@@ -113,7 +113,7 @@ def test_unported_families_raise():
     _, mat_t = _both(_materials(rng, 8))
     ns, wo = torch.tensor(_unit(rng, 8)), torch.tensor(_unit(rng, 8))
     u = torch.rand(8)
-    for used in (None, USED + (int(MaterialType.DISNEY),)):
+    for used in (None, USED + (int(MaterialType.TOON),)):
         with pytest.raises(NotImplementedError):
             tbrdf.sample_brdf(mat_t, ns, wo, u, u, u, used)
 
