@@ -38,8 +38,9 @@ ATEN_TPU_CHAINS, K4's rays per lane.  The scene build applies it
 Instanced scenes (those that carry `tl_bmin`) go to the two-level walk
 of accel/tlas.py before any of these, as in the reference (:153-158).
 
-Traversal is discrete structure: it reads its rays without gradients,
-as the reference stops them (traverse.py:169).
+Traversal is discrete structure: it reads its rays and their t_max
+without gradients, as the reference stops them (traverse.py:169), so a
+kernel inside an autograd graph sees no tensor that requires grad.
 """
 from __future__ import annotations
 
@@ -89,9 +90,11 @@ def _slab_hit(b0, b1, o, inv, t):
 
 
 def _t0_of(t_max, n, device):
+    """The rays' t_max as a contiguous [n] tensor, detached like the rays
+    (a shadow ray's length can depend on a trained light position)."""
     if t_max is None:
         return torch.full((n,), vm.INF, dtype=torch.float32, device=device)
-    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=device)
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=device).detach()
     return torch.broadcast_to(t_max, (n,)).contiguous()
 
 

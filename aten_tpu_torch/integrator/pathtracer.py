@@ -14,11 +14,17 @@ random numbers bit for bit.
 Each bounce applies the scene's albedo, roughness and normal maps at the
 hit's uv, then the car-paint flake fields, before shading; a miss picks
 up the envmap, MIS-weighted against its image-based light, or the
-background colour.
+background colour.  In a scene that uses a toon family, each bounce
+then evaluates the toon term (shading/toon.py) on every lane: a toon
+hit adds it like an emitter at bounce 0 and ends its path at any depth.
+
+`_trace_paths` traces a band of rows [y0, y0 + tile_h), seeded by the
+global pixel id, so a band is bitwise the same rows of the whole image
+(the unit of parallel/mesh.py's row sharding).
 
 Not ported yet (a scene that needs them raises NotImplementedError):
-toon and stylized materials, alpha and stencil punch-through, voxel LOD,
-thin-lens and equirect cameras, blue-noise sampling and the AOV outputs.
+alpha and stencil punch-through, voxel LOD, thin-lens and equirect
+cameras, blue-noise sampling and the AOV outputs.
 """
 from __future__ import annotations
 
@@ -35,11 +41,14 @@ from aten_tpu_torch.scene.envmap import eval_env
 from aten_tpu_torch.scene.materials import MaterialType, gather_material
 from aten_tpu_torch.shading import brdf as brdf_mod
 from aten_tpu_torch.shading import nee
+from aten_tpu_torch.shading.toon import toon_term
 
 _EMISSIVE = int(MaterialType.EMISSIVE)
 _SPECULAR = int(MaterialType.SPECULAR)
 _REFRACTION = int(MaterialType.REFRACTION)
 _CAR_PAINT = int(MaterialType.CAR_PAINT)
+_TOON = int(MaterialType.TOON)
+_STYLIZED_BRDF = int(MaterialType.STYLIZED_BRDF)
 
 # lanes per dispatch: 512x512x16 keeps the path state to a few hundred MB
 MAX_LANES = 4 << 20
@@ -113,20 +122,26 @@ def eval_hit(scene, ro, rd, hit):
 
 
 def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
-                 max_depth, rr_depth, spp_chunk=1, impl="auto"):
-    """Radiance [width*height, 3] averaged over samples
-    [sample, sample + spp_chunk); lane c*Npix + p traces sample
-    `sample + c` of pixel p."""
+                 max_depth, rr_depth, spp_chunk=1, impl="auto", y0=0, tile_h=None):
+    """Radiance [tile_h*width, 3] of the rows [y0, y0 + tile_h) (default:
+    the whole image), averaged over samples [sample, sample + spp_chunk);
+    lane c*Npix + p traces sample `sample + c` of the band's pixel p, in
+    scan order.  Seeds use the global pixel id, so a band equals the same
+    rows of the whole image bit for bit."""
     dev = scene.device
     used = scene["used_mtl_types"]
-    n_pix = width * height
+    if tile_h is None:
+        tile_h = height
+    n_pix = width * tile_h
     N = n_pix * spp_chunk
     lane = torch.arange(N, dtype=torch.int64, device=dev)
-    pix = lane % n_pix
+    local = lane % n_pix
     samp_idx = sample + lane // n_pix
-    px = (pix % width).to(torch.float32)
-    py = (pix // width).to(torch.float32)
-    pixel_seed = smp.wang_hash(pix + 1)
+    px_i = local % width
+    py_i = local // width + y0
+    px = px_i.to(torch.float32)
+    py = py_i.to(torch.float32)
+    pixel_seed = smp.wang_hash(py_i * width + px_i + 1)
 
     state = smp.make_state(pixel_seed, frame, samp_idx, spp, bounce=0)
     ju, jv, state = smp.next_2d(state)
@@ -165,6 +180,21 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
 
         # per-bounce sampler re-seed (reference bounce-dim offset)
         state = smp.make_state(pixel_seed, frame, samp_idx, spp, bounce=bounce + 1)
+
+        # toon-as-light (HitTeminatedMaterial's toon branch): the term draws
+        # from every lane's state, only in scenes that use a toon family;
+        # at bounce 0 a live toon hit adds it like an emitter, and a toon
+        # hit ends its path at any depth
+        if _TOON in used or _STYLIZED_BRDF in used:
+            is_toon = (mat["type"] == _TOON) | (mat["type"] == _STYLIZED_BRDF)
+            t_rgb, state = toon_term(
+                scene, mat, h["p"], h["ns"], rd, state,
+                lambda o, d, dist, a=alive: occluded_fn(o, d, torch.where(a, dist, 0.0)),
+                stylized=mat["type"] == _STYLIZED_BRDF)
+            if bounce == 0:
+                radiance = radiance + torch.where(
+                    (alive & hit["hit"] & is_toon)[..., None], throughput * t_rgb, 0.0)
+            alive = alive & ~is_toon
 
         # implicit emitter hit (HitImplicitLight)
         is_emis = mat["type"] == _EMISSIVE

@@ -100,6 +100,53 @@ def material_test_scene(width=512, height=512, envmap=None, *, device="cuda"):
     return b.build(device), cam
 
 
+def populate_toon_scene(b, width, height, stylized=False):
+    """The toon fixture (reference scenedefs.py:318-356): two toon spheres,
+    one on the diffuse base and one with a stylized GGX highlight, both
+    keyed to one point light through a 64-texel 4-band remap ramp, the
+    first with a rim light, on a diffuse floor.  `stylized` makes both
+    StylizedBrdf."""
+    lid = b.add_point_light((4.0, 7.0, 6.0), (420.0, 400.0, 380.0))
+    ramp = np.zeros((1, 64, 3), np.float32)
+    for i in range(64):
+        u = (i + 0.5) / 64
+        band = 0.18 if u < 0.25 else (0.45 if u < 0.55 else (0.8 if u < 0.85 else 1.0))
+        ramp[0, i] = band
+    remap = b.add_texture(ramp)
+    mtype = MaterialType.STYLIZED_BRDF if stylized else MaterialType.TOON
+    toon_d = b.add_material(
+        mtype, base_color=(0.85, 0.45, 0.35),
+        toon_remap_tex=remap, toon_target_light=lid,
+        toon_rim_enable=1.0, toon_rim_color=(0.4, 0.45, 0.7),
+        toon_rim_width=0.35, toon_rim_softness=0.4, toon_rim_spread=1.0,
+    )
+    toon_s = b.add_material(
+        mtype, base_color=(0.4, 0.55, 0.9),
+        toon_remap_tex=remap, toon_target_light=lid,
+        toon_type=1.0, roughness=0.2, ior=6.0,
+        toon_hl_split_t=0.25, toon_hl_square_sharp=2.0,
+        toon_hl_square_magnitude=0.3,
+    )
+    floor = b.add_material(MaterialType.DIFFUSE, base_color=(0.6, 0.6, 0.6))
+    ext = 20.0
+    b.add_quad([-ext, 0, ext], [ext, 0, ext], [ext, 0, -ext], [-ext, 0, -ext], floor)
+    b.add_sphere((-1.4, 1.2, 0.0), 1.2, toon_d)
+    b.add_sphere((1.4, 1.2, 0.0), 1.2, toon_s)
+    b.set_background((0.1, 0.12, 0.16))
+    return PinholeCamera(
+        origin=(0.0, 2.5, 8.0), lookat=(0.0, 1.2, 0.0), vfov_deg=40.0,
+        width=width, height=height,
+    )
+
+
+def toon_scene(width=512, height=512, stylized=False, *, device="cuda"):
+    """The toon fixture: 4 prims (two floor triangles, two spheres), one
+    point light, a 1x64 remap texture."""
+    b = SceneBuilder()
+    cam = populate_toon_scene(b, width, height, stylized)
+    return b.build(device), cam
+
+
 def sky_envmap(height=64, width=128):
     """The procedural sky-and-sun equirect map of the reference bench's
     material-zoo IBL config (bench.py:208-216): a blue gradient over

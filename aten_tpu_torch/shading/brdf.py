@@ -1,13 +1,15 @@
 """BSDF sampling and evaluation, batched over shading points.
 
-Counterpart of aten_tpu/shading/brdf.py for every family but the toon
-ones: DIFFUSE, OREN_NAYAR, SPECULAR, REFRACTION, GGX, BECKMANN,
-MICROFACET_REFRACTION, VELVET, RETROREFLECTIVE, CAR_PAINT and DISNEY
-(plus EMISSIVE, which has no lobe).  As in the reference, every family
-present in the scene is evaluated on the whole batch and the per-lane
-material type selects the result; the static used-type set prunes absent
-families (`_need`).  A scene that uses TOON or STYLIZED_BRDF, or an
-unknown used-type set, raises NotImplementedError.
+Counterpart of aten_tpu/shading/brdf.py: DIFFUSE, OREN_NAYAR, SPECULAR,
+REFRACTION, GGX, BECKMANN, MICROFACET_REFRACTION, VELVET, RETROREFLECTIVE,
+CAR_PAINT and DISNEY (plus EMISSIVE, which has no lobe).  TOON and
+STYLIZED_BRDF lanes take the diffuse lobe here, as in the reference: the
+path tracer ends them at their toon term (shading/toon.py) before they
+scatter.  As in the reference, every family present in the scene is
+evaluated on the whole batch and the per-lane material type selects the
+result; the static used-type set prunes absent families (`_need`).  An
+unknown used-type set, or a type id that is no MaterialType, raises
+NotImplementedError.
 
 Conventions: `wo` points away from the surface toward the viewer, `wi`
 toward the next vertex; `ns` is the shading normal as stored.  Singular
@@ -33,8 +35,7 @@ _REFRACTION = int(MaterialType.REFRACTION)
 _GGX = int(MaterialType.GGX)
 _MICROFACET_REFRACTION = int(MaterialType.MICROFACET_REFRACTION)
 
-PORTED_TYPES = frozenset(int(t) for t in MaterialType) - {
-    int(MaterialType.TOON), int(MaterialType.STYLIZED_BRDF)}
+PORTED_TYPES = frozenset(int(t) for t in MaterialType)
 
 
 def check_used_types(used):
@@ -44,8 +45,7 @@ def check_used_types(used):
             "shading needs the scene's static used_mtl_types")
     missing = sorted(set(int(t) for t in used) - PORTED_TYPES)
     if missing:
-        names = [MaterialType(t).name for t in missing]
-        raise NotImplementedError(f"material families not ported yet: {names}")
+        raise NotImplementedError(f"material type ids the port does not know: {missing}")
 
 
 def _need(used, *types):

@@ -30,10 +30,20 @@ material zoo, which needs no kernel (13-15 prims take the dense test):
 the zoo against tests/golden/mtrl_zoo.npz, the reference bench's
 zoo+IBL config (512x512, 32 spp, depth 5, under the procedural sky)
 timed with its peak memory, and the zoo+IBL and texture fixtures on the
-card against the port on this machine's CPU.  Each main-path render
-is profiled, with its ten costliest device ops and each traversal
-kernel's summed device time. It prints the measured times and each
-kernel's bound (the least time the card could take for the work).
+card against the port on this machine's CPU.  Phase 13 runs the toon
+families and the train step of aten_tpu_torch/parallel/mesh.py: the toon
+fixture, plain and stylized, on the card against the CPU and timed at
+512x512 x 16 spp; the reference bench's cornell_fwd_bwd config (256x256,
+spp 4, depth 3) timed per step with its peak memory and a profiled step;
+the gradients of texels, light radiance and light position on the card
+against the CPU and 20 descent steps; the step on the 102,404-prim mesh
+scene, which walks K1 (3 + 3 launches), bitwise equal to the same loss
+and gradients through the plain walk; and render_tiled and a step
+through a one-rank NCCL group, bitwise equal to no group.  Each
+main-path render and step is profiled, with its ten costliest device
+ops and each traversal kernel's summed device time. It prints the
+measured times and each kernel's bound (the least time the card could
+take for the work).
 
 Every phase raises on failure, so any failure exits non-zero.  The last
 two lines are one JSON object describing the kernels, then
@@ -411,9 +421,9 @@ def profile_render(fn):
     return wall, busy / 1e3, trav / 1e3, top, per_kernel
 
 
-def log_profile(phase, card, prof):
+def log_profile(phase, card, prof, what="render"):
     wall, busy, trav, top, per_kernel = prof
-    log(f"{phase} profiled render: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+    log(f"{phase} profiled {what}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
         f"(idle share {1.0 - busy / wall:.3f}), traversal kernels {trav:.2f} ms "
         f"({trav / busy if busy else 0.0:.4f} of busy) [{card}]")
     for name, ms in top:
@@ -421,7 +431,7 @@ def log_profile(phase, card, prof):
         log(f"{phase}   top device op {ms:9.3f} ms ({ms / busy if busy else 0.0:.4f} of busy) "
             f"{short[:120]}")
     for name, ms in sorted(per_kernel.items()):
-        log(f"{phase}   traversal kernel in the render: {name[:90]} {ms:.3f} ms "
+        log(f"{phase}   traversal kernel in the {what}: {name[:90]} {ms:.3f} ms "
             f"({ms / busy if busy else 0.0:.4f} of busy) [{card}]")
 
 
@@ -777,6 +787,290 @@ def zoo_phase(card, dev):
         assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 1e-2, name
         check_image_bounds(f"phase {name} {w}x{h} 4spp depth 4, card vs CPU", *imgs)
     log(f"phase 12 took {time.time() - t12:.1f} s")
+
+
+def log_step_profile(phase, card, prof, fwd_busy):
+    """log_profile's lines for one profiled train step, with the forward
+    pass's share of busy time (fwd_busy: the busy ms of the forward pass
+    alone, profiled on its own)."""
+    log_profile(phase, card, prof, what="step")
+    busy = prof[1]
+    log(f"{phase}   forward pass alone: device busy {fwd_busy:.1f} ms, {fwd_busy / busy:.3f} of "
+        f"the step's busy; backward, all-reduce and update {busy - fwd_busy:.1f} ms, "
+        f"{1.0 - fwd_busy / busy:.3f} [{card}]")
+
+
+def peak_text(peak, held):
+    """The peak of allocated memory, and what of it was already held (the
+    scene, and whatever earlier phases keep) before the timed work."""
+    return (f"peak allocated {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before, "
+            f"{(peak - held) / 2**30:.3f} GiB added)")
+
+
+def forward_pass(scene, ca, target, frame, w, h, spp, depth, rr_depth, fields):
+    """The train step's forward pass alone: its leaves, render and loss."""
+    import torch
+
+    from aten_tpu_torch.integrator.pathtracer import _trace_paths
+    from aten_tpu_torch.parallel import mesh
+
+    params = {k: mesh._get_param(scene, k).detach().requires_grad_(True)
+              for k in fields if mesh._has_param(scene, k)}
+    rad = _trace_paths(mesh._set_params(scene, params), ca, w, h, frame, 0, spp, depth, rr_depth)
+    return torch.mean((rad.reshape(h, w, 3) - target) ** 2)
+
+
+def timed_steps(step, scene, ca, target, n):
+    """Wall ms of each of n steps (frames 1..n), each ended by a
+    synchronize, after one warm-up step (frame 0); the last loss."""
+    import torch
+
+    step(scene, ca, target, 0)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(n):
+        t = time.time()
+        loss, _ = step(scene, ca, target, i + 1)
+        torch.cuda.synchronize()
+        times.append((time.time() - t) * 1e3)
+    return times, float(loss)
+
+
+def populate_textured_quad(b, width, height):
+    """tests/test_grad.py's textured setup: a quad under a 4x4 albedo
+    texture of 0.5 filling the view, lit by a quad light."""
+    import numpy as np
+
+    from aten_tpu_torch.core.camera import PinholeCamera
+    from aten_tpu_torch.scene.materials import MaterialType
+
+    tid = b.add_texture(np.full((4, 4, 3), 0.5, np.float32))
+    m = b.add_material(MaterialType.DIFFUSE, base_color=(1, 1, 1), albedo_map=tid)
+    emit = b.add_material(MaterialType.EMISSIVE, base_color=(8, 8, 8))
+    b.add_quad((-2, -2, 0), (2, -2, 0), (2, 2, 0), (-2, 2, 0), m)
+    ls, lc = b.add_quad((-1, -1, 3), (-1, 1, 3), (1, 1, 3), (1, -1, 3), emit)
+    b.add_area_light_tris(ls, lc, le=(8, 8, 8))
+    return PinholeCamera(origin=(0, 0, 2.2), lookat=(0, 0, 0), vfov_deg=60,
+                         width=width, height=height)
+
+
+def populate_point_lit_quad(b, width, height):
+    """tests/test_grad.py's light-position setup: a quad under a point light."""
+    from aten_tpu_torch.core.camera import PinholeCamera
+    from aten_tpu_torch.scene.materials import MaterialType
+
+    m = b.add_material(MaterialType.DIFFUSE, base_color=(0.8, 0.8, 0.8))
+    b.add_quad((-2, -2, 0), (2, -2, 0), (2, 2, 0), (-2, 2, 0), m)
+    b.add_point_light((0.5, 0.5, 2.0), (6, 6, 6))
+    return PinholeCamera(origin=(0, 0, 2.5), lookat=(0, 0, 0), vfov_deg=60,
+                         width=width, height=height)
+
+
+def field_grad(populate, spec, depth, device, size=16):
+    """d mean(radiance) / d `spec` of tests/test_grad.py's 16x16, 1 spp
+    render, RR depth 2, on `device`, as numpy."""
+    import torch
+
+    from aten_tpu_torch.integrator.pathtracer import _trace_paths
+    from aten_tpu_torch.parallel import mesh
+    from aten_tpu_torch.scene.scene import SceneBuilder
+
+    b = SceneBuilder()
+    cam = populate(b, size, size)
+    scene = b.build(device)
+    leaf = mesh._get_param(scene, spec).clone().requires_grad_(True)
+    rad = _trace_paths(mesh._set_params(scene, {spec: leaf}), cam.arrays(device), size, size,
+                       0, 0, 1, depth, 2)
+    (g,) = torch.autograd.grad(rad.mean(), leaf)
+    return g.cpu().numpy()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def train_phase(card, dev):
+    """Phase 13: the toon families and the inverse-rendering train step
+    (aten_tpu_torch/parallel/mesh.py).  13a: toon_scene, plain and
+    stylized, on the card against the port on this machine's CPU, then
+    512x512 x 16 spp timed and profiled; 13b: the reference bench's
+    cornell_fwd_bwd config (256x256, spp 4, depth 3, RR depth 2, a black
+    target), ms/step, lanes traced, peak memory and a profiled step; 13c:
+    the gradients of tests/test_grad.py's setups on the card against the
+    CPU, and 20 steps of descent from base_color x 0.5; 13d: the train
+    step on the 102,404-prim mesh scene through K1, its loss and
+    gradients bitwise those of the plain walk; 13e: render_tiled and a
+    step through a one-rank NCCL group, bitwise those without a group."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from aten_tpu_torch.integrator import pathtracer
+    from aten_tpu_torch.integrator.pathtracer import _trace_paths, render_sample
+    from aten_tpu_torch.ops import traverse_cuda
+    from aten_tpu_torch.parallel import mesh
+    from aten_tpu_torch.scene.scenedefs import (
+        cornell_box, populate_cornell_box, procedural_mesh_scene, toon_scene)
+
+    t13 = time.time()
+    # 13a: toon, card against CPU, then the 512x512 render
+    for stylized in (False, True):
+        imgs = []
+        for d in (dev, "cpu"):
+            sc, c = toon_scene(64, 64, stylized, device=d)
+            imgs.append(pathtracer.render_image(sc, c, spp=4, max_depth=4).cpu().numpy())
+        assert np.isfinite(imgs[0]).all() and imgs[0].max() > 0.05, stylized
+        check_image_bounds(f"phase 13a toon_scene(64, 64, stylized={stylized}) 4spp depth 4, "
+                           "card vs CPU", *imgs)
+    scene, cam = toon_scene(512, 512, device=dev)
+    kw = {"spp": 16, "max_depth": 5, "rr_depth": 3}
+    pathtracer.render_image(scene, cam, **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t = time.time()
+    img = pathtracer.render_image(scene, cam, **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    img = img.cpu().numpy()
+    assert not any(launches.values()), launches  # 4 prims: the dense test
+    assert np.isfinite(img).all() and (img >= 0).all() and img.std() > 0
+    log(f"phase 13a toon_scene 512x512 16spp depth 5: mean {img.mean():.5f} std {img.std():.5f}, "
+        f"wall {wall * 1e3:.1f} ms, {512 * 512 * 16 / wall / 1e6:.3f} Mpaths/s, "
+        f"{peak_text(peak, held)}, kernel launches {launches} [{card}]")
+    log_profile("phase 13a", card, profile_render(
+        lambda: pathtracer.render_image(scene, cam, **kw)))
+    del scene, img
+    torch.cuda.empty_cache()
+
+    # 13b: bench.py's cornell_fwd_bwd_mrays config
+    W = H = 256
+    scene, cam = cornell_box(W, H, device=dev)
+    ca = cam.arrays(dev)
+    target = torch.zeros((H, W, 3), device=dev)
+    cfg = {"spp": 4, "max_depth": 3, "rr_depth": 2}
+    step = mesh.make_train_step(W, H, **cfg)
+    live = [k for k in mesh.TRAINABLE_FIELDS if mesh._has_param(scene, k)]
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    times, loss = timed_steps(step, scene, ca, target, 5)
+    peak = torch.cuda.max_memory_allocated()
+    ms = sum(times) / len(times)
+    lanes = W * H  # one sample per pixel: the step traces sample 0
+    assert np.isfinite(loss) and loss > 0, loss
+    log(f"phase 13b cornell_fwd_bwd 256x256 spp 4 depth 3 RR 2, fields {live}: "
+        f"{ms:.1f} ms/step (steps {', '.join(f'{x:.1f}' for x in times)}), last loss {loss:.6f}; "
+        f"lanes traced per step {lanes} -> {lanes / ms / 1e3:.4f} M traced paths/s; bench.py "
+        f"counts W*H*spp = {W * H * 4} -> {W * H * 4 / ms / 1e3:.4f} 'Mrays/s' (4x the lanes "
+        f"traced); {peak_text(peak, held)} [{card}]")
+    prof = profile_render(lambda: step(scene, ca, target, 1))
+    fwd = profile_render(lambda: forward_pass(scene, ca, target, 1, W, H, 4, 3, 2, live))
+    log_step_profile("phase 13b", card, prof, fwd[1])
+
+    # 13e: a one-rank NCCL group gives what no group gives, bit for bit
+    torch.cuda.set_device(dev)
+    group = mesh.distributed_init(f"tcp://127.0.0.1:{free_port()}", 1, 0, "nccl")
+    try:
+        a = mesh.render_tiled(scene, ca, W, H, 0, 0, group=group, **cfg)
+        b = mesh.render_tiled(scene, ca, W, H, 0, 0, group=None, **cfg)
+        lg, sg = mesh.make_train_step(W, H, group=group, **cfg)(scene, ca, target, 0)
+        ln, sn = step(scene, ca, target, 0)
+        same = torch.equal(a, b) and torch.equal(lg, ln) and all(
+            torch.equal(mesh._get_param(sg, k), mesh._get_param(sn, k)) for k in live)
+        gloo = dist.new_group([0], backend="gloo")
+        try:
+            mesh.render_tiled(scene, ca, W, H, 0, 0, group=gloo, **cfg)
+            refused = False
+        except ValueError:
+            refused = True
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 13e one-rank NCCL group: render_tiled and a train step bitwise equal to no "
+        f"group: {same}; a gloo group refused for CUDA tensors: {refused}")
+    assert same and refused
+    del scene, target
+    torch.cuda.empty_cache()
+
+    # 13c: gradients on the card against the CPU, then a descent
+    for name, populate, spec, depth in (
+            ("cornell base_color", populate_cornell_box, "base_color", 3),
+            ("cornell lights.le", populate_cornell_box, "lights.le", 3),
+            ("textured quad tex_stack", populate_textured_quad, "textures.tex_stack", 2),
+            ("point-lit quad lights.pos", populate_point_lit_quad, "lights.pos", 2)):
+        gd, gc = (field_grad(populate, spec, depth, d) for d in (dev, "cpu"))
+        rel = np.abs(gd - gc) / np.maximum(np.abs(gc), 1e-12)
+        log(f"phase 13c grad {name}: max |card - CPU| {np.abs(gd - gc).max():.3e}, max rel "
+            f"{rel[np.abs(gc) > 1e-6].max() if (np.abs(gc) > 1e-6).any() else 0.0:.3e}, "
+            f"max |grad| {np.abs(gc).max():.4f}")
+        assert np.abs(gc).max() > 1e-3, name
+        np.testing.assert_allclose(gd, gc, rtol=1e-4, atol=1e-6, err_msg=name)
+    S = 64
+    scene, cam = cornell_box(S, S, device=dev)
+    ca = cam.arrays(dev)
+    target = render_sample(scene, ca, S, S, 0, 0, 1, 2, 1)
+    s = mesh._set_params(scene, {"base_color": scene["materials"]["base_color"] * 0.5})
+    step = mesh.make_train_step(S, S, spp=1, max_depth=2, rr_depth=1, lr=0.1)
+    losses = []
+    for _ in range(20):
+        loss, s = step(s, ca, target, 0)
+        losses.append(float(loss))
+    log(f"phase 13c descent from base_color x 0.5, cornell 64x64, 20 steps at lr 0.1: loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f} ({losses[-1] / losses[0]:.4f} of the first)")
+    assert np.isfinite(losses).all() and losses[-1] < 0.5 * losses[0], losses
+
+    # 13d: the train step on the 102,404-prim mesh, through K1
+    W = H = 512
+    t = time.time()
+    scene, cam = procedural_mesh_scene(W, H, device=dev)
+    ca = cam.arrays(dev)
+    assert scene["num_tris"] + scene["num_spheres"] == 102404
+    target = render_sample(scene, ca, W, H, 0, 0, 1, 3, 2)
+    scene = mesh._set_params(scene, {"base_color": scene["materials"]["base_color"] * 0.5})
+    log(f"phase 13d: mesh scene and its 1-spp target in {time.time() - t:.1f} s")
+    step = mesh.make_train_step(W, H, **cfg)
+    live = [k for k in mesh.TRAINABLE_FIELDS if mesh._has_param(scene, k)]
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    times, _ = timed_steps(step, scene, ca, target, 3)
+    peak = torch.cuda.max_memory_allocated()
+    reset_counts()
+    prof = profile_render(lambda: step(scene, ca, target, 0))
+    launches = read_counts()
+    log(f"phase 13d mesh train step 512x512 spp 4 depth 3 RR 2, fields {live}: "
+        f"{sum(times) / len(times):.1f} ms/step (steps {', '.join(f'{x:.1f}' for x in times)}), "
+        f"{peak_text(peak, held)}; launches in the profiled step {launches} "
+        f"[{card}]")
+    assert [launches[k] for k in traverse_cuda.KERNELS] == [3, 3], launches
+    fwd = profile_render(lambda: forward_pass(scene, ca, target, 0, W, H, 4, 3, 2, live))
+    log_step_profile("phase 13d", card, prof, fwd[1])
+    # the same loss and gradients through the plain walk
+    loss_s, new_s = step(scene, ca, target, 0)
+    loss_k, grads_k = mesh.band_loss_and_grads(scene, ca, target, 0, W, H, 4, 3, 2)
+    params = {k: mesh._get_param(scene, k).detach().requires_grad_(True) for k in live}
+    rad = _trace_paths(mesh._set_params(scene, params), ca, W, H, 0, 0, 4, 3, 2, impl="plain")
+    loss_p = torch.mean((rad.reshape(H, W, 3) - target) ** 2)
+    grads_p = dict(zip(live, torch.autograd.grad(loss_p, [params[k] for k in live])))
+    new_p = mesh.rms_update(scene, grads_p, 0.05)
+    same = (torch.equal(loss_s, loss_p.detach()) and torch.equal(loss_k, loss_p.detach())
+            and all(torch.equal(grads_k[k], grads_p[k]) for k in live)
+            and all(torch.equal(mesh._get_param(new_s, k), mesh._get_param(new_p, k))
+                    for k in live))
+    log(f"phase 13d loss {float(loss_s):.6f}; the step's loss, gradients and new fields bitwise "
+        f"those of the plain walk: {same}; max |grad| "
+        f"{', '.join(f'{k} {float(g.abs().max()):.4e}' for k, g in grads_p.items())}")
+    assert same and np.isfinite(float(loss_s))
+    assert all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+               for g in grads_p.values())
+    del scene, target, rad, params, grads_p, grads_k
+    torch.cuda.empty_cache()
+    log(f"phase 13 took {time.time() - t13:.1f} s")
 
 
 def main():
@@ -1290,6 +1584,7 @@ def main():
     torch.cuda.empty_cache()
 
     zoo_phase(card, dev)
+    train_phase(card, dev)
 
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -135,11 +135,16 @@ def test_unported_scene_features_raise():
                               width=8, height=8)
     with pytest.raises(NotImplementedError):
         render_image(scene, cam, spp=1)
+    # media and voxel LOD are still unported (every material family is)
     b = SceneBuilder()
-    m = b.add_material(MaterialType.TOON)
+    with pytest.raises(NotImplementedError, match="media"):
+        b.add_medium(sigma_a=(0.1, 0.1, 0.1))
+    m = b.add_material(MaterialType.DIFFUSE)
     b.add_quad([0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], m)
-    with pytest.raises(NotImplementedError, match="TOON"):
-        render_image(b.build("cpu"), cam, spp=1)
+    scene = b.build("cpu")
+    lod = type(scene)(scene.arrays, {**scene.static, "has_voxel_lod": True}, scene.device)
+    with pytest.raises(NotImplementedError, match="voxel LOD"):
+        render_image(lod, cam, spp=1)
 
 
 def test_material_zoo_matches_golden():

@@ -113,7 +113,10 @@ def test_unported_families_raise():
     _, mat_t = _both(_materials(rng, 8))
     ns, wo = torch.tensor(_unit(rng, 8)), torch.tensor(_unit(rng, 8))
     u = torch.rand(8)
-    for used in (None, USED + (int(MaterialType.TOON),)):
+    # no used-type set, or a type id that is no MaterialType (every
+    # family is ported, so an unknown id is the one left to refuse)
+    unknown = max(int(t) for t in MaterialType) + 1
+    for used in (None, USED + (unknown,)):
         with pytest.raises(NotImplementedError):
             tbrdf.sample_brdf(mat_t, ns, wo, u, u, u, used)
 
