@@ -38,6 +38,18 @@ ATEN_TPU_CHAINS, K4's rays per lane.  The scene build applies it
 Instanced scenes (those that carry `tl_bmin`) go to the two-level walk
 of accel/tlas.py before any of these, as in the reference (:153-158).
 
+Voxel LOD (accel/voxel.py; reference :165-176, :260-291): in a scene
+with `has_voxel_lod` a voxel node deep enough hits as a solid box at its
+entry t, with the id `num_tris + num_spheres + node`, and the walk skips
+its subtree; voxels fire for any-hit rays too, and an equal entry t goes
+to the smaller id.  The oracle walk `_traverse_plain` tests each voxel's
+depth against the scene's `lod_depth`; the three kernels and their plain
+versions walk the tree baked at `lod_bake_depth` (ops/lod_layout.py), in
+which a voxel leaf carries its id.  The two differ only where a ray
+starts inside a voxel's box (its entry t <= t_min): the oracle then
+enters the subtree, which the baked tree no longer has.  Such a scene
+never takes the dense test.
+
 Traversal is discrete structure: it reads its rays and their t_max
 without gradients, as the reference stops them (traverse.py:169), so a
 kernel inside an autograd graph sees no tensor that requires grad.
@@ -50,6 +62,8 @@ import torch
 
 from aten_tpu_torch.accel.build import LEAF_MAX
 from aten_tpu_torch.core import vecmath as vm
+from aten_tpu_torch.ops.bvh_layout import LEAF_COUNT, LEAF_SHIFT
+from aten_tpu_torch.ops.lod_layout import VOXEL_WORD
 from aten_tpu_torch.ops.plk_layout import WINDOW as PLK_WINDOW
 from aten_tpu_torch.ops.smt_cuda import CHAIN_COUNTS, DEFAULT_CHAINS
 
@@ -77,16 +91,68 @@ def _safe_inv(rd):
     return torch.where(rd.abs() > 1e-12, 1.0 / rd, torch.sign(rd) * 1e12 + 1e12)
 
 
-def _slab_hit(b0, b1, o, inv, t):
-    """Slab test of boxes [b0, b1] against rays (o, inv = safe 1/d) with
-    best t `t`, in the oracle's op order (reference :243-259)."""
+def _slab(b0, b1, o, inv):
+    """(t_enter, t_exit) of boxes [b0, b1] against rays (o, inv = safe
+    1/d), in the oracle's op order (reference :243-259)."""
     tlo = (b0 - o) * inv
     thi = (b1 - o) * inv
     tsmall = torch.minimum(tlo, thi)
     tbig = torch.maximum(tlo, thi)
     t_enter = torch.maximum(torch.maximum(tsmall[:, 0], tsmall[:, 1]), tsmall[:, 2])
     t_exit = torch.minimum(torch.minimum(tbig[:, 0], tbig[:, 1]), tbig[:, 2])
+    return t_enter, t_exit
+
+
+def _slab_hit(b0, b1, o, inv, t):
+    """Slab test of boxes [b0, b1] against rays (o, inv = safe 1/d) with
+    best t `t`, in the oracle's op order (reference :243-259)."""
+    t_enter, t_exit = _slab(b0, b1, o, inv)
     return (t_enter <= t_exit) & (t_exit > 0.0) & (t_enter < t)
+
+
+def _voxel_hit(vid, t_enter, t_exit, t, best, t_min):
+    """Where a voxel (vid >= 0, its id) records a hit: the box is hit
+    past t_min, and its entry t beats `t`, or equals it and vid is below
+    the winner's id `best` (reference :260-291)."""
+    return ((vid >= 0) & (t_enter <= t_exit) & (t_exit > 0.0) & (t_enter > t_min)
+            & ((t_enter < t) | ((t_enter == t) & (vid < best))))
+
+
+def _voxel_of_word(word):
+    """The voxel id a layout word holds (ops/lod_layout.py), -1 elsewhere."""
+    return torch.where(word <= VOXEL_WORD, VOXEL_WORD - word, -1)
+
+
+def _walk_tree(scene, baked):
+    """(bmin, bmax, hit, miss, prim start, prim count, prim order, vox) of
+    the tree `_traverse_plain` walks; vox [K] the id with which each node
+    hits as a voxel (-1 elsewhere), None without LOD.  baked=False: the
+    scene's own BVH, its voxels those at depth >= scene["lod_depth"];
+    baked=True: K1's packed records (ops/bvh_layout.py), the tree of a
+    voxel-LOD scene baked at lod_bake_depth."""
+    if not baked:
+        vox = None
+        if scene.get("has_voxel_lod"):
+            K = scene["nodes_depth"].shape[0]
+            vox_base = scene["num_tris"] + scene["num_spheres"]
+            node = torch.arange(K, dtype=torch.int32, device=scene["nodes_depth"].device)
+            vox = torch.where((scene["nodes_voxel_mtl"] >= 0)
+                              & (scene["nodes_depth"] >= scene["lod_depth"]), vox_base + node, -1)
+        return (scene["nodes_bmin"], scene["nodes_bmax"], scene["nodes_hit"].long(),
+                scene["nodes_miss"].long(), scene["nodes_prim_start"].long(),
+                scene["nodes_prim_count"], scene["prim_order"].long(), vox)
+    if "bvh_nodes" not in scene:
+        raise ValueError("the scene lacks K1's packed records (scene.scene.with_bvh_layout "
+                         "attaches them)")
+    rec = scene["bvh_nodes"]
+    ints = rec.view(torch.int32)
+    miss, leaf = ints[:, 3].long(), ints[:, 7]
+    K = rec.shape[0]
+    hit = torch.where(leaf != -1, miss, torch.arange(1, K + 1, device=rec.device))
+    ps = torch.where(leaf >= 0, leaf >> LEAF_SHIFT, -1).long()
+    pc = torch.where(leaf >= 0, leaf & LEAF_COUNT, 0)
+    order = scene["bvh_prims"].view(torch.int32)[:, 3].long()
+    return rec[:, 0:3], rec[:, 4:7], hit, miss, ps, pc, order, _voxel_of_word(leaf)
 
 
 def _t0_of(t_max, n, device):
@@ -169,24 +235,27 @@ def _traverse_dense(scene, ro, rd, t0, t_min):
     return {"t": t_best, "prim": prim, "u": ub, "v": vb, "hit": hit}
 
 
-def _traverse_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
-    """The oracle's threaded walk (reference :189-351, without LOD) over
-    the lanes still walking.  Each lane runs exactly the reference's
-    per-lane steps; finished lanes are compacted away, which changes no
-    result.  Any-hit lanes stop after the leaf that found a hit.
+def _traverse_plain(scene, ro, rd, t0, any_hit, t_min, stats=False, baked=False):
+    """The oracle's threaded walk (reference :189-351) over the lanes
+    still walking.  Each lane runs exactly the reference's per-lane
+    steps; finished lanes are compacted away, which changes no result.
+    Any-hit lanes stop after the step that found a hit.
 
-    With stats=True also returns {"node_steps", "prim_tests"}: box tests
-    and primitive tests summed over the lanes, the work these rays need
-    (the counterpart of the reference kernel's `stats` variant)."""
+    In a voxel-LOD scene each step first takes the voxel branch (reference
+    :260-291): over the scene's own tree at scene["lod_depth"] (the
+    oracle), or with baked=True over K1's records of the tree baked at
+    lod_bake_depth (`_walk_tree`): the K1 kernel's plain version there.
+
+    With stats=True also returns {"node_steps", "prim_tests"} and, with
+    LOD, "voxel_tests": box tests, primitive tests and voxel tests summed
+    over the lanes, the work these rays need (the counterpart of the
+    reference kernel's `stats` variant)."""
     dev = ro.device
     N = ro.shape[0]
     num_tris = scene["num_tris"]
     T = scene["tri_v0"].shape[0]
     S = scene["sph_center"].shape[0]
-    nbmin, nbmax = scene["nodes_bmin"], scene["nodes_bmax"]
-    nhit, nmiss = scene["nodes_hit"].long(), scene["nodes_miss"].long()
-    nps, npc = scene["nodes_prim_start"].long(), scene["nodes_prim_count"]
-    order = scene["prim_order"].long()
+    nbmin, nbmax, nhit, nmiss, nps, npc, order, vox = _walk_tree(scene, baked)
     P = order.shape[0]
     tv0, te1, te2 = scene["tri_v0"], scene["tri_e1"], scene["tri_e2"]
     scen, srad = scene["sph_center"], scene["sph_radius"]
@@ -206,13 +275,27 @@ def _traverse_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
     prim = torch.full_like(lane, -1, dtype=torch.int32)
     u = torch.zeros_like(t)
     v = torch.zeros_like(t)
-    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
     while lane.numel():
         if stats:
             counts[0] += lane.numel()
         ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
         rdx, rdy, rdz = d[:, 0], d[:, 1], d[:, 2]
-        ahit = _slab_hit(nbmin[cur], nbmax[cur], o, inv, t)
+        if vox is None:
+            ahit = _slab_hit(nbmin[cur], nbmax[cur], o, inv, t)
+        else:
+            t_enter, t_exit = _slab(nbmin[cur], nbmax[cur], o, inv)
+            ahit = (t_enter <= t_exit) & (t_exit > 0.0) & (t_enter < t)
+            vid = vox[cur]
+            if stats:
+                counts[2] += (vid >= 0).sum()
+            # a voxel hit takes the miss link: the subtree is skipped
+            ahit = ahit & ~((vid >= 0) & (t_enter > t_min))
+            closer = _voxel_hit(vid, t_enter, t_exit, t, prim, t_min)
+            t = torch.where(closer, t_enter, t)
+            prim = torch.where(closer, vid, prim)
+            u = torch.where(closer, 0.0, u)
+            v = torch.where(closer, 0.0, v)
         ps = nps[cur]
         pc = npc[cur]
         do_leaf = ahit & (ps >= 0)
@@ -258,7 +341,8 @@ def _traverse_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
            "hit": prim_out >= 0}
     if stats:
         n = counts.tolist()
-        return out, {"node_steps": n[0], "prim_tests": n[1]}
+        work = {"node_steps": n[0], "prim_tests": n[1]}
+        return out, (work if vox is None else {**work, "voxel_tests": n[2]})
     return out
 
 
@@ -340,15 +424,23 @@ def _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
     lanes with t0 <= t_min keep (t0, -1).  Returns {"t", "prim"}, t the
     truncated t of the winner (t0 on a miss), prim its global id.
 
+    In a voxel-LOD scene a voxel leaf of the baked cut tree (its slot
+    start VOXEL_WORD - id) records its raw entry t under `_voxel_hit`'s
+    rule, with its id shifted above the slots (id + n_slots), as the
+    reference kernel does (:1214-1224); the shift is undone at the end
+    (the reference's wrapper, :2113-2117).
+
     With stats=True also returns {"node_steps", "leaves", "slot_tests"}
-    summed over the lanes: box tests, fat leaves entered and (lane, slot)
-    Plücker tests."""
+    (and "voxel_tests" with LOD) summed over the lanes: box tests, fat
+    leaves entered, (lane, slot) Plücker tests and voxel tests."""
     dev = ro.device
     N = ro.shape[0]
     nbmin, nbmax = scene["plk_bmin"], scene["plk_bmax"]
     nhit, nmiss = scene["plk_hit"].long(), scene["plk_miss"].long()
     sstart, scount = scene["plk_slot_start"], scene["plk_count"]
     consts, s2p = scene["plk_consts"], scene["plk_slot2prim"]
+    lod = bool(scene.get("has_voxel_lod"))
+    n_slots = s2p.shape[0]
 
     t_out = t0.clone()
     slot_out = torch.full((N,), -1, dtype=torch.int32, device=dev)
@@ -362,12 +454,23 @@ def _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
     t = t0[lane]
     cur = torch.zeros_like(lane)
     slot = torch.full_like(lane, -1, dtype=torch.int32)
-    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
     while lane.numel():
         if stats:
             counts[0] += lane.numel()
-        ahit = _slab_hit(nbmin[cur], nbmax[cur], o, inv, t)
         ss = sstart[cur]
+        if lod:
+            t_enter, t_exit = _slab(nbmin[cur], nbmax[cur], o, inv)
+            ahit = (t_enter <= t_exit) & (t_exit > 0.0) & (t_enter < t)
+            vid = _voxel_of_word(ss)
+            vid = torch.where(vid >= 0, vid + n_slots, -1)
+            if stats:
+                counts[3] += (vid >= 0).sum()
+            closer = _voxel_hit(vid, t_enter, t_exit, t, slot, t_min)
+            t = torch.where(closer, t_enter, t)
+            slot = torch.where(closer, vid, slot)
+        else:
+            ahit = _slab_hit(nbmin[cur], nbmax[cur], o, inv, t)
         at = torch.nonzero(ahit & (ss >= 0)).squeeze(1)
         if at.numel():
             c = scount[cur[at]]
@@ -390,11 +493,14 @@ def _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
             keep = ~done
             lane, o, d, inv, mw = lane[keep], o[keep], d[keep], inv[keep], mw[keep]
             t, cur, slot = t[keep], cur[keep], slot[keep]
-    prim = torch.where(slot_out >= 0, s2p[slot_out.clamp(min=0).long()], -1)
+    prim = torch.where(slot_out >= 0, s2p[slot_out.clamp(0, n_slots - 1).long()], -1)
+    if lod:
+        prim = torch.where(slot_out >= n_slots, slot_out - n_slots, prim)
     out = {"t": t_out, "prim": prim}
     if stats:
         n = counts.tolist()
-        return out, {"node_steps": n[0], "leaves": n[1], "slot_tests": n[2]}
+        work = {"node_steps": n[0], "leaves": n[1], "slot_tests": n[2]}
+        return out, ({**work, "voxel_tests": n[3]} if lod else work)
     return out
 
 
@@ -459,13 +565,21 @@ def _traverse_trl_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
     A lane ends when it has no node and no latched leaf.  Lanes with
     t0 <= t_min keep (t0, -1).  Returns {"t", "prim"}.
 
+    In a voxel-LOD scene a voxel leaf of the baked cut tree (its slot
+    start word VOXEL_WORD - id) records its entry t under `_voxel_hit`'s
+    rule right after the box test, against the t and prim from before the
+    drain, as the reference kernel's step does (:1489-1505); any-hit
+    lanes that already have a prim test no voxel.
+
     With stats=True also returns {"node_steps", "leaves", "slot_tests"}
-    summed over the lanes: box tests, leaves drained and slot tests."""
+    (and "voxel_tests" with LOD) summed over the lanes: box tests, leaves
+    drained, slot tests and voxel tests."""
     dev = ro.device
     N = ro.shape[0]
     nodes, links, recs = scene["trl_nodes"], scene["trl_links"], scene["trl_recs"]
     nodes_i = nodes.view(torch.int32)
     links = links.long()
+    lod = bool(scene.get("has_voxel_lod"))
 
     t_out = t0.clone()
     prim_out = torch.full((N,), -1, dtype=torch.int32, device=dev)
@@ -479,17 +593,28 @@ def _traverse_trl_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
     prim = torch.full_like(lane, -1, dtype=torch.int32)
     pstart = torch.full_like(lane, -1)
     pcount = torch.zeros_like(lane)
-    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
     while lane.numel():
         active = cur >= 0
         curc = cur.clamp(min=0)
         if stats:
             counts[0] += active.sum()
         nd = nodes[curc]
-        hitv = _slab_hit(nd[:, 0:3], nd[:, 3:6], o, inv, t) & active
-        if any_hit:
-            hitv &= prim < 0
         ndi = nodes_i[curc]
+        if lod:
+            t_enter, t_exit = _slab(nd[:, 0:3], nd[:, 3:6], o, inv)
+            want = active & (prim < 0) if any_hit else active
+            hitv = (t_enter <= t_exit) & (t_exit > 0.0) & (t_enter < t) & want
+            vid = torch.where(want, _voxel_of_word(ndi[:, 6]), -1)
+            if stats:
+                counts[3] += (vid >= 0).sum()
+            closer = _voxel_hit(vid, t_enter, t_exit, t, prim, t_min)
+            t = torch.where(closer, t_enter, t)
+            prim = torch.where(closer, vid, prim)
+        else:
+            hitv = _slab_hit(nd[:, 0:3], nd[:, 3:6], o, inv, t) & active
+            if any_hit:
+                hitv &= prim < 0
         enter = hitv & (ndi[:, 6] >= 0)
         dr = torch.nonzero(pstart >= 0).squeeze(1)
         if dr.numel():
@@ -517,7 +642,8 @@ def _traverse_trl_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
     out = {"t": t_out, "prim": prim_out}
     if stats:
         n = counts.tolist()
-        return out, {"node_steps": n[0], "leaves": n[1], "slot_tests": n[2]}
+        work = {"node_steps": n[0], "leaves": n[1], "slot_tests": n[2]}
+        return out, ({**work, "voxel_tests": n[3]} if lod else work)
     return out
 
 
@@ -594,10 +720,11 @@ def traverse(scene, ro, rd, t_max=None, any_hit=False, t_min=1e-4, impl="auto"):
     Instanced scenes add `inst` (accel/tlas.py::traverse_two_level).
 
     impl: "auto" takes the dense test for scenes of at most
-    DENSE_MAX_PRIMS prims, the kernel the scene's build named under the
+    DENSE_MAX_PRIMS prims without voxel LOD, the kernel the scene's build named under the
     kernel policy (static `traversal`: "plk" for K3, "smt" for K4), and
     otherwise the K1 kernel; a kernel runs its plain version for CPU
-    tensors.  "dense", "plain" (the oracle walk), "cuda" (K1), "plk"
+    tensors.  "dense", "plain" (the oracle walk, which with voxel LOD
+    reads scene["lod_depth"]), "cuda" (K1), "plk"
     (K3), "plk_plain" (K3's plain version), "smt" (K4) and "smt_plain"
     (K4's plain version) force one; the last four need their layouts.
     """
@@ -612,7 +739,10 @@ def traverse(scene, ro, rd, t_max=None, any_hit=False, t_min=1e-4, impl="auto"):
     rd = rd.detach().contiguous()
     t0 = _t0_of(t_max, ro.shape[0], ro.device)
     num_prims = scene["num_tris"] + scene["num_spheres"]
-    if impl == "dense" or (impl == "auto" and num_prims <= DENSE_MAX_PRIMS):
+    if scene.get("has_voxel_lod"):
+        if impl == "dense":
+            raise ValueError("the dense test has no voxel LOD; a voxel-LOD scene walks its tree")
+    elif impl == "dense" or (impl == "auto" and num_prims <= DENSE_MAX_PRIMS):
         return _traverse_dense(scene, ro, rd, t0, t_min)
     if impl == "plain":
         return _traverse_plain(scene, ro, rd, t0, any_hit, t_min)

@@ -22,9 +22,13 @@ hit adds it like an emitter at bounce 0 and ends its path at any depth.
 global pixel id, so a band is bitwise the same rows of the whole image
 (the unit of parallel/mesh.py's row sharding).
 
+A voxel-LOD scene (accel/voxel.py) resolves a voxel hit on the entry
+face of the node's box, with the node's dominant material shaded as
+DIFFUSE and no light.
+
 Not ported yet (a scene that needs them raises NotImplementedError):
-alpha and stencil punch-through, voxel LOD, thin-lens and equirect
-cameras, blue-noise sampling and the AOV outputs.
+alpha and stencil punch-through, thin-lens and equirect cameras,
+blue-noise sampling and the AOV outputs.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from aten_tpu_torch.shading.toon import toon_term
 _EMISSIVE = int(MaterialType.EMISSIVE)
 _SPECULAR = int(MaterialType.SPECULAR)
 _REFRACTION = int(MaterialType.REFRACTION)
+_DIFFUSE = int(MaterialType.DIFFUSE)
 _CAR_PAINT = int(MaterialType.CAR_PAINT)
 _TOON = int(MaterialType.TOON)
 _STYLIZED_BRDF = int(MaterialType.STYLIZED_BRDF)
@@ -57,8 +62,7 @@ MAX_LANES = 4 << 20
 def check_scene(scene):
     """Raise NotImplementedError for scene features the port lacks."""
     for flag, what in (("has_alpha", "alpha punch-through"),
-                       ("has_stencil", "stencil punch-through"),
-                       ("has_voxel_lod", "voxel LOD")):
+                       ("has_stencil", "stencil punch-through")):
         if scene.get(flag):
             raise NotImplementedError(f"{what} is not ported yet")
     brdf_mod.check_used_types(scene.get("used_mtl_types"))
@@ -71,7 +75,13 @@ def eval_hit(scene, ro, rd, hit):
 
     On an instanced hit the prim data is object-local: the sphere normal
     comes from the local position W2L*p, and both normals go to world
-    space through the instance's normal matrix (W2L^T), renormalised."""
+    space through the instance's normal matrix (W2L^T), renormalised.
+
+    In a voxel-LOD scene a hit on a voxel (prim >= num_tris +
+    num_spheres, the node prim - that) is resolved as the reference does
+    (pathtracer.py:166-191): both normals are the axis normal of the box
+    face the ray entered by, facing the ray; the material is the node's
+    dominant one, the light id -1, and `is_voxel` marks such lanes."""
     prim = hit["prim"]
     num_tris = scene["num_tris"]
     T = scene["tri_v0"].shape[0]
@@ -110,7 +120,7 @@ def eval_hit(scene, ro, rd, hit):
         nmtx = scene["inst_nmtx"][iid]
         ns = vm.normalize(apply_affine(nmtx, ns[:, 0], ns[:, 1], ns[:, 2], translate=False))
         ng = vm.normalize(apply_affine(nmtx, ng[:, 0], ng[:, 1], ng[:, 2], translate=False))
-    return {
+    out = {
         "p": p,
         "ns": ns,
         "ng": ng,
@@ -119,6 +129,23 @@ def eval_hit(scene, ro, rd, hit):
         "light": torch.where(is_tri, scene["tri_light"][tid], scene["sph_light"][sid]),
         "mesh": torch.where(is_tri, scene["tri_mesh"][tid], (1 << 20) + sid.to(torch.int32)),
     }
+    if scene.get("has_voxel_lod"):
+        is_vox = prim >= num_tris + scene["num_spheres"]
+        K = scene["nodes_bmin"].shape[0]
+        node = torch.clamp(prim - (num_tris + scene["num_spheres"]), 0, K - 1).long()
+        inv = torch.where(rd.abs() > 1e-12, 1.0 / rd, 1e12)
+        t_a = (scene["nodes_bmin"][node] - ro) * inv
+        t_b = (scene["nodes_bmax"][node] - ro) * inv
+        axis = torch.argmax(torch.minimum(t_a, t_b), dim=-1)  # the entry face's axis
+        n_vox = -torch.sign(rd) * torch.nn.functional.one_hot(axis, 3).to(rd.dtype)
+        n_vox = vm.normalize(torch.where(vm.dot(n_vox, rd) < 0, n_vox, -rd))
+        v3 = is_vox[..., None]
+        out["ns"] = torch.where(v3, n_vox, out["ns"])
+        out["ng"] = torch.where(v3, n_vox, out["ng"])
+        out["mtl"] = torch.where(is_vox, scene["nodes_voxel_mtl"][node], out["mtl"])
+        out["light"] = torch.where(is_vox, -1, out["light"])
+        out["is_voxel"] = is_vox
+    return out
 
 
 def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
@@ -169,6 +196,9 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
         h["ns"] = tex_mod.apply_normal_map(scene, mat, h["ns"], h["uv"])
         if _CAR_PAINT in used:
             mat = brdf_mod.carpaint_flake_fields(mat, h["uv"], h["ns"])
+        if "is_voxel" in h:
+            # voxel hits shade as DIFFUSE (FillMaterial, material_impl.h:232-262)
+            mat["type"] = torch.where(h["is_voxel"], _DIFFUSE, mat["type"])
 
         # miss: the envmap, MIS-weighted against its light, or the background
         miss = alive & ~hit["hit"]

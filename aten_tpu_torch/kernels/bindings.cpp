@@ -24,8 +24,8 @@ extern "C" {
 int aten_bvh_traverse(const float* nodes, const float* prims, int32_t num_tris,
                       const float* ro, const float* rd, const float* t0,
                       float* t, int32_t* prim, float* u, float* v, int64_t n,
-                      float t_min, int32_t any_hit, unsigned* next_ray,
-                      void* stream) {
+                      float t_min, int32_t any_hit, int32_t lod,
+                      unsigned* next_ray, void* stream) {
   if (n < 0 || n >= kMaxRays || num_tris < 0) return -1;
   if (n > 0 && (!ro || !rd || !t0 || !t || !prim || !u || !v || !next_ray))
     return -1;
@@ -33,7 +33,7 @@ int aten_bvh_traverse(const float* nodes, const float* prims, int32_t num_tris,
   const aten_tpu_torch::BvhView bvh{nodes, prims, num_tris};
   const aten_tpu_torch::RayView rays{ro, rd, t0, t, prim, u, v, n};
   return aten_tpu_torch::launch_bvh_traverse(bvh, rays, t_min, any_hit != 0,
-                                             next_ray, stream);
+                                             lod != 0, next_ray, stream);
 }
 
 // The two-level walk; returns as aten_bvh_traverse does.
@@ -56,18 +56,18 @@ int aten_tlas_traverse(const float* nodes, const float* insts, const float* prim
 
 // The Plücker treelet walk; returns as aten_bvh_traverse does.
 int aten_plk_traverse(const float* nodes, const float* consts,
-                      const int32_t* slot2prim, const float* ro,
+                      const int32_t* slot2prim, int32_t n_slots, const float* ro,
                       const float* rd, const float* t0, float* t,
                       int32_t* prim, int64_t n, float t_min, int32_t any_hit,
-                      unsigned* next_ray, void* stream) {
-  if (n < 0 || n >= kMaxRays) return -1;
+                      int32_t lod, unsigned* next_ray, void* stream) {
+  if (n < 0 || n >= kMaxRays || n_slots < 0) return -1;
   if (n > 0 && (!ro || !rd || !t0 || !t || !prim || !next_ray)) return -1;
   if (!nodes || !consts || !slot2prim || !aligned16(nodes) || !aligned16(consts))
     return -1;
-  const aten_tpu_torch::PlkView plk{nodes, consts, slot2prim};
+  const aten_tpu_torch::PlkView plk{nodes, consts, slot2prim, n_slots};
   const aten_tpu_torch::RayView rays{ro, rd, t0, t, prim, nullptr, nullptr, n};
   return aten_tpu_torch::launch_plk_traverse(plk, rays, t_min, any_hit != 0,
-                                             next_ray, stream);
+                                             lod != 0, next_ray, stream);
 }
 
 // The multi-chain treelet walk; returns as aten_bvh_traverse does.
@@ -75,7 +75,7 @@ int aten_smt_traverse(const float* nodes, const int32_t* links,
                       const float* recs, const float* ro, const float* rd,
                       const float* t0, float* t, int32_t* prim, int64_t n,
                       float t_min, int32_t any_hit, int32_t chains,
-                      unsigned* next_ray, void* stream) {
+                      int32_t lod, unsigned* next_ray, void* stream) {
   if (n < 0 || n >= kMaxRays || !(t_min >= 0.0f)) return -1;
   if (n > 0 && (!ro || !rd || !t0 || !t || !prim || !next_ray)) return -1;
   if (!nodes || !links || !recs) return -1;
@@ -85,7 +85,7 @@ int aten_smt_traverse(const float* nodes, const int32_t* links,
   const aten_tpu_torch::TrlView trl{nodes, links, recs};
   const aten_tpu_torch::RayView rays{ro, rd, t0, t, prim, nullptr, nullptr, n};
   return aten_tpu_torch::launch_smt_traverse(trl, rays, t_min, any_hit != 0,
-                                             chains, next_ray, stream);
+                                             chains, lod != 0, next_ray, stream);
 }
 
 const char* aten_cuda_error_string(int code) {

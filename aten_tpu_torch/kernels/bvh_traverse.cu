@@ -17,6 +17,16 @@
 // without FMA contraction every float op rounds as in the plain torch
 // walk (accel/traverse.py::_traverse_plain), so the two agree bit for bit.
 //
+// The kLod instantiations are the `has_lod=True` branch (:922-923,
+// :950-963) on a tree baked for voxel LOD (ops/lod_layout.py): a voxel
+// leaf's leaf word holds kVoxelWord - id.  The walk tests its box, and
+// where it is hit past t_min with an entry t below the best t (or equal
+// to it, with an id below the winner's) records (t_enter, id, u = v = 0);
+// either way it takes the miss link, and an any-hit ray with a hit ends.
+// Its plain version is _traverse_plain(baked=True).  Voxel leaves are
+// handled inside the node loop, as inner nodes are: they test no prims.
+// The !kLod instantiations are the kernels of before, unchanged.
+//
 // Bound: a data-dependent pointer chase.  The whole pool fits the 50 MB
 // L2 cache, so the latency of each dependent load, not bandwidth or
 // arithmetic, sets the time, and divergent rays in a warp serialise.
@@ -45,7 +55,7 @@ namespace {
 constexpr int kBlock = 128;
 constexpr int kMinIdle = 8;  // idle lanes at which a warp takes new rays
 
-template <bool kAnyHit>
+template <bool kAnyHit, bool kLod>
 __global__ void __launch_bounds__(kBlock)
     bvh_traverse_kernel(BvhView b, RayView r, float t_min, unsigned* next_ray) {
   const float4* __restrict__ nodes = reinterpret_cast<const float4*>(b.nodes);
@@ -75,6 +85,21 @@ __global__ void __launch_bounds__(kBlock)
       while (cur >= 0) {
         const float4 lo = __ldg(nodes + 2 * cur), hi = __ldg(nodes + 2 * cur + 1);
         const int32_t miss = __float_as_int(lo.w);
+        if constexpr (kLod) {
+          const int32_t word = __float_as_int(hi.w);
+          if (word <= kVoxelWord) {  // a voxel leaf
+            const int32_t vid = kVoxelWord - word;
+            float te, tx;
+            slab_enter_exit(lo, hi, ox, oy, oz, ix, iy, iz, te, tx);
+            if (voxel_wins(te, tx, t_min, t, vid, prim)) {
+              t = te;
+              prim = vid;
+              bu = bv = 0.0f;
+            }
+            cur = (kAnyHit && prim >= 0) ? -1 : miss;
+            continue;
+          }
+        }
         if (!slab_hit_box(lo, hi, ox, oy, oz, ix, iy, iz, t)) {
           cur = miss;
           continue;
@@ -124,24 +149,31 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
-template <bool kAnyHit>
+template <bool kAnyHit, bool kLod>
 void launch(const BvhView& bvh, const RayView& rays, float t_min,
             unsigned* next_ray, cudaStream_t s) {
-  const int64_t blocks = persistent_blocks(bvh_traverse_kernel<kAnyHit>, kBlock, rays.n);
-  bvh_traverse_kernel<kAnyHit><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
+  const int64_t blocks =
+      persistent_blocks(bvh_traverse_kernel<kAnyHit, kLod>, kBlock, rays.n);
+  bvh_traverse_kernel<kAnyHit, kLod><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
       bvh, rays, t_min, next_ray);
 }
 
 }  // namespace
 
 int launch_bvh_traverse(const BvhView& bvh, const RayView& rays, float t_min,
-                        bool any_hit, unsigned* next_ray, void* stream) {
+                        bool any_hit, bool lod, unsigned* next_ray, void* stream) {
   if (rays.n <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit) {
-    launch<true>(bvh, rays, t_min, next_ray, s);
+  if (lod) {
+    if (any_hit) {
+      launch<true, true>(bvh, rays, t_min, next_ray, s);
+    } else {
+      launch<false, true>(bvh, rays, t_min, next_ray, s);
+    }
+  } else if (any_hit) {
+    launch<true, false>(bvh, rays, t_min, next_ray, s);
   } else {
-    launch<false>(bvh, rays, t_min, next_ray, s);
+    launch<false, false>(bvh, rays, t_min, next_ray, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

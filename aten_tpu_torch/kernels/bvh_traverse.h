@@ -13,7 +13,8 @@ namespace aten_tpu_torch {
 struct BvhView {
   const float* nodes;   // [K,8] (bmin.xyz, miss) (bmax.xyz, leaf), links
                         //       as int bits; leaf = start << 7 | count of
-                        //       the leaf's prim records, -1 when internal
+                        //       the leaf's prim records, -1 when internal,
+                        //       kVoxelWord - id at a voxel leaf
   const float* prims;   // [P,12] prim records in leaf order:
                         //       (v0.xyz, id) (e1.xyz, 0) (e2.xyz, 0), or
                         //       (centre.xyz, id) (radius, 0, 0, 0) (0...)
@@ -38,9 +39,11 @@ struct RayView {
 
 // Enqueues the walk on `stream`; returns the cudaError_t of the launch.
 // `next_ray` is one zeroed counter from which the persistent warps take
-// their rays; rays.n < 2^31.
+// their rays; rays.n < 2^31.  `lod`: the voxel-LOD variant, for a tree
+// baked for voxel LOD, whose voxel leaves hold kVoxelWord - id
+// (traverse_device.cuh) in the leaf word.
 int launch_bvh_traverse(const BvhView& bvh, const RayView& rays,
-                        float t_min, bool any_hit, unsigned* next_ray,
+                        float t_min, bool any_hit, bool lod, unsigned* next_ray,
                         void* stream);
 
 // The packed records of ops/tlas_layout.py; device pointers, 16-byte
@@ -77,12 +80,14 @@ struct PlkView {
                               //        leaf = slot start << 7 | slot count
   const float* consts;        // [S,16] slot records
   const int32_t* slot2prim;   // [S] global prim id of each slot
+  int32_t n_slots;            // S: the voxel-LOD variant's winners at or
+                              // above it are voxel ids + S
 };
 
 // Writes rays.t and rays.prim; rays.u and rays.v are not used.  As
 // launch_bvh_traverse.
 int launch_plk_traverse(const PlkView& plk, const RayView& rays,
-                        float t_min, bool any_hit, unsigned* next_ray,
+                        float t_min, bool any_hit, bool lod, unsigned* next_ray,
                         void* stream);
 
 // The treelet layout of ops/trl_layout.py; device pointers.
@@ -90,7 +95,8 @@ int launch_plk_traverse(const PlkView& plk, const RayView& rays,
 // 8-byte aligned (read as int2).
 struct TrlView {
   const float* nodes;    // [Kt,8] bmin, bmax, first slot of a fat leaf
-                         //        (or -1) and its slot count as int bits
+                         //        (or -1; kVoxelWord - id at a voxel
+                         //        leaf) and its slot count as int bits
   const int32_t* links;  // [Kt,12] (hit, miss) per ordering 2*axis + neg
   const float* recs;     // [S,12] slot records (ops/trl_layout.py)
 };
@@ -100,7 +106,7 @@ struct TrlView {
 // launch_bvh_traverse; slot starts < 2^24 and t_min >= 0 (the drain orders
 // a hit's t by its bits).
 int launch_smt_traverse(const TrlView& trl, const RayView& rays, float t_min,
-                        bool any_hit, int chains, unsigned* next_ray,
+                        bool any_hit, int chains, bool lod, unsigned* next_ray,
                         void* stream);
 
 const char* cuda_error_string(int code);

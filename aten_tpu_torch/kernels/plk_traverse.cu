@@ -30,6 +30,15 @@
 // The slot goes through slot2prim at the end; u/v come from
 // accel/traverse.py::recompute_uv on the winner.
 //
+// The kLod instantiations are the `has_lod=True` branch (:1214-1224) on
+// the cut tree of a tree baked for voxel LOD (ops/lod_layout.py), whose
+// voxel leaves hold kVoxelWord - id in the leaf word.  The per-lane walk
+// tests a voxel leaf's box as K1's does and records its raw entry t with
+// the id shifted above the slots (id + n_slots), so ties compare in one
+// namespace as in the reference; it takes the miss link, before any warp
+// drain.  The shift is undone at the end (the reference's wrapper,
+// :2113-2117).  The !kLod instantiations are the kernels of before.
+//
 // Bound: a dependent walk of the cut tree, then up to 64 records of 64 B
 // per fat leaf entered, each read once per ray.  On the 512k-prim scene
 // the records' 35 MB fit the 50 MB L2, so the latency of the walk's
@@ -90,7 +99,7 @@ __device__ __forceinline__ int32_t slot_code(const float4* __restrict__ rec,
   return signok && tt > t_min ? (__float_as_int(tt) & ~kSlotMask) | j : kNoHit;
 }
 
-template <bool kAnyHit>
+template <bool kAnyHit, bool kLod>
 __global__ void __launch_bounds__(kBlock)
     plk_traverse_kernel(PlkView p, RayView r, float t_min, unsigned* next_ray) {
   const float4* __restrict__ nodes = reinterpret_cast<const float4*>(p.nodes);
@@ -124,6 +133,20 @@ __global__ void __launch_bounds__(kBlock)
       while (cur >= 0) {
         const float4 lo = __ldg(nodes + 2 * cur), hi = __ldg(nodes + 2 * cur + 1);
         const int32_t miss = __float_as_int(lo.w);
+        if constexpr (kLod) {
+          const int32_t word = __float_as_int(hi.w);
+          if (word <= kVoxelWord) {  // a voxel leaf
+            const int32_t vid = kVoxelWord - word + p.n_slots;
+            float te, tx;
+            slab_enter_exit(lo, hi, ox, oy, oz, ix, iy, iz, te, tx);
+            if (voxel_wins(te, tx, t_min, t, vid, slot)) {
+              t = te;
+              slot = vid;
+            }
+            cur = (kAnyHit && slot >= 0) ? -1 : miss;
+            continue;
+          }
+        }
         if (!slab_hit_box(lo, hi, ox, oy, oz, ix, iy, iz, t)) {
           cur = miss;
           continue;
@@ -174,30 +197,42 @@ __global__ void __launch_bounds__(kBlock)
     if (kAnyHit && slot >= 0) cur = -1;
     if (ray >= 0 && cur < 0) {
       r.t[ray] = t;
-      r.prim[ray] = slot >= 0 ? __ldg(p.slot2prim + slot) : -1;
+      if constexpr (kLod) {
+        r.prim[ray] = slot >= p.n_slots ? slot - p.n_slots
+                                        : (slot >= 0 ? __ldg(p.slot2prim + slot) : -1);
+      } else {
+        r.prim[ray] = slot >= 0 ? __ldg(p.slot2prim + slot) : -1;
+      }
       ray = -1;
     }
   }
 }
 
-template <bool kAnyHit>
+template <bool kAnyHit, bool kLod>
 void launch(const PlkView& plk, const RayView& rays, float t_min,
             unsigned* next_ray, cudaStream_t s) {
-  const int64_t blocks = persistent_blocks(plk_traverse_kernel<kAnyHit>, kBlock, rays.n);
-  plk_traverse_kernel<kAnyHit><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
+  const int64_t blocks =
+      persistent_blocks(plk_traverse_kernel<kAnyHit, kLod>, kBlock, rays.n);
+  plk_traverse_kernel<kAnyHit, kLod><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
       plk, rays, t_min, next_ray);
 }
 
 }  // namespace
 
 int launch_plk_traverse(const PlkView& plk, const RayView& rays, float t_min,
-                        bool any_hit, unsigned* next_ray, void* stream) {
+                        bool any_hit, bool lod, unsigned* next_ray, void* stream) {
   if (rays.n <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit) {
-    launch<true>(plk, rays, t_min, next_ray, s);
+  if (lod) {
+    if (any_hit) {
+      launch<true, true>(plk, rays, t_min, next_ray, s);
+    } else {
+      launch<false, true>(plk, rays, t_min, next_ray, s);
+    }
+  } else if (any_hit) {
+    launch<true, false>(plk, rays, t_min, next_ray, s);
   } else {
-    launch<false>(plk, rays, t_min, next_ray, s);
+    launch<false, false>(plk, rays, t_min, next_ray, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,6 +31,16 @@
 //   * a ray with t0 <= t_min never walks.
 // u/v come from accel/traverse.py::recompute_uv on the winner.
 //
+// The kLod instantiations are the `has_lod=True` branch (:1489-1497) on
+// the cut tree of a tree baked for voxel LOD (ops/lod_layout.py), whose
+// voxel leaves hold kVoxelWord - id in the slot-start word.  Right after
+// a step's box test, and so before the drain of the leaf latched on the
+// step before, as in the reference, a voxel leaf whose box is hit past
+// t_min with an entry t below the ray's t (or equal to it, with an id
+// below the winner's) records (t_enter, id); the step takes the miss
+// link, and an any-hit ray with a hit drops its cursor.  The !kLod
+// instantiations are the kernels of before.
+//
 // Bound: each step is a dependent load of 40 B of node and links, then a
 // fat leaf of up to 64 slot records of 48 B (the records of the 512k-prim
 // scene, 26 MB, fit the 50 MB L2 cache); ~25 operations per box test and
@@ -115,7 +125,7 @@ __device__ __forceinline__ unsigned slot_key(const float4* __restrict__ rec, flo
   return hp ? __float_as_uint(tp) : kNoHit;
 }
 
-template <bool kAnyHit, int C>
+template <bool kAnyHit, int C, bool kLod>
 __global__ void __launch_bounds__(kBlock)
     smt_traverse_kernel(TrlView p, RayView r, float t_min, unsigned* next_ray) {
   const float4* __restrict__ nodes = reinterpret_cast<const float4*>(p.nodes);
@@ -169,11 +179,22 @@ __global__ void __launch_bounds__(kBlock)
           const float t_exit =
               fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
           hitv = t_enter <= t_exit && t_exit > 0.0f && t_enter < h.t;
+          if constexpr (kLod) {
+            const int32_t word = __float_as_int(nb[c].z);
+            if (word <= kVoxelWord &&
+                voxel_wins(t_enter, t_exit, t_min, h.t, kVoxelWord - word, h.prim)) {
+              h.t = t_enter;
+              h.prim = kVoxelWord - word;
+            }
+          }
         }
         const int32_t ss = __float_as_int(nb[c].z);
         const int32_t latch =
             hitv && ss >= 0 ? (ss << kLeafShift) | __float_as_int(nb[c].w) : -1;
         h.cur = hitv ? lk[c].x : lk[c].y;
+        if constexpr (kLod && kAnyHit) {
+          if (h.prim >= 0) h.cur = -1;  // a voxel hit ends an any-hit walk
+        }
         if (h.pend < 0) {
           h.pend = latch;  // nothing to drain first: the step is complete
         } else {
@@ -243,30 +264,30 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
-template <bool kAnyHit, int C>
+template <bool kAnyHit, int C, bool kLod>
 void launch(const TrlView& trl, const RayView& rays, float t_min, unsigned* next_ray,
             cudaStream_t s) {
-  const int64_t blocks =
-      persistent_blocks(smt_traverse_kernel<kAnyHit, C>, kBlock, (rays.n + C - 1) / C);
-  smt_traverse_kernel<kAnyHit, C><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
+  const int64_t blocks = persistent_blocks(smt_traverse_kernel<kAnyHit, C, kLod>, kBlock,
+                                           (rays.n + C - 1) / C);
+  smt_traverse_kernel<kAnyHit, C, kLod><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
       trl, rays, t_min, next_ray);
 }
 
-template <bool kAnyHit>
+template <bool kAnyHit, bool kLod>
 int launch_chains(const TrlView& trl, const RayView& rays, float t_min, int chains,
                   unsigned* next_ray, cudaStream_t s) {
   switch (chains) {
     case 1:
-      launch<kAnyHit, 1>(trl, rays, t_min, next_ray, s);
+      launch<kAnyHit, 1, kLod>(trl, rays, t_min, next_ray, s);
       break;
     case 2:
-      launch<kAnyHit, 2>(trl, rays, t_min, next_ray, s);
+      launch<kAnyHit, 2, kLod>(trl, rays, t_min, next_ray, s);
       break;
     case 4:
-      launch<kAnyHit, 4>(trl, rays, t_min, next_ray, s);
+      launch<kAnyHit, 4, kLod>(trl, rays, t_min, next_ray, s);
       break;
     case 8:
-      launch<kAnyHit, 8>(trl, rays, t_min, next_ray, s);
+      launch<kAnyHit, 8, kLod>(trl, rays, t_min, next_ray, s);
       break;
     default:
       return -1;
@@ -277,12 +298,17 @@ int launch_chains(const TrlView& trl, const RayView& rays, float t_min, int chai
 }  // namespace
 
 int launch_smt_traverse(const TrlView& trl, const RayView& rays, float t_min,
-                        bool any_hit, int chains, unsigned* next_ray, void* stream) {
+                        bool any_hit, int chains, bool lod, unsigned* next_ray,
+                        void* stream) {
   if (chains != 1 && chains != 2 && chains != 4 && chains != 8) return -1;
   if (rays.n <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return any_hit ? launch_chains<true>(trl, rays, t_min, chains, next_ray, s)
-                 : launch_chains<false>(trl, rays, t_min, chains, next_ray, s);
+  if (lod) {
+    return any_hit ? launch_chains<true, true>(trl, rays, t_min, chains, next_ray, s)
+                   : launch_chains<false, true>(trl, rays, t_min, chains, next_ray, s);
+  }
+  return any_hit ? launch_chains<true, false>(trl, rays, t_min, chains, next_ray, s)
+                 : launch_chains<false, false>(trl, rays, t_min, chains, next_ray, s);
 }
 
 }  // namespace aten_tpu_torch

@@ -34,6 +34,33 @@ __device__ __forceinline__ bool slab_hit_box(float4 lo, float4 hi, float ox,
   return t_enter <= t_exit && t_exit > 0.0f && t_enter < t;
 }
 
+// (t_enter, t_exit) of the same slab test, for the voxel-LOD variants,
+// which also need a box whose entry t ties the best t.
+__device__ __forceinline__ void slab_enter_exit(float4 lo, float4 hi, float ox,
+                                                float oy, float oz, float ix,
+                                                float iy, float iz,
+                                                float& t_enter, float& t_exit) {
+  const float tx0 = (lo.x - ox) * ix, tx1 = (hi.x - ox) * ix;
+  const float ty0 = (lo.y - oy) * iy, ty1 = (hi.y - oy) * iy;
+  const float tz0 = (lo.z - oz) * iz, tz1 = (hi.z - oz) * iz;
+  t_enter = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+  t_exit = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+}
+
+// A voxel leaf of a tree baked for voxel LOD (ops/lod_layout.py) holds
+// kVoxelWord - id where a leaf holds its range (<= kVoxelWord).
+constexpr int32_t kVoxelWord = -2;
+
+// The voxel hit rule (accel/traverse.py::_voxel_hit, the reference's
+// traverse.py:260-291): the box [t_enter, t_exit] is hit past t_min and
+// its entry t beats the best t, or ties it with a smaller id than the
+// winner's.
+__device__ __forceinline__ bool voxel_wins(float t_enter, float t_exit, float t_min,
+                                           float t, int32_t vid, int32_t best) {
+  return t_enter <= t_exit && t_exit > 0.0f && t_enter > t_min &&
+         (t_enter < t || (t_enter == t && vid < best));
+}
+
 constexpr unsigned kFullWarp = 0xffffffffu;
 
 // The ray queue of a persistent kernel: each lane of the calling warp

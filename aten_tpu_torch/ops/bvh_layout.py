@@ -13,7 +13,8 @@ is the next node, i + 1, and a leaf's hit link equals its miss link.
 fails.  `leaf` is -1 on an internal node; on a leaf it packs the start
 and count of its range as `start << LEAF_SHIFT | count`: for K1 the
 leaf's prim range in leaf order (count <= LEAF_MAX), for K3 the fat
-leaf's slot range (count <= 64).
+leaf's slot range (count <= 64).  A voxel leaf of a tree baked for voxel
+LOD (ops/lod_layout.py) holds `VOXEL_WORD - id` (<= -2) there instead.
 
 K1 also reads one 48-byte record per prim in leaf order, three float4s,
 so a leaf's prims are contiguous and the kernel makes no dependent load
@@ -31,6 +32,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from aten_tpu_torch.ops.lod_layout import voxel_words
+
 NODE_WORDS = 8     # float32 words of a node record (32 B)
 PRIM_WORDS = 12    # float32 words of a K1 prim record (48 B)
 LEAF_SHIFT = 7     # a leaf's count fills the low 7 bits (<= 64 for K3)
@@ -41,13 +44,14 @@ MAX_START = 1 << (31 - LEAF_SHIFT)  # starts below this pack into an int32
 ARRAY_KEYS = ("bvh_nodes", "bvh_prims")
 
 
-def pack_nodes(bmin, bmax, hit, miss, start, count, is_leaf):
+def pack_nodes(bmin, bmax, hit, miss, start, count, is_leaf, vox=None):
     """[K, NODE_WORDS] float32 records of a tree in preorder.
 
     bmin, bmax [K,3]; hit, miss [K] int links; is_leaf [K] bool; start,
-    count [K] the range of each leaf.  Raises ValueError unless every
-    internal node's hit link is i + 1 and every leaf's equals its miss
-    link, or if a leaf's range does not pack."""
+    count [K] the range of each leaf; vox [K] the global id of each voxel
+    leaf (also in is_leaf), -1 elsewhere, or None.  Raises ValueError
+    unless every internal node's hit link is i + 1 and every leaf's
+    equals its miss link, or if a leaf's range does not pack."""
     hit = np.asarray(hit, np.int64)
     miss = np.asarray(miss, np.int64)
     start = np.asarray(start, np.int64)
@@ -62,11 +66,12 @@ def pack_nodes(bmin, bmax, hit, miss, start, count, is_leaf):
     if bad_leaf.size:
         raise ValueError(f"leaf {int(bad_leaf[0])} has hit link {int(hit[bad_leaf[0]])} "
                          f"and miss link {int(miss[bad_leaf[0]])}; they must be equal")
-    s, c = start[is_leaf], count[is_leaf]
+    ranged = is_leaf if vox is None else is_leaf & (np.asarray(vox) < 0)
+    s, c = start[ranged], count[ranged]
     if ((s < 0) | (s >= MAX_START) | (c < 0) | (c > LEAF_COUNT)).any():
         raise ValueError("a leaf range does not pack into start << "
                          f"{LEAF_SHIFT} | count (start < {MAX_START}, count <= {LEAF_COUNT})")
-    leaf = np.where(is_leaf, (start << LEAF_SHIFT) | count, -1)
+    leaf = voxel_words(np.where(is_leaf, (start << LEAF_SHIFT) | count, -1), vox)
     rec = np.zeros((K, NODE_WORDS), np.float32)
     rec[:, 0:3] = bmin
     rec[:, 4:7] = bmax
@@ -79,11 +84,11 @@ def pack_nodes(bmin, bmax, hit, miss, start, count, is_leaf):
 def unpack_nodes(rec):
     """The arrays `pack_nodes` packed: (bmin, bmax, hit, miss, leaf, start,
     count), the ints int32; start and count are -1 and 0 on internal
-    nodes."""
+    nodes and voxel leaves."""
     ints = np.ascontiguousarray(rec).view(np.int32)
     miss, leaf = ints[:, 3].copy(), ints[:, 7].copy()
     is_leaf = leaf >= 0
-    hit = np.where(is_leaf, miss, np.arange(1, rec.shape[0] + 1)).astype(np.int32)
+    hit = np.where(leaf != -1, miss, np.arange(1, rec.shape[0] + 1)).astype(np.int32)
     start = np.where(is_leaf, leaf >> LEAF_SHIFT, -1).astype(np.int32)
     count = np.where(is_leaf, leaf & LEAF_COUNT, 0).astype(np.int32)
     return rec[:, 0:3].copy(), rec[:, 4:7].copy(), hit, miss, leaf, start, count
@@ -106,13 +111,16 @@ def prim_records(order, tri_v0, tri_e1, tri_e2, sph_center, sph_radius, num_tris
     return rec
 
 
-def build_bvh_layout(bvh, tri_v0, tri_e1, tri_e2, sph_center, sph_radius, num_tris):
+def build_bvh_layout(bvh, tri_v0, tri_e1, tri_e2, sph_center, sph_radius, num_tris,
+                     vox=None):
     """K1's layout of a single-level threaded BVH: a dict of numpy arrays
     under ARRAY_KEYS, bvh_nodes [K, NODE_WORDS] and bvh_prims
-    [P, PRIM_WORDS] float32."""
+    [P, PRIM_WORDS] float32.  vox [K]: the voxel leaves' global ids of a
+    tree baked for voxel LOD (ops/lod_layout.py), -1 elsewhere."""
     ps = np.asarray(bvh["nodes_prim_start"], np.int64)
+    is_leaf = ps >= 0 if vox is None else (ps >= 0) | (np.asarray(vox) >= 0)
     nodes = pack_nodes(bvh["nodes_bmin"], bvh["nodes_bmax"], bvh["nodes_hit"],
-                       bvh["nodes_miss"], ps, bvh["nodes_prim_count"], ps >= 0)
+                       bvh["nodes_miss"], ps, bvh["nodes_prim_count"], is_leaf, vox)
     prims = prim_records(bvh["prim_order"], tri_v0, tri_e1, tri_e2, sph_center,
                          sph_radius, num_tris)
     return {"bvh_nodes": nodes, "bvh_prims": prims}

@@ -5,7 +5,10 @@ any-hit instantiations) over a scene's Plücker layout
 (ops/plk_layout.py): the packed cut-tree records `plk_nodes`, the slot
 records `plk_consts` and `plk_slot2prim`.  It replaces the TPU kernel
 `_make_plk_treelet_kernel` (aten_tpu/ops/traverse_pallas.py:1058,
-launched by `_traverse_plk_tiles` :1276).  Its arguments are checked on
+launched by `_traverse_plk_tiles` :1276).  On a voxel-LOD scene it runs
+the `lod` variant, the `has_lod=True` branch (:1214-1224, the wrapper's
+id translation :2113-2117), over the layout of the baked tree, and
+raises when the scene's `lod_depth` differs from its `lod_bake_depth`.  Its arguments are checked on
 every device; for tensors on the CPU it then runs the kernel's plain
 version, accel/traverse.py::_traverse_plk_plain, and on a CUDA tensor it
 launches the kernel or raises, never falling back.  The kernel lives in
@@ -16,18 +19,20 @@ from __future__ import annotations
 import torch
 
 from aten_tpu_torch.ops.bvh_layout import NODE_WORDS
+from aten_tpu_torch.ops.lod_layout import lod_of
 from aten_tpu_torch.ops.plk_layout import RECORD, WINDOW
 from aten_tpu_torch.ops.traverse_cuda import _checked, _packed, load_library, next_ray_counter
 
 KERNELS = ("plk_traverse_closest", "plk_traverse_any")
+LOD_KERNELS = ("plk_traverse_lod_closest", "plk_traverse_lod_any")
 
 # Launches per kernel instantiation since the last reset: the one place
 # that adds to a count is the line after a successful launch below.
-launch_counts = dict.fromkeys(KERNELS, 0)
+launch_counts = dict.fromkeys(KERNELS + LOD_KERNELS, 0)
 
 
 def reset_launch_counts():
-    for k in KERNELS:
+    for k in launch_counts:
         launch_counts[k] = 0
 
 
@@ -49,6 +54,7 @@ def plk_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
     if scene.get("plk_window") != WINDOW:
         raise ValueError(f"the scene's Plücker layout has window "
                          f"{scene.get('plk_window')}; the kernel takes {WINDOW}")
+    lod = lod_of(scene)
     n = ro.shape[0]
     ptrs = _packed(scene, _SCENE_FIELDS, dev)
     ro_p = _checked("ro", ro, torch.float32, (3,), dev)
@@ -70,11 +76,12 @@ def plk_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.aten_plk_traverse(
-            *ptrs, ro_p, rd_p, t0_p, t.data_ptr(), prim.data_ptr(),
-            n, float(t_min), int(any_hit), counter.data_ptr(), stream)
+            *ptrs, scene["plk_slot2prim"].shape[0], ro_p, rd_p, t0_p, t.data_ptr(),
+            prim.data_ptr(), n, float(t_min), int(any_hit), int(lod), counter.data_ptr(),
+            stream)
     if rc != 0:
         what = ("bad arguments" if rc < 0
                 else lib.aten_cuda_error_string(rc).decode())
         raise RuntimeError(f"plk_traverse launch failed ({rc}): {what}")
-    launch_counts[KERNELS[1] if any_hit else KERNELS[0]] += 1
+    launch_counts[(LOD_KERNELS if lod else KERNELS)[int(any_hit)]] += 1
     return t, prim

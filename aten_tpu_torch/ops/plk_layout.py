@@ -1,9 +1,9 @@
 """The Plücker leaf layout of the treelet traversal (kernel K3).
 
 Counterpart of the layout half of aten_tpu/ops/traverse_pallas.py, in
-numpy: `treelet_cut` (:457-531, without voxel protection), the fat-leaf
-row alignment of `build_treelet_layout` (:640-651), and the Plücker
-constants of `_build_plucker_emat` (:722-758).
+numpy: `treelet_cut` (:457-531), the fat-leaf row alignment of
+`build_treelet_layout` (:640-651), and the Plücker constants of
+`_build_plucker_emat` (:722-758).
 
 The threaded BVH is cut at subtrees of at most WINDOW prims; each such
 subtree becomes one fat leaf of the cut tree, with the default threaded
@@ -18,6 +18,14 @@ E block bit for bit; the block's numerator rows hold -n, which the
 kernel gets by an exact negation.  The block itself, [16, 4*WINDOW] per
 leaf laid out for the TPU's matrix unit, holds 19 nonzero entries of 64
 per slot and is not built.
+
+A tree baked for voxel LOD (ops/lod_layout.py) keeps each voxel leaf as
+a node of its own: the cut never folds a subtree that holds one into a
+fat leaf, and the voxel leaf carries no slots; `plk_slot_start` and the
+packed leaf word hold its id as `VOXEL_WORD - id`
+(`build_treelet_layout(voxid=, vox_base=)`, :622, :634-637, :668-669).
+Its leaf ranges index the original prim order, which keeps the prims of
+pruned subtrees: only the prims of fat leaves get slots.
 
 The K3 kernel reads the cut tree as packed 32-byte node records
 (ops/bvh_layout.py::pack_nodes), `plk_nodes`, with a fat leaf's
@@ -39,6 +47,7 @@ from __future__ import annotations
 import numpy as np
 
 from aten_tpu_torch.ops.bvh_layout import pack_nodes
+from aten_tpu_torch.ops.lod_layout import voxel_words
 
 WINDOW = 64        # fat-leaf capacity; the slot id fills the 6 low bits of t
 PACK = 8           # slots per row: fat leaves start on PACK-slot boundaries
@@ -54,14 +63,19 @@ ARRAY_KEYS = ("plk_bmin", "plk_bmax", "plk_hit", "plk_miss",
               "plk_nodes")
 
 
-def treelet_cut(bvh):
+def treelet_cut(bvh, protect=None):
     """Cut a threaded BVH at subtrees of <= WINDOW prims.
 
     Returns (bmin [Kt,3] f32, bmax [Kt,3] f32, hit, miss, start, count,
     keep), the int arrays int64: the kept nodes in preorder with their
     default threaded links; fat leaves carry their subtree's contiguous
     prim range (start, count) in prim_order, interior nodes (-1, 0);
-    keep is the original index of each kept node."""
+    keep is the original index of each kept node.
+
+    protect [K] bool (voxel leaves): nodes that stay nodes of their own.
+    A subtree with a protected node strictly below its root is never
+    folded into a fat leaf, and a protected node becomes a fat leaf of
+    its own (zero prims: start -1, count 0)."""
     nmiss = np.asarray(bvh["nodes_miss"], np.int64)
     nps = np.asarray(bvh["nodes_prim_start"], np.int64)
     npc = np.asarray(bvh["nodes_prim_count"], np.int64)
@@ -71,13 +85,20 @@ def treelet_cut(bvh):
     prefix = np.zeros(K + 1, np.int64)
     prefix[1:] = np.cumsum(leaf_prims)
 
+    if protect is None:
+        protect = np.zeros(K, bool)
+    pcum = np.zeros(K + 1, np.int64)
+    pcum[1:] = np.cumsum(protect)
+
     miss_l, nps_l, prefix_l = nmiss.tolist(), nps.tolist(), prefix.tolist()
+    prot_l, pcum_l = protect.tolist(), pcum.tolist()
     keep, is_fat = [], []
     i = 0
     while i != -1:
         skip = miss_l[i]
         cnt = (P if skip < 0 else prefix_l[skip]) - prefix_l[i]
-        fat = nps_l[i] >= 0 or cnt <= WINDOW
+        below = pcum_l[K if skip < 0 else skip] - pcum_l[i + 1]
+        fat = prot_l[i] or nps_l[i] >= 0 or (cnt <= WINDOW and below == 0)
         keep.append(i)
         is_fat.append(fat)
         i = skip if fat else i + 1  # past the subtree, or its first child
@@ -107,14 +128,15 @@ def treelet_cut(bvh):
 def align_rows(start, count, n_prims):
     """Row-align the fat leaves' prim ranges (build_treelet_layout
     :640-651).  Returns (row_start [Kt] (-1 off fat leaves), row_of_prim
-    [P] = the slot of each prim_order position, n_rows_padded), the pool
-    carrying one window of tail rows."""
+    [P] = the slot of each prim_order position (-1 at a position no fat
+    leaf holds: the prims of a voxel's pruned subtree), n_rows_padded),
+    the pool carrying one window of tail rows."""
     fat = np.nonzero((start >= 0) & (count > 0))[0]
     c = count[fat]
     rows = -(-c // PACK)
     row_start = np.full(start.shape[0], -1, np.int64)
     row_start[fat] = np.cumsum(rows) - rows
-    row_of_prim = np.zeros(n_prims, np.int64)
+    row_of_prim = np.full(n_prims, -1, np.int64)
     j = np.arange(int(c.sum())) - np.repeat(np.cumsum(c) - c, c)
     row_of_prim[np.repeat(start[fat], c) + j] = np.repeat(row_start[fat] * PACK, c) + j
     return row_start, row_of_prim, int(rows.sum()) + WINDOW // PACK
@@ -143,15 +165,17 @@ def plucker_records(tri_v0, tri_e1, tri_e2, tid):
     ], axis=1).astype(np.float32)
 
 
-def build_plk_layout(bvh, tri_v0, tri_e1, tri_e2, num_tris):
+def build_plk_layout(bvh, tri_v0, tri_e1, tri_e2, num_tris, vox=None):
     """The K3 layout of a single-level threaded BVH, or None when a leaf
-    holds a sphere (the Plücker test is for triangles only).
+    holds a sphere (the Plücker test is for triangles only).  vox [K]:
+    the voxel leaves' global ids of a tree baked for voxel LOD, -1
+    elsewhere; plk_slot_start and the leaf word then hold VOXEL_WORD - id.
 
     Returns a dict of numpy arrays under ARRAY_KEYS, plus the scalars
     `plk_window` (WINDOW) and `plk_pool_mb` (the reference's pool size):
     plk_bmin/bmax [Kt,3] f32, plk_hit/miss [Kt] i32 (default threaded
     links of the cut tree), plk_slot_start [Kt] i32 (row_start * PACK on
-    fat leaves, else -1), plk_count [Kt] i32 (<= WINDOW), plk_consts
+    fat leaves, VOXEL_WORD - id on voxel leaves, else -1), plk_count [Kt] i32 (<= WINDOW), plk_consts
     [n_slots, RECORD] f32 (zero on padding slots), plk_slot2prim
     [n_slots] i32 (-1 on padding slots), plk_nodes [Kt, NODE_WORDS] f32
     (the packed records of the cut tree, with each fat leaf's slot start
@@ -159,16 +183,23 @@ def build_plk_layout(bvh, tri_v0, tri_e1, tri_e2, num_tris):
     order = np.asarray(bvh["prim_order"], np.int64)
     if (order >= num_tris).any():
         return None
-    bmin, bmax, hit, miss, start, count, _ = treelet_cut(bvh)
+    bmin, bmax, hit, miss, start, count, keep = treelet_cut(
+        bvh, None if vox is None else np.asarray(vox) >= 0)
     P = order.shape[0]
     row_start, row_of_prim, n_rows = align_rows(start, count, P)
     n_slots = n_rows * PACK
+    placed = row_of_prim >= 0
     consts = np.zeros((n_slots, RECORD), np.float32)
-    consts[row_of_prim] = plucker_records(tri_v0, tri_e1, tri_e2, order)
+    consts[row_of_prim[placed]] = plucker_records(tri_v0, tri_e1, tri_e2, order[placed])
     slot2prim = np.full(n_slots, -1, np.int32)
-    slot2prim[row_of_prim] = order
+    slot2prim[row_of_prim[placed]] = order[placed]
     slot_start = np.where(row_start >= 0, row_start * PACK, -1)
-    nodes = pack_nodes(bmin, bmax, hit, miss, slot_start, count, slot_start >= 0)
+    vox_cut = None if vox is None else np.asarray(vox, np.int64)[keep]
+    if vox_cut is not None and int(vox_cut.max(initial=-1)) + n_slots > np.iinfo(np.int32).max:
+        raise ValueError("K3 shifts voxel ids by the slot count: they must fit int32")
+    is_leaf = slot_start >= 0 if vox_cut is None else (slot_start >= 0) | (vox_cut >= 0)
+    nodes = pack_nodes(bmin, bmax, hit, miss, slot_start, count, is_leaf, vox_cut)
+    slot_start = voxel_words(slot_start, vox_cut)
     return {
         "plk_bmin": bmin, "plk_bmax": bmax,
         "plk_hit": hit.astype(np.int32), "plk_miss": miss.astype(np.int32),

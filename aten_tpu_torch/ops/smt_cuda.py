@@ -5,7 +5,10 @@ any-hit instantiations, 1, 2, 4 or 8 rays per lane) over a scene's
 treelet layout (ops/trl_layout.py), in persistent warps that take their
 rays from a counter the wrapper zeroes.  It replaces the TPU kernel
 `_make_smt_kernel` (aten_tpu/ops/traverse_pallas.py:1335, launched by
-`_traverse_smt_tiles` :1542).  Its arguments are checked on every
+`_traverse_smt_tiles` :1542).  On a voxel-LOD scene it runs the `lod`
+variant at every chain count, the `has_lod=True` branch (:1489-1497),
+over the layout of the baked tree, and raises when the scene's
+`lod_depth` differs from its `lod_bake_depth`.  Its arguments are checked on every
 device; for tensors on the CPU it then runs the kernel's plain version,
 accel/traverse.py::_traverse_trl_plain, and on a CUDA tensor it launches
 the kernel or raises, never falling back.  The kernel lives in the
@@ -16,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from aten_tpu_torch.ops.bvh_layout import MAX_START
+from aten_tpu_torch.ops.lod_layout import lod_of
 from aten_tpu_torch.ops.traverse_cuda import _checked, load_library, next_ray_counter
 from aten_tpu_torch.ops.trl_layout import ORDERINGS, RECORD, TRL_NODE, WINDOW
 
@@ -26,19 +30,21 @@ CHAIN_COUNTS = (1, 2, 4, 8)
 DEFAULT_CHAINS = 1
 KERNELS = tuple(f"smt_traverse_{kind}_c{c}" for kind in ("closest", "any")
                 for c in CHAIN_COUNTS)
+LOD_KERNELS = tuple(f"smt_traverse_lod_{kind}_c{c}" for kind in ("closest", "any")
+                    for c in CHAIN_COUNTS)
 
 # Launches per kernel instantiation since the last reset: the one place
 # that adds to a count is the line after a successful launch below.
-launch_counts = dict.fromkeys(KERNELS, 0)
+launch_counts = dict.fromkeys(KERNELS + LOD_KERNELS, 0)
 
 
 def reset_launch_counts():
-    for k in KERNELS:
+    for k in launch_counts:
         launch_counts[k] = 0
 
 
-def kernel_name(any_hit, chains):
-    return f"smt_traverse_{'any' if any_hit else 'closest'}_c{chains}"
+def kernel_name(any_hit, chains, lod=False):
+    return f"smt_traverse_{'lod_' if lod else ''}{'any' if any_hit else 'closest'}_c{chains}"
 
 
 # (name, dtype, trailing shape) of each scene array the kernel reads
@@ -64,6 +70,7 @@ def smt_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4, chains=DEFAULT_CH
     if scene.get("trl_window") != WINDOW:
         raise ValueError(f"the scene's treelet layout has window "
                          f"{scene.get('trl_window')}; the kernel takes {WINDOW}")
+    lod = lod_of(scene)
     n = ro.shape[0]
     ptrs = [_checked(k, scene[k], dt, tail, dev) for k, dt, tail in _SCENE_FIELDS]
     ro_p = _checked("ro", ro, torch.float32, (3,), dev)
@@ -94,10 +101,10 @@ def smt_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4, chains=DEFAULT_CH
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.aten_smt_traverse(
             *ptrs, ro_p, rd_p, t0_p, t.data_ptr(), prim.data_ptr(),
-            n, float(t_min), int(any_hit), int(chains), counter.data_ptr(), stream)
+            n, float(t_min), int(any_hit), int(chains), int(lod), counter.data_ptr(), stream)
     if rc != 0:
         what = ("bad arguments" if rc < 0
                 else lib.aten_cuda_error_string(rc).decode())
         raise RuntimeError(f"smt_traverse launch failed ({rc}): {what}")
-    launch_counts[kernel_name(any_hit, chains)] += 1
+    launch_counts[kernel_name(any_hit, chains, lod)] += 1
     return t, prim

@@ -1,16 +1,21 @@
 """Wrapper of the hand-written CUDA traversal kernel.
 
 `bvh_traverse` runs the threaded-BVH walk of kernels/bvh_traverse.cu
-(closest-hit and any-hit instantiations) on CUDA tensors, over the
-scene's packed node and prim records (ops/bvh_layout.py, `bvh_nodes`
-and `bvh_prims`), in persistent warps that take their rays from a
+(closest-hit and any-hit instantiations, each also in a voxel-LOD
+variant) on CUDA tensors, over the scene's packed node and prim records
+(ops/bvh_layout.py, `bvh_nodes` and `bvh_prims`), in persistent warps that take their rays from a
 counter the wrapper zeroes.  It replaces
 the TPU treelet kernel `_make_treelet_kernel`
 (aten_tpu/ops/traverse_pallas.py:785, with `_recompute_uv` :1573) and
 serves the uncut-tree case of `_make_kernel` (:102) with the same code.
+On a voxel-LOD scene (accel/voxel.py) it runs the `lod` variant, the
+`has_lod=True` branch of `_make_treelet_kernel` (:922-923, :950-963),
+over the records of the tree baked at the scene's `lod_bake_depth`, and
+raises when the scene's `lod_depth` differs from it.
 For tensors on the CPU it runs the kernel's plain version,
-accel/traverse.py::_traverse_plain; on a CUDA tensor it launches the
-kernel or raises, never falling back.
+accel/traverse.py::_traverse_plain (over the baked records, baked=True,
+on a voxel-LOD scene); on a CUDA tensor it launches the kernel or
+raises, never falling back.
 
 The library, which also holds the two-level kernel K5 of ops/tlas_cuda.py,
 the Plücker treelet kernel of ops/plk_cuda.py and the multi-chain
@@ -29,6 +34,7 @@ import torch
 
 from aten_tpu_torch import native
 from aten_tpu_torch.ops.bvh_layout import NODE_WORDS, PRIM_WORDS
+from aten_tpu_torch.ops.lod_layout import lod_of
 
 KERNEL_DIR = os.path.join(native.REPO_ROOT, "aten_tpu_torch", "kernels")
 SOURCES = (os.path.join(KERNEL_DIR, "bvh_traverse.cu"),
@@ -39,16 +45,17 @@ SOURCES = (os.path.join(KERNEL_DIR, "bvh_traverse.cu"),
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
               "-Xptxas=-v")
 KERNELS = ("bvh_traverse_closest", "bvh_traverse_any")
+LOD_KERNELS = ("bvh_traverse_lod_closest", "bvh_traverse_lod_any")
 
 # Launches per kernel instantiation since the last reset: the one place
 # that adds to a count is the line after a successful launch below.
-launch_counts = dict.fromkeys(KERNELS, 0)
+launch_counts = dict.fromkeys(KERNELS + LOD_KERNELS, 0)
 
 _lib = None
 
 
 def reset_launch_counts():
-    for k in KERNELS:
+    for k in launch_counts:
         launch_counts[k] = 0
 
 
@@ -78,17 +85,18 @@ def load_library(verbose=False):
     lib.aten_bvh_traverse.restype = ctypes.c_int
     lib.aten_bvh_traverse.argtypes = (
         [vp] * 2 + [ctypes.c_int32] + [vp] * 7
-        + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp, vp])
+        + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, ctypes.c_int32, vp, vp])
     lib.aten_tlas_traverse.restype = ctypes.c_int
     lib.aten_tlas_traverse.argtypes = (
         [vp] * 3 + [ctypes.c_int32] * 2 + [vp] * 8
         + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp, vp])
     lib.aten_plk_traverse.restype = ctypes.c_int
     lib.aten_plk_traverse.argtypes = (
-        [vp] * 8 + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, vp, vp])
+        [vp] * 3 + [ctypes.c_int32] + [vp] * 5
+        + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, ctypes.c_int32, vp, vp])
     lib.aten_smt_traverse.restype = ctypes.c_int
     lib.aten_smt_traverse.argtypes = (
-        [vp] * 8 + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, ctypes.c_int32, vp, vp])
+        [vp] * 8 + [ctypes.c_int64, ctypes.c_float] + [ctypes.c_int32] * 3 + [vp, vp])
     lib.aten_cuda_error_string.restype = ctypes.c_char_p
     lib.aten_cuda_error_string.argtypes = [ctypes.c_int]
     _lib = lib
@@ -138,11 +146,13 @@ def _checked(name, x, dtype, tail, device):
 
 def bvh_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
     """Closest (or any) hit of rays ro, rd [N,3] with t_max t0 [N] against
-    the scene's threaded BVH.  Returns (t, prim, u, v), each [N]."""
+    the scene's threaded BVH (of a voxel-LOD scene: its baked tree).
+    Returns (t, prim, u, v), each [N]."""
+    lod = lod_of(scene)
     if ro.device.type == "cpu":
         from aten_tpu_torch.accel.traverse import _traverse_plain
 
-        h = _traverse_plain(scene, ro, rd, t0, any_hit, t_min)
+        h = _traverse_plain(scene, ro, rd, t0, any_hit, t_min, baked=lod)
         return h["t"], h["prim"], h["u"], h["v"]
     if ro.device.type != "cuda":
         raise ValueError(f"bvh_traverse: unsupported device {ro.device}")
@@ -167,10 +177,10 @@ def bvh_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
         rc = lib.aten_bvh_traverse(
             *ptrs, int(scene["num_tris"]), ro_p, rd_p, t0_p,
             t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-            n, float(t_min), int(any_hit), counter.data_ptr(), stream)
+            n, float(t_min), int(any_hit), int(lod), counter.data_ptr(), stream)
     if rc != 0:
         what = ("bad arguments" if rc < 0
                 else lib.aten_cuda_error_string(rc).decode())
         raise RuntimeError(f"bvh_traverse launch failed ({rc}): {what}")
-    launch_counts[KERNELS[1] if any_hit else KERNELS[0]] += 1
+    launch_counts[(LOD_KERNELS if lod else KERNELS)[int(any_hit)]] += 1
     return t, prim, u, v

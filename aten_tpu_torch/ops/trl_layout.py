@@ -13,11 +13,15 @@ rays come from is visited first.  A ray picks its ordering from its own
 direction (`pick_ordering`).
 
 Per node the layout stores one record of TRL_NODE float32s (32 B): bmin,
-bmax, and the int32 bits of the first slot of a fat leaf (-1 elsewhere)
-and of its slot count.  Per slot it stores one record of RECORD float32s
+bmax, and the int32 bits of the first slot of a fat leaf (a voxel leaf's
+word, see below, or -1 elsewhere) and of its slot count.  Per slot it stores one record of RECORD float32s
 (48 B, three float4s): lanes 0-10 of the reference's 16-lane slot,
 v0 | sphere centre, e1 (lane 3 = sphere radius), e2, the global prim id
 and a triangle flag as int32 bits, then one zero pad lane.
+
+A tree baked for voxel LOD (ops/lod_layout.py) is cut as K3's is
+(voxel leaves stay nodes, no slots), and a voxel leaf's slot-start word
+holds its id as `VOXEL_WORD - id`.
 
 The window is this module's constant and travels with the layout as
 `trl_window`; nothing reads it from the environment.
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from aten_tpu_torch.ops.lod_layout import voxel_words
 from aten_tpu_torch.ops.plk_layout import (
     PACK, TREELET_MIN_BYTES, WINDOW, align_rows, treelet_cut)
 
@@ -102,28 +107,32 @@ def slot_records(order, tri_v0, tri_e1, tri_e2, sph_center, sph_radius,
 
 
 def build_trl_layout(bvh, tri_v0, tri_e1, tri_e2, sph_center, sph_radius,
-                     num_tris):
+                     num_tris, vox=None):
     """The K4 layout of a single-level threaded BVH.
 
     Returns numpy arrays under ARRAY_KEYS plus the scalar `trl_window`
     (WINDOW): trl_nodes [Kt, TRL_NODE] f32, trl_links [Kt, 12] int32
     ((hit, miss) of orderings 0..5, as the reference's node lanes 6-17),
-    trl_recs [n_slots, RECORD] f32."""
+    trl_recs [n_slots, RECORD] f32.  vox [K]: the voxel leaves' global
+    ids of a tree baked for voxel LOD, -1 elsewhere."""
     order = np.asarray(bvh["prim_order"], np.int64)
-    bmin, bmax, hit, miss, start, count, _ = treelet_cut(bvh)
+    bmin, bmax, hit, miss, start, count, keep = treelet_cut(
+        bvh, None if vox is None else np.asarray(vox) >= 0)
     links = directional_links((bmin + bmax) * np.float32(0.5), hit, miss, start)
     row_start, slot_of_prim, n_rows = align_rows(start, count, order.shape[0])
+    placed = slot_of_prim >= 0
     Kt = hit.shape[0]
     nodes = np.zeros((Kt, TRL_NODE), np.float32)
     nodes[:, 0:3] = bmin
     nodes[:, 3:6] = bmax
-    ints = np.stack([np.where(row_start >= 0, row_start * PACK, -1), count], 1)
-    nodes[:, 6:8] = ints.astype(np.int32).view(np.float32)
+    first = np.where(row_start >= 0, row_start * PACK, -1)
+    first = voxel_words(first, None if vox is None else np.asarray(vox, np.int64)[keep])
+    nodes[:, 6:8] = np.stack([first, count], 1).astype(np.int32).view(np.float32)
     return {
         "trl_nodes": nodes,
         "trl_links": np.ascontiguousarray(links.transpose(1, 0, 2).reshape(Kt, 2 * ORDERINGS)),
-        "trl_recs": slot_records(order, tri_v0, tri_e1, tri_e2, sph_center, sph_radius,
-                                 num_tris, slot_of_prim, n_rows * PACK),
+        "trl_recs": slot_records(order[placed], tri_v0, tri_e1, tri_e2, sph_center, sph_radius,
+                                 num_tris, slot_of_prim[placed], n_rows * PACK),
         "trl_window": WINDOW,
     }
 

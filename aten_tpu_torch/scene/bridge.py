@@ -9,17 +9,23 @@ port importing JAX.  Instanced scenes come with their two-level pool
 kernel's packed records of it (ops/tlas_layout.py).  A single-level
 scene runs the K1 kernel, so it gets K1's packed records
 (ops/bvh_layout.py).  Both are built as the scene builder builds them.
+A voxel-LOD scene (accel/voxel.py) brings its annotation
+(`nodes_voxel_mtl`, `nodes_depth`) and its `lod_depth`; its K1 records
+are those of its tree baked at that depth (ops/lod_layout.py), built
+here: the reference's own LOD layout (`trl_*`) is never taken.
 An envmap comes with its tables (scene/envmap.py) and textures with
 their stack, sizes and mip chain (scene/textures.py), taken as they are.
 The reference's TPU layouts (its kernel layouts, the packed `tri_attr`
 gather table and the staged `env_quad` rows) are dropped; participating
-media and voxel LOD, which the port has not ported yet, raise
-NotImplementedError.
+media, which the port has not ported yet, raise NotImplementedError.
 """
 from __future__ import annotations
 
+import numpy as np
+
+from aten_tpu_torch.accel.voxel import ARRAY_KEYS as LOD_KEYS
 from aten_tpu_torch.device import resolve_device
-from aten_tpu_torch.ops import bvh_layout, tlas_layout
+from aten_tpu_torch.ops import bvh_layout, lod_layout, tlas_layout
 from aten_tpu_torch.scene.envmap import TABLE_KEYS as ENV_KEYS
 from aten_tpu_torch.scene.scene import Scene, check_leaf_sizes, to_tensors
 
@@ -59,20 +65,30 @@ def from_numpy(arrays: dict, static: dict, device) -> Scene:
         keys += ENV_KEYS
     if "tex_stack" in arrays:
         keys += TEX_KEYS + tuple(k for k in arrays if k.startswith(TEX_MIP_PREFIX))
+    lod = bool(static.get("has_voxel_lod"))
+    if lod:
+        keys += LOD_KEYS
     unported = sorted(
         k for k in arrays
         if k not in keys and not k.startswith(TPU_LAYOUT_PREFIXES))
     if unported:
         raise NotImplementedError(f"scene arrays not ported yet: {unported}")
-    if static.get("has_voxel_lod"):
-        raise NotImplementedError("voxel LOD is not ported yet")
     check_leaf_sizes(arrays["tl_pc" if "tl_bmin" in arrays else "nodes_prim_count"])
     lights = {k: v for k, v in arrays["lights"].items() if k != "num"}
     picked = {k: arrays[k] for k in keys}
     picked["lights"] = lights
-    layout = (tlas_layout.build_tlas_layout if "tl_bmin" in arrays
-              else bvh_layout.build_bvh_layout)
-    picked.update(layout(arrays, arrays["tri_v0"], arrays["tri_e1"], arrays["tri_e2"],
-                         arrays["sph_center"], arrays["sph_radius"], static["num_tris"]))
-    return Scene(to_tensors(picked, dev),
-                 {k: static[k] for k in STATIC_KEYS}, dev)
+    geo = [arrays[k] for k in ("tri_v0", "tri_e1", "tri_e2", "sph_center", "sph_radius")]
+    out_static = {k: static[k] for k in STATIC_KEYS}
+    if "tl_bmin" in arrays:
+        picked.update(tlas_layout.build_tlas_layout(arrays, *geo, static["num_tris"]))
+    elif lod:
+        depth = int(np.asarray(arrays["lod_depth"]))
+        baked, vox = lod_layout.baked_tree(
+            arrays, arrays["nodes_voxel_mtl"], arrays["nodes_depth"], depth,
+            static["num_tris"] + static["num_spheres"])
+        picked.update(bvh_layout.build_bvh_layout(baked, *geo, static["num_tris"], vox=vox))
+        picked["lod_depth"] = np.asarray(depth, np.int32)
+        out_static.update(has_voxel_lod=True, lod_bake_depth=depth)
+    else:
+        picked.update(bvh_layout.build_bvh_layout(arrays, *geo, static["num_tris"]))
+    return Scene(to_tensors(picked, dev), out_static, dev)

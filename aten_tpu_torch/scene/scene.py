@@ -16,9 +16,12 @@ K3 (ops/plk_layout.py::uses_plk) gets the port's K3 layout (`plk_*`
 arrays) and the statics `traversal` = "plk" and `plk_window`.  Every
 other single-level scene runs the K1 kernel and gets its packed node and
 prim records (ops/bvh_layout.py, `bvh_nodes` and `bvh_prims`).
-`with_trl_layout` attaches the K4 layout to a built scene, for
-`traverse(impl="smt")` under another policy, and `with_bvh_layout` K1's
-records, for `traverse(impl="cuda")` on a scene built for K3 or K4.
+`kernel_layouts` makes that choice.  `with_trl_layout` attaches the K4
+layout to a built scene, for `traverse(impl="smt")` under another
+policy, `with_plk_layout` K3's, for `traverse(impl="plk")`, and
+`with_bvh_layout` K1's records, for `traverse(impl="cuda")` on a scene
+built for K3 or K4.  On a voxel-LOD scene (accel/voxel.py) each builds
+its layout from the tree baked at the scene's `lod_bake_depth`.
 
 Instanced objects (`create_object`, `add_instance`, `obj=` on the
 geometry adds) build the two-level pool of accel/tlas.py, with the K5
@@ -30,9 +33,9 @@ an image-based light; `add_texture` registers a texture, and the build
 adds the texture stack and its mip chain (scene/textures.py) with the
 statics `has_albedo_maps`, `has_roughness_maps` and `has_normal_maps`.
 
-Not ported yet (they raise NotImplementedError): participating media and
-voxel LOD.  Alpha and stencil materials build, but the path tracer
-refuses scenes that use them.
+Not ported yet (it raises NotImplementedError): participating media.
+Alpha and stencil materials build, but the path tracer refuses scenes
+that use them.
 """
 from __future__ import annotations
 
@@ -92,38 +95,101 @@ def to_tensors(arrays: dict, device):
     return out
 
 
-def _host_bvh(scene: Scene, layout: str) -> dict:
+# the kernels' layouts, which a scene carries one of (besides K1's
+# records where `with_bvh_layout` attached them), and their statics
+KERNEL_PREFIXES = ("bvh_", "plk_", "trl_")
+KERNEL_STATICS = ("traversal", "plk_window", "trl_window")
+
+
+def host_bvh(scene: Scene, what: str) -> dict:
     """The BVH and geometry arrays of `scene`, a built single-level scene,
-    as numpy, to build `layout` from."""
+    as numpy, to build `what` from."""
     from aten_tpu_torch.scene.bridge import BVH_KEYS
 
     if scene["num_instances"]:
-        raise ValueError(f"{layout}: only single-level scenes have one; this one has instances")
+        raise ValueError(f"{what}: only single-level scenes have one; this one has instances")
     return {k: scene[k].cpu().numpy()
             for k in BVH_KEYS + ("tri_v0", "tri_e1", "tri_e2", "sph_center", "sph_radius")}
 
 
+def _layout_tree(scene: Scene, what: str):
+    """(tree, geometry, voxel ids) a kernel layout of `scene` is built
+    from: its own BVH, or for a voxel-LOD scene the tree baked at its
+    `lod_bake_depth` (ops/lod_layout.py) with its voxel leaves' ids."""
+    host = host_bvh(scene, what)
+    if not scene.get("has_voxel_lod"):
+        return host, host, None
+    from aten_tpu_torch.ops.lod_layout import baked_tree
+
+    baked, vox = baked_tree(host, scene["nodes_voxel_mtl"].cpu().numpy(),
+                            scene["nodes_depth"].cpu().numpy(), scene["lod_bake_depth"],
+                            scene["num_tris"] + scene["num_spheres"])
+    return baked, host, vox
+
+
+def kernel_layouts(bvh, geo, num_tris, vox=None):
+    """(arrays, statics) of the one layout the kernel policy
+    (accel/traverse.py::KERNEL) runs on a single-level scene with the
+    threaded BVH `bvh` and geometry `geo` (numpy): K4's under "smt" on
+    the treelet branch, K3's where `uses_plk` picks it, else K1's
+    records.  vox: the voxel ids of a tree baked for voxel LOD."""
+    tv0, te1, te2 = geo["tri_v0"], geo["tri_e1"], geo["tri_e2"]
+    sc, sr = geo["sph_center"], geo["sph_radius"]
+    n_nodes, n_prims = bvh["nodes_hit"].shape[0], bvh["prim_order"].shape[0]
+    treelet = trl_layout.uses_trl(n_nodes, n_prims, 0)
+    if treelet and traverse.KERNEL == "smt":
+        lay = trl_layout.build_trl_layout(bvh, tv0, te1, te2, sc, sr, num_tris, vox=vox)
+        return ({k: lay[k] for k in trl_layout.ARRAY_KEYS},
+                {"traversal": "smt", "trl_window": lay["trl_window"]})
+    if treelet and traverse.KERNEL in ("v3", "plk"):
+        lay = plk_layout.build_plk_layout(bvh, tv0, te1, te2, num_tris, vox=vox)
+        if plk_layout.uses_plk(n_nodes, n_prims, lay, traverse.KERNEL):
+            return ({k: lay[k] for k in plk_layout.ARRAY_KEYS},
+                    {"traversal": "plk", "plk_window": lay["plk_window"]})
+    return bvh_layout.build_bvh_layout(bvh, tv0, te1, te2, sc, sr, num_tris, vox=vox), {}
+
+
 def with_trl_layout(scene: Scene) -> Scene:
     """`scene`, a built single-level scene, with the K4 layout of its own
-    BVH attached (the `trl_*` arrays and the static `trl_window`) and its
-    `traversal` left as it was: for `traverse(impl="smt")` under a kernel
-    policy whose build did not attach the layout."""
-    host = _host_bvh(scene, "the K4 layout")
-    lay = trl_layout.build_trl_layout(host, host["tri_v0"], host["tri_e1"], host["tri_e2"],
-                                      host["sph_center"], host["sph_radius"], scene["num_tris"])
+    BVH (of a voxel-LOD scene: its baked tree) attached (the `trl_*`
+    arrays and the static `trl_window`) and its `traversal` left as it
+    was: for `traverse(impl="smt")` under a kernel policy whose build
+    did not attach the layout."""
+    tree, g, vox = _layout_tree(scene, "the K4 layout")
+    lay = trl_layout.build_trl_layout(tree, g["tri_v0"], g["tri_e1"], g["tri_e2"],
+                                      g["sph_center"], g["sph_radius"], scene["num_tris"],
+                                      vox=vox)
     arrays = {**scene.arrays,
               **to_tensors({k: lay[k] for k in trl_layout.ARRAY_KEYS}, scene.device)}
     return Scene(arrays, {**scene.static, "trl_window": lay["trl_window"]}, scene.device)
 
 
+def with_plk_layout(scene: Scene) -> Scene:
+    """`scene`, a built single-level triangle-only scene, with the K3
+    layout of its own BVH (of a voxel-LOD scene: its baked tree)
+    attached (the `plk_*` arrays and the static `plk_window`) and its
+    `traversal` left as it was: for `traverse(impl="plk")` on a scene
+    whose build chose another kernel."""
+    tree, g, vox = _layout_tree(scene, "the K3 layout")
+    lay = plk_layout.build_plk_layout(tree, g["tri_v0"], g["tri_e1"], g["tri_e2"],
+                                      scene["num_tris"], vox=vox)
+    if lay is None:
+        raise ValueError("the K3 layout: the scene has spheres, and the Plücker test "
+                         "is for triangles only")
+    arrays = {**scene.arrays,
+              **to_tensors({k: lay[k] for k in plk_layout.ARRAY_KEYS}, scene.device)}
+    return Scene(arrays, {**scene.static, "plk_window": lay["plk_window"]}, scene.device)
+
+
 def with_bvh_layout(scene: Scene) -> Scene:
     """`scene`, a built single-level scene, with K1's packed records of its
-    own BVH attached (`bvh_nodes`, `bvh_prims`) and its `traversal` left
-    as it was: for `traverse(impl="cuda")` on a scene whose build chose K3
-    or K4."""
-    host = _host_bvh(scene, "K1's records")
-    lay = bvh_layout.build_bvh_layout(host, host["tri_v0"], host["tri_e1"], host["tri_e2"],
-                                      host["sph_center"], host["sph_radius"], scene["num_tris"])
+    own BVH (of a voxel-LOD scene: its baked tree) attached (`bvh_nodes`,
+    `bvh_prims`) and its `traversal` left as it was: for
+    `traverse(impl="cuda")` on a scene whose build chose K3 or K4."""
+    tree, g, vox = _layout_tree(scene, "K1's records")
+    lay = bvh_layout.build_bvh_layout(tree, g["tri_v0"], g["tri_e1"], g["tri_e2"],
+                                      g["sph_center"], g["sph_radius"], scene["num_tris"],
+                                      vox=vox)
     return Scene({**scene.arrays, **to_tensors(lay, scene.device)}, scene.static, scene.device)
 
 
@@ -375,18 +441,11 @@ class SceneBuilder:
             check_leaf_sizes(bvh["nodes_prim_count"])
             num_instances = 0
         # each layout only where the kernel policy can run its kernel
-        plk = trl = k1 = None
+        kernel_arrays, kernel_static = {}, {}
         if num_instances == 0:
-            n_nodes, n_prims = bvh["nodes_hit"].shape[0], bvh["prim_order"].shape[0]
-            treelet = trl_layout.uses_trl(n_nodes, n_prims, num_instances)
-            if treelet and traverse.KERNEL == "smt":
-                trl = trl_layout.build_trl_layout(bvh, tv0, te1, te2, sc, sr, num_tris)
-            elif treelet and traverse.KERNEL in ("v3", "plk"):
-                lay = plk_layout.build_plk_layout(bvh, tv0, te1, te2, num_tris)
-                if plk_layout.uses_plk(n_nodes, n_prims, lay, traverse.KERNEL):
-                    plk = lay
-            if plk is None and trl is None:
-                k1 = bvh_layout.build_bvh_layout(bvh, tv0, te1, te2, sc, sr, num_tris)
+            kernel_arrays, kernel_static = kernel_layouts(
+                bvh, {"tri_v0": tv0, "tri_e1": te1, "tri_e2": te2, "sph_center": sc,
+                      "sph_radius": sr}, num_tris)
 
         tri_areas = tarea[:num_tris] if num_tris else np.zeros(0, np.float32)
         arrays = {
@@ -433,17 +492,10 @@ class SceneBuilder:
                 {r["type"] for r in rows} | {int(MaterialType.DIFFUSE)}
             )),
         }
-        for lay in (k1, k5):
-            if lay is not None:
-                arrays.update(lay)
-        if trl is not None:
-            arrays.update({k: trl[k] for k in trl_layout.ARRAY_KEYS})
-            static["traversal"] = "smt"
-            static["trl_window"] = trl["trl_window"]
-        if plk is not None:
-            arrays.update({k: plk[k] for k in plk_layout.ARRAY_KEYS})
-            static["traversal"] = "plk"
-            static["plk_window"] = plk["plk_window"]
+        if k5 is not None:
+            arrays.update(k5)
+        arrays.update(kernel_arrays)
+        static.update(kernel_static)
         return arrays, static
 
     def _two_level(self, all_bmin, all_bmax):

@@ -39,8 +39,15 @@ the gradients of texels, light radiance and light position on the card
 against the CPU and 20 descent steps; the step on the 102,404-prim mesh
 scene, which walks K1 (3 + 3 launches), bitwise equal to the same loss
 and gradients through the plain walk; and render_tiled and a step
-through a one-rank NCCL group, bitwise equal to no group.  Each
-main-path render and step is profiled, with its ten costliest device
+through a one-rank NCCL group, bitwise equal to no group.  Phase 14
+runs voxel LOD (aten_tpu_torch/accel/voxel.py): the lod variants of the
+threaded-BVH, Plücker and multi-chain kernels (the last at every ray
+count per lane) bitwise against their plain versions and against the
+LOD oracle walk on 4,194,304 camera and bounce rays each, timed in turns
+beside their non-LOD instantiations, and the three LOD scenes (the
+102,404-prim mesh at lod_depth 9 and 15, the 512,004-prim mesh at 18)
+rendered at 512x512 x 16 spp through them, each against the oracle
+walk's render.  Each main-path render and step is profiled, with its ten costliest device
 ops and each traversal kernel's summed device time. It prints the
 measured times and each kernel's bound (the least time the card could
 take for the work).
@@ -92,6 +99,10 @@ OPS_NODE = 25
 OPS_PRIM = 53
 OPS_ENTER = 45
 OPS_RAY = 6
+# A voxel test of the LOD variants past its slab test (counted in
+# OPS_NODE): the id from the word, four compares (entry t against t_min,
+# below and equal to t, the id against the winner's) and a select.
+OPS_VOXEL = 6
 # The Plücker kernel (plk_traverse.cu), floating-point and integer
 # operations alike: per slot the two edge sides (11 each), den (5), the
 # numerator (6), s2 (2), the sign test (6), the reciprocal and t (2),
@@ -208,14 +219,15 @@ def compare_traversal(name, scene, ro, rd, t_max, exact=False):
     with distances t_max; raises outside the bounds, and with `exact`
     unless every output of both kinds is bitwise equal.  Returns the max
     abs error of (t, u, v) where prims agree, whether the any-hit verdicts
-    were equal, and the plain walks' work counts per kind."""
+    were equal, and per kind the plain walks' work counts, device ms (one
+    run each: the plain walk is host-bound, no yardstick) and hits."""
     import numpy as np
     import torch
 
     from aten_tpu_torch.accel.traverse import traverse
 
     hk = traverse(scene, ro, rd, impl="cuda")
-    hp, st_closest = plain_walk(scene, ro, rd)
+    (hp, st_closest), ms_closest = timed_ms(lambda: plain_walk(scene, ro, rd))
     keys = ("t", "prim", "u", "v") + (("inst",) if "inst" in hp else ())
     pk, pp = hk["prim"].cpu().numpy(), hp["prim"].cpu().numpy()
     agree = float((pk == pp).mean())
@@ -238,7 +250,8 @@ def compare_traversal(name, scene, ro, rd, t_max, exact=False):
             f"{np.bincount(ip[ip >= 0]).tolist()}")
 
     ak = traverse(scene, ro, rd, t_max=t_max, any_hit=True, t_min=1e-3, impl="cuda")
-    ap, st_any = plain_walk(scene, ro, rd, t_max=t_max, any_hit=True, t_min=1e-3)
+    (ap, st_any), ms_any = timed_ms(
+        lambda: plain_walk(scene, ro, rd, t_max=t_max, any_hit=True, t_min=1e-3))
     same = bool(torch.equal(ak["hit"], ap["hit"]))
     exact_any = bool(all(torch.equal(ak[k], ap[k]) for k in keys))
     log(f"{name} any-hit: occluded {float(ap['hit'].float().mean()):.4f}, "
@@ -246,7 +259,8 @@ def compare_traversal(name, scene, ro, rd, t_max, exact=False):
     log(f"{name} work: closest {st_closest}, any {st_any}")
     assert same, name
     assert not exact or (exact_closest and exact_any), (name, exact_closest, exact_any)
-    return max(errs.values()), same, {"closest": st_closest, "any": st_any}
+    return (max(errs.values()), same, {"closest": st_closest, "any": st_any},
+            {"closest": ms_closest, "any": ms_any}, {"closest": hp, "any": ap})
 
 
 def first_hit_rays(scene, ro, rd, n, rng, impl="cuda"):
@@ -275,7 +289,8 @@ def bound(n_rays, out_bytes, pool_bytes, work, ops_ray=OPS_RAY):
     nbytes = n_rays * (28 + out_bytes) + pool_bytes
     ops = (n_rays * ops_ray + work["node_steps"] * OPS_NODE
            + work.get("prim_tests", 0) * OPS_PRIM + work.get("inst_entries", 0) * OPS_ENTER
-           + work.get("slot_tests", 0) * OPS_SLOT + work.get("leaves", 0) * OPS_LEAF)
+           + work.get("slot_tests", 0) * OPS_SLOT + work.get("leaves", 0) * OPS_LEAF
+           + work.get("voxel_tests", 0) * OPS_VOXEL)
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = ops / FP32_FLOP_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
@@ -345,18 +360,19 @@ def compare_plk(name, scene, ro, rd, t_max):
     edge differently; and the kernel's truncated t may fall under t_max
     where the exact t does not.  Returns the largest difference to the
     plain version, its work counts and the oracle walk's (the least work
-    of the query), per kind."""
+    of the query), the plain version's device ms (one run) and the
+    oracle walk's hits, per kind."""
     import numpy as np
     import torch
 
     from aten_tpu_torch.accel.traverse import traverse
 
-    work, oracle_work, err = {}, {}, 0.0
+    work, oracle_work, plain_ms, oracle, err = {}, {}, {}, {}, 0.0
     for kind, kw in (("closest", {}),
                      ("any", {"t_max": t_max, "any_hit": True, "t_min": 1e-3})):
         hk = traverse(scene, ro, rd, impl="plk", **kw)
-        hp, work[kind] = plk_plain(scene, ro, rd, **kw)
-        ho, oracle_work[kind] = plain_walk(scene, ro, rd, **kw)
+        (hp, work[kind]), plain_ms[kind] = timed_ms(lambda: plk_plain(scene, ro, rd, **kw))
+        ho, oracle_work[kind] = oracle[kind] = plain_walk(scene, ro, rd, **kw)
         exact = all(torch.equal(hk[k], hp[k]) for k in ("t", "prim", "u", "v", "hit"))
         err = max(err, *(float((hk[k] - hp[k]).abs().max()) for k in ("t", "u", "v")))
         pk, po = hk["prim"].cpu().numpy(), ho["prim"].cpu().numpy()
@@ -385,7 +401,7 @@ def compare_plk(name, scene, ro, rd, t_max):
         assert exact, (name, kind)
     log(f"{name} work: closest {work['closest']}, any {work['any']}; the oracle walk's "
         f"on the same rays: closest {oracle_work['closest']}, any {oracle_work['any']}")
-    return err, work, oracle_work
+    return err, work, oracle_work, plain_ms, oracle
 
 
 def profile_render(fn):
@@ -512,7 +528,7 @@ def smt_hits(scene, ro, rd, t0, any_hit, t_min, chains):
     return {"t": t, "prim": prim, "u": u, "v": v, "hit": prim >= 0}
 
 
-def compare_smt(name, scene, ro, rd, t_max):
+def compare_smt(name, scene, ro, rd, t_max, oracle):
     """K4 at every chain count against one run of its plain version,
     which it must equal bit for bit (t, prim, u, v; any-hit t and prim:
     the walk drains whole leaves, so even any-hit prims are the plain
@@ -521,7 +537,8 @@ def compare_smt(name, scene, ro, rd, t_max):
     where prims agree.  Returns the largest difference to the plain
     version, the plain version's work counts, the oracle walk's work
     counts (the least work of the query) and the plain version's device
-    ms, per kind."""
+    ms, per kind.  `oracle`: the oracle walk's (hits, work) on these rays
+    per kind, from the phase that made them."""
     import numpy as np
 
     from aten_tpu_torch.accel.traverse import _t0_of, _traverse_trl_plain, recompute_uv
@@ -535,9 +552,7 @@ def compare_smt(name, scene, ro, rd, t_max):
             lambda: _traverse_trl_plain(scene, ro, rd, t0, any_hit, t_min, stats=True))
         if not any_hit:
             hp["u"], hp["v"] = recompute_uv(scene, ro, rd, hp["prim"])
-        ho, oracle_work[kind] = plain_walk(
-            scene, ro, rd, t_max=None if kind == "closest" else t_max, any_hit=any_hit,
-            t_min=t_min)
+        ho, oracle_work[kind] = oracle[kind]
         keys = ("t", "prim") + (() if any_hit else ("u", "v"))
         for c in CHAIN_COUNTS:
             hk = smt_hits(scene, ro, rd, t0, any_hit, t_min, c)
@@ -692,6 +707,272 @@ def lab_phase(card, scene, cam, dev):
     log(f"phase 11 v3 against the oracle walk: prim agreement {same:.6f}; plain versions "
         f"{plain_total / 1e3:.1f} s in all; phase 11 took {time.time() - t11:.1f} s")
     assert same >= PRIM_AGREE, same
+    return entries
+
+
+def bounce_rays(scene, ro, rd, n, rng, impl):
+    """n rays leaving first hits of the rays (ro, rd) (traversal `impl`),
+    picked at random, as the path tracer's bounces leave them: 1e-3 off
+    the surface on the side the ray came from (a voxel's entry face
+    included), in uniform directions over that hemisphere (numpy
+    seeded)."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.accel.traverse import traverse
+    from aten_tpu_torch.integrator.pathtracer import eval_hit
+
+    h = traverse(scene, ro, rd, impl=impl)
+    idx = torch.nonzero(h["hit"]).squeeze(1).cpu().numpy()
+    pick = torch.from_numpy(rng.choice(idx, n)).to(ro.device)
+    sub = {k: v[pick] for k, v in h.items()}
+    e = eval_hit(scene, ro[pick], rd[pick], sub)
+    ns = e["ns"]
+    n_or = torch.where(((ns * rd[pick]).sum(1, keepdim=True) < 0), ns, -ns)
+    d = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(ro.device)
+    d = torch.where((d * n_or).sum(1, keepdim=True) < 0, -d, d)
+    d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+    return (e["p"] + n_or * 1e-3).contiguous(), d.contiguous()
+
+
+# Phase 14's kernels: the traverse() impl of each LOD kernel
+LOD_IMPL = {"K1-lod": "cuda", "K3-lod": "plk", "K4-lod": "smt"}
+
+
+def lod_plain(label, scene, ro, rd, t0, any_hit, t_min):
+    """The plain version of LOD kernel `label` with the u/v step of its
+    traverse() impl, and the work these rays need."""
+    import torch
+
+    from aten_tpu_torch.accel import traverse as trav
+
+    if label == "K1-lod":
+        return trav._traverse_plain(scene, ro, rd, t0, any_hit, t_min, stats=True, baked=True)
+    walk = trav._traverse_plk_plain if label == "K3-lod" else trav._traverse_trl_plain
+    h, work = walk(scene, ro, rd, t0, any_hit, t_min, stats=True)
+    if any_hit:
+        u = v = torch.zeros_like(h["t"])
+    else:
+        u, v = trav.recompute_uv(scene, ro, rd, h["prim"])
+    return {**h, "u": u, "v": v, "hit": h["prim"] >= 0}, work
+
+
+def lod_kernel(label, scene, ro, rd, t0, any_hit, t_min, chains=None):
+    """LOD kernel `label` (K4 at `chains` rays per lane) with the u/v step
+    of its traverse() impl."""
+    import torch
+
+    from aten_tpu_torch.accel.traverse import recompute_uv
+    from aten_tpu_torch.ops import plk_cuda, traverse_cuda
+
+    if label == "K4-lod":
+        return smt_hits(scene, ro, rd, t0, any_hit, t_min, chains)
+    if label == "K1-lod":
+        t, prim, u, v = traverse_cuda.bvh_traverse(scene, ro, rd, t0, any_hit=any_hit,
+                                                   t_min=t_min)
+        return {"t": t, "prim": prim, "u": u, "v": v, "hit": prim >= 0}
+    t, prim = plk_cuda.plk_traverse(scene, ro, rd, t0, any_hit=any_hit, t_min=t_min)
+    if any_hit:
+        u = v = torch.zeros_like(t)
+    else:
+        u, v = recompute_uv(scene, ro, rd, prim)
+    return {"t": t, "prim": prim, "u": u, "v": v, "hit": prim >= 0}
+
+
+def compare_lod(name, label, scene, ro, rd, dist):
+    """LOD kernel `label` (K4 at every chain count) against one run of its
+    plain version, which it must equal bit for bit (closest-hit: t, prim,
+    u, v; any-hit: K1's verdicts, as the plain walk keeps testing a leaf
+    after its first hit, K3's and K4's t and prim), and against the LOD
+    oracle walk (_traverse_plain on the scene's own tree at its
+    lod_depth): prim agreement >= PRIM_AGREE, and of those with t off by
+    more than T_TOL counted against it (K3's truncated t); any-hit
+    verdicts >= PRIM_AGREE.  Returns the largest difference to the plain
+    version, the plain version's and the oracle's work and the plain
+    version's device ms, per kind."""
+    import numpy as np
+
+    from aten_tpu_torch.accel.traverse import _t0_of
+    from aten_tpu_torch.ops.smt_cuda import CHAIN_COUNTS
+
+    vb = scene["num_tris"] + scene["num_spheres"]
+    err, work, oracle_work, plain_ms = 0.0, {}, {}, {}
+    for kind, tmax, any_hit, t_min in (("closest", None, False, 1e-4),
+                                       ("any", dist, True, 1e-3)):
+        t0 = _t0_of(tmax, ro.shape[0], ro.device)
+        (hp, work[kind]), plain_ms[kind] = timed_ms(
+            lambda: lod_plain(label, scene, ro, rd, t0, any_hit, t_min))
+        ho, oracle_work[kind] = plain_walk(scene, ro, rd, t_max=tmax, any_hit=any_hit,
+                                           t_min=t_min)
+        keys = (("hit",) if label == "K1-lod" else ("t", "prim")) if any_hit else \
+            ("t", "prim", "u", "v")
+        for c in (CHAIN_COUNTS if label == "K4-lod" else (None,)):
+            hk = lod_kernel(label, scene, ro, rd, t0, any_hit, t_min, c)
+            exact = all(bool((hk[k] == hp[k]).all()) for k in keys)
+            err = max([err] + [float((hk[k] - hp[k]).abs().max()) for k in ("t", "u", "v")
+                               if k in keys])
+            log(f"{name} {kind}-hit {label}{'' if c is None else f' C={c}'}: bitwise equal "
+                f"to its plain version ({', '.join(keys)}) {exact}")
+            assert exact, (name, label, kind, c)
+        pk, po = hp["prim"].cpu().numpy(), ho["prim"].cpu().numpy()
+        if kind == "closest":
+            m = (po >= 0) & (pk == po)
+            tk, to = hp["t"].cpu().numpy()[m], ho["t"].cpu().numpy()[m]
+            t_off = ~np.isclose(tk, to, rtol=T_TOL, atol=T_TOL)
+            agree = float((pk == po).mean())
+            agree_t = agree - float(t_off.sum()) / pk.shape[0]
+            # two voxels entered at one t: the walks' visit orders differ
+            # (K4's direction-ordered links), and an ancestor box that
+            # ties the best t is pruned (accel/traverse.py:270-282)
+            tied = int(((pk != po) & (pk >= vb) & (po >= vb)
+                        & (hp["t"].cpu().numpy() == ho["t"].cpu().numpy())).sum())
+            log(f"{name} {label}: {ro.shape[0]} rays, hit {float((pk >= 0).mean()):.4f}, "
+                f"voxel winners {float((pk >= vb).mean()):.4f} of rays "
+                f"({float((pk >= vb).sum() / max((pk >= 0).sum(), 1)):.4f} of hits; the "
+                f"oracle's {float((po >= vb).mean()):.4f}); against the LOD oracle walk: prim "
+                f"agreement {agree:.6f} ({int((pk != po).sum())} differ, {tied} of them two "
+                f"voxels at one t), {int(t_off.sum())} off t by more than {T_TOL} (max "
+                f"|dt| {float(np.abs(tk - to).max(initial=0.0)):.3e}), prim and t agreement "
+                f"{agree_t:.6f}")
+            assert agree_t >= PRIM_AGREE, (name, label, agree_t)
+            assert (pk >= vb).sum() > 0 and (po >= vb).sum() > 0, (name, label)
+        else:
+            agree = float(((pk >= 0) == (po >= 0)).mean())
+            log(f"{name} {label} any-hit: occluded {float((pk >= 0).mean()):.4f}; verdicts "
+                f"equal to the LOD oracle walk's on {agree:.7f} of rays "
+                f"({int(((pk >= 0) != (po >= 0)).sum())} differ)")
+            assert agree >= PRIM_AGREE, (name, label, agree)
+    log(f"{name} {label} work: closest {work['closest']}, any {work['any']}; the LOD oracle "
+        f"walk's: closest {oracle_work['closest']}, any {oracle_work['any']}")
+    return err, work, oracle_work, plain_ms
+
+
+def lod_phase(card, dev):
+    """Phase 14: voxel LOD through the lod variants of K1, K3 and K4.  The
+    LOD scenes: the 102,404-prim mesh at lod_depth 9 (the reference's
+    test_voxel_lod_kernel_parity) and 15 (voxels and knot triangles both
+    among the primary hits), the 512,004-prim mesh at 18 (its baked pools
+    pass the 32 MB line, so the build takes K3).  Each kernel against its
+    plain version and the LOD oracle walk on 4,194,304 rays (2,097,152
+    jittered camera rays, the rest bounce rays off their first hits),
+    timed beside its non-LOD instantiation on the same rays and beside
+    its bound; then the three 512x512 x 16 spp renders, depth 5, RR 3:
+    the 102k at 9 through K1-lod (the main path), the 512k at 18 through
+    K3-lod, the 102k at 15 through K4-lod (the K4 layout attached and
+    traverse's impl="smt", the kernel and layout of a build under
+    ATEN_TPU_KERNEL=smt), each profiled and held to the oracle walk's
+    render.  Returns the kernels' JSON entries."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.accel import traverse as trav_mod
+    from aten_tpu_torch.accel.voxel import enable_voxel_lod
+    from aten_tpu_torch.integrator.pathtracer import render_image
+    from aten_tpu_torch.ops import plk_cuda, plk_layout, smt_cuda, traverse_cuda
+    from aten_tpu_torch.scene.scene import with_trl_layout
+    from aten_tpu_torch.scene.scenedefs import large_mesh_scene, procedural_mesh_scene
+
+    t14 = time.time()
+    rng = np.random.default_rng(SEED + 14)
+    big, cam = procedural_mesh_scene(512, 512, device=dev)
+    large, lcam = large_mesh_scene(512, 512, device=dev)
+    n_main = cam.width * cam.height * 16
+    lods = {}
+    for name, base, depth in (("mesh102k@9", big, 9), ("mesh102k@15", big, 15),
+                              ("mesh512k@18", large, 18)):
+        t = time.time()
+        lods[name] = enable_voxel_lod(base, lod_depth=depth, log=lambda m, n=name: log(
+            f"phase 14 {n}: {m}"))
+        torch.cuda.synchronize()
+        log(f"phase 14 {name}: LOD scene in {time.time() - t:.2f} s (host work and upload)")
+    lods["mesh102k@15"] = with_trl_layout(lods["mesh102k@15"])
+    assert "traversal" not in lods["mesh102k@9"] and "traversal" not in lods["mesh102k@15"]
+    assert lods["mesh512k@18"]["traversal"] == "plk", lods["mesh512k@18"].static
+    s512 = lods["mesh512k@18"]
+    log(f"phase 14 mesh512k@18: reference pools {plk_layout.pool_mb(s512['plk_hit'].shape[0], s512['plk_slot2prim'].shape[0] // plk_layout.PACK):.2f} MB "
+        f"(the 32 MB line: the build takes K3)")
+    # (label, scene, the non-LOD scene on the same kernel, camera, fields)
+    base_k4 = with_trl_layout(big)
+    runs = (("K1-lod", "mesh102k@9", big, cam, traverse_cuda._SCENE_FIELDS),
+            ("K3-lod", "mesh512k@18", large, lcam, plk_cuda._SCENE_FIELDS),
+            ("K4-lod", "mesh102k@15", base_k4, cam, smt_cuda._SCENE_FIELDS))
+    entries = []
+    for label, name, base, c, fields in runs:
+        scene = lods[name]
+        impl = LOD_IMPL[label]
+        pool = pool_bytes(scene, fields)
+        log(f"phase 14 {name}: {label}'s baked pool {pool / 1e6:.2f} MB "
+            f"({', '.join(f'{k} {tuple(scene[k].shape)}' for k, _, _ in fields)}); "
+            f"non-LOD {pool_bytes(base, fields) / 1e6:.2f} MB")
+        cro, crd = camera_rays(c, dev, jitter_rng=rng, subsamples=8)
+        bro, brd = bounce_rays(scene, cro, crd, n_main - cro.shape[0], rng, impl)
+        ro, rd = torch.cat([cro, bro]), torch.cat([crd, brd])
+        dist = torch.tensor(rng.uniform(0.0, 20.0, n_main), dtype=torch.float32, device=dev)
+        del cro, crd, bro, brd
+        err, work, owork, plain_ms = compare_lod(f"phase 14 {name}", label, scene, ro, rd, dist)
+        times, bounds = {}, {}
+        chains = trav_mod.CHAINS if label == "K4-lod" else None
+        for kind, t0k, any_hit, t_min in (
+                ("closest", torch.full((n_main,), 3.4e38, device=dev), False, 1e-4),
+                ("any", dist, True, 1e-3)):
+            # in turns, LOD, non-LOD, non-LOD, LOD, each the mean of 10 launches
+            turns = [cuda_ms(lambda sc=sc: lod_kernel(label, sc, ro, rd, t0k, any_hit, t_min,
+                                                      chains), reps=10)
+                     for sc in (scene, base, base, scene)]
+            lod_ms, base_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            b = bounds[kind] = bound(n_main, 8 if label != "K1-lod" else 16, pool, owork[kind])
+            times[kind] = lod_ms
+            log(f"phase 14 timing {kind}-hit, {n_main} rays, {name}: {label} {lod_ms:.3f} ms "
+                f"({turns[0]:.3f}, {turns[3]:.3f}); its non-LOD instantiation {base_ms:.3f} ms "
+                f"({turns[1]:.3f}, {turns[2]:.3f}) on the same rays, in turns "
+                f"({lod_ms / base_ms:.2f}x); plain version {plain_ms[kind]:.1f} ms; bound (the "
+                f"LOD oracle walk's work {owork[kind]} over the baked pool) {b[0]:.4f} ms by "
+                f"{b[1]} ({b[2]} B, {b[3]} ops), {lod_ms / b[0]:.1f}x the bound [{card}]")
+        del ro, rd, dist
+        torch.cuda.empty_cache()
+        # the render, 512x512 x 16 spp, depth 5, RR depth 3
+        kw = {"spp": 16, "max_depth": 5, "rr_depth": 3,
+              "impl": "smt" if label == "K4-lod" else "auto"}
+        render_image(scene, c, **kw)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.time()
+        img = render_image(scene, c, **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches = read_counts()
+        names = ((traverse_cuda.LOD_KERNELS if label == "K1-lod" else plk_cuda.LOD_KERNELS)
+                 if chains is None else
+                 tuple(smt_cuda.kernel_name(a, chains, lod=True) for a in (False, True)))
+        log(f"phase 14 {name} render launches: {launches}")
+        assert all(launches[k] > 0 for k in names), launches
+        assert all(v == 0 for k, v in launches.items() if k not in names), launches
+        img = img.cpu().numpy()
+        assert np.isfinite(img).all() and (img >= 0).all()
+        assert 1e-3 <= img.mean() <= 1e3 and img.std() > 0, (img.mean(), img.std())
+        log(f"phase 14 {name} render {c.width}x{c.height} 16spp depth 5 through {label}: mean "
+            f"{img.mean():.5f} std {img.std():.5f} wall {wall * 1e3:.1f} ms, "
+            f"{n_main / wall / 1e6:.3f} Mpaths/s [{card}]")
+        log_profile(f"phase 14 {name}", card, profile_render(lambda: render_image(scene, c, **kw)))
+        t = time.time()
+        plain = render_image(scene, c, **{**kw, "impl": "plain"}).cpu().numpy()
+        log(f"phase 14 {name}: the LOD oracle walk's render took {time.time() - t:.1f} s")
+        check_image_bounds(f"phase 14 {name} {c.width}x{c.height} 16spp {label} vs the LOD "
+                           "oracle walk",
+                           img, plain)
+        entries += [
+            {"name": k, "route": "cuda", "source": {"K1-lod": KERNEL_SOURCE,
+                                                   "K3-lod": PLK_SOURCE,
+                                                   "K4-lod": SMT_SOURCE}[label],
+             "replaces": {"K1-lod": REPLACES, "K3-lod": PLK_REPLACES,
+                          "K4-lod": SMT_REPLACES}[label],
+             "launches": launches[k], "max_abs_err": err, "ms": times[kind],
+             "plain_ms": plain_ms[kind], "bound_ms": bounds[kind][0],
+             "bound_by": bounds[kind][1], "library_ms": None}
+            for k, kind in zip(names, ("closest", "any"))]
+        del img, plain
+        torch.cuda.empty_cache()
+    log(f"phase 14 took {time.time() - t14:.1f} s")
     return entries
 
 
@@ -1119,7 +1400,7 @@ def main():
         sro, srd = surface_rays(scene, cro.shape[0], rng, dev)
         dist = torch.tensor(rng.uniform(0.0, 20.0, 2 * cro.shape[0]),
                             dtype=torch.float32, device=dev)
-        e, same, _ = compare_traversal(name, scene, torch.cat([cro, sro]),
+        e, same, _, _, _ = compare_traversal(name, scene, torch.cat([cro, sro]),
                                        torch.cat([crd, srd]), dist)
         max_err["closest"] = max(max_err["closest"], e)
         max_err["any"] = max(max_err["any"], 0.0 if same else 1.0)
@@ -1129,7 +1410,9 @@ def main():
     sro, srd = surface_rays(big, n_main - cro.shape[0], rng, dev)
     ro, rd = torch.cat([cro, sro]), torch.cat([crd, srd])
     dist = torch.tensor(rng.uniform(0.0, 20.0, n_main), dtype=torch.float32, device=dev)
-    e, same, work = compare_traversal("mesh102k main-path shape", big, ro, rd, dist)
+    e, same, work, plain2, walks2 = compare_traversal("mesh102k main-path shape", big, ro,
+                                                      rd, dist)
+    work2 = work
     max_err["closest"] = max(max_err["closest"], e)
     max_err["any"] = max(max_err["any"], 0.0 if same else 1.0)
     times, bounds = {}, {}
@@ -1140,7 +1423,7 @@ def main():
             # :102), same shape
             sro, srd = surface_rays(mid, n_main - cro.shape[0], rng, dev)
             rs = (torch.cat([cro, sro]), torch.cat([crd, srd]))
-            _, _, w = compare_traversal("mesh2k main-path shape", mid, *rs, dist)
+            _, _, w, plain2, _ = compare_traversal("mesh2k main-path shape", mid, *rs, dist)
         pool = array_bytes(scene, BVH_ARRAYS)
         pool_k1 = pool_bytes(scene, traverse_cuda._SCENE_FIELDS)
         log(f"phase 2 {name}: the BVH's arrays {pool} B; K1's packed records "
@@ -1151,7 +1434,7 @@ def main():
             kw = {"t_max": t0k, "any_hit": any_hit, "t_min": t_min}
             times[name, kind] = (
                 cuda_ms(lambda: traverse(scene, *rs, impl="cuda", **kw), reps=10),
-                cuda_ms(lambda: traverse(scene, *rs, impl="plain", **kw), reps=1),
+                plain2[kind],
             )
             b = bounds[name, kind] = bound(n_main, 16, pool, w[kind])
             b_k1 = bound(n_main, 16, pool_k1, w[kind])
@@ -1223,7 +1506,8 @@ def main():
          "bound_by": bounds["102,404 prims", kind][1], "library_ms": None}
         for name, kind in zip(traverse_cuda.KERNELS, ("closest", "any"))
     ]
-    rays2 = (ro, rd, dist)  # held for phase 9
+    # held for phase 9: the rays and the oracle walk's (hits, work) on them
+    rays2 = (ro, rd, dist, {k: (walks2[k], work2[k]) for k in walks2})
     del mid, cro, crd, sro, srd
 
     # -- phase 5: the two-level kernel vs its plain walk on the card
@@ -1238,7 +1522,7 @@ def main():
     sro, srd = first_hit_rays(inst, cro, crd, n_main - cro.shape[0], rng)
     ro, rd = torch.cat([cro, sro]), torch.cat([crd, srd])
     dist = torch.tensor(rng.uniform(0.0, 20.0, n_main), dtype=torch.float32, device=dev)
-    e, same, work = compare_traversal("instanced main-path shape", inst, ro, rd, dist,
+    e, same, work, plain5, _ = compare_traversal("instanced main-path shape", inst, ro, rd, dist,
                                       exact=True)
     max_err5 = {"closest": e, "any": 0.0 if same else 1.0}
     times5, bounds5 = {}, {}
@@ -1252,7 +1536,7 @@ def main():
     for kind, kw in (("closest", {}), ("any", {"t_max": dist, "any_hit": True, "t_min": 1e-3})):
         times5[kind] = (
             cuda_ms(lambda: traverse(inst, ro, rd, impl="cuda", **kw), reps=10),
-            cuda_ms(lambda: traverse(inst, ro, rd, impl="plain", **kw), reps=1),
+            plain5[kind],
         )
         b = bounds5[kind] = bound(n_main, 20, pool, work[kind])
         b_k5 = bound(n_main, 20, pool_k5, work[kind])
@@ -1315,7 +1599,8 @@ def main():
     ro, rd = torch.cat([cro, sro]), torch.cat([crd, srd])
     dist = torch.tensor(rng.uniform(0.0, 20.0, n_main), dtype=torch.float32, device=dev)
     del cro, crd, sro, srd
-    e7, work7, oracle7 = compare_plk("mesh512k main-path shape", large, ro, rd, dist)
+    e7, work7, oracle7, plain7, walks7 = compare_plk("mesh512k main-path shape", large, ro, rd,
+                                                     dist)
     t0 = torch.full((n_main,), 3.4e38, dtype=torch.float32, device=dev)
     pool7 = array_bytes(large, BVH_ARRAYS)
     pool7_k3 = pool_bytes(large, plk_cuda._SCENE_FIELDS)
@@ -1326,7 +1611,7 @@ def main():
         times7[kind] = (
             cuda_ms(lambda: plk_cuda.plk_traverse(large, ro, rd, t0k, any_hit=any_hit,
                                                   t_min=t_min), reps=10),
-            cuda_ms(lambda: _traverse_plk_plain(large, ro, rd, t0k, any_hit, t_min), reps=1),
+            plain7[kind],
         )
         # the bound: the query's least work on these rays, the oracle
         # walk's over the BVH's arrays; beside it the same work over K3's
@@ -1341,7 +1626,7 @@ def main():
             f"by {b[1]} ({b[2]} B, {b[3]} ops), {ms / b[0]:.1f}x the bound (over K3's "
             f"pool {b_pool[0]:.4f} ms); K3's own walk's work would take {b_k3[0]:.4f} ms "
             f"by {b_k3[1]} ({b_k3[2]} B, {b_k3[3]} ops), {ms / b_k3[0]:.1f}x [{card}]")
-    rays7 = (ro, rd, dist)  # held for phase 9
+    rays7 = (ro, rd, dist, walks7)  # held for phase 9
     del t0
     torch.cuda.empty_cache()
 
@@ -1391,7 +1676,7 @@ def main():
     times9, bounds9, err9, k4_scenes = {}, {}, 0.0, {}
     for name, scene, rays, base in (("mesh102k", big, rays2, "K1"),
                                     ("mesh512k", large, rays7, "K3")):
-        ro, rd, dist = rays
+        ro, rd, dist, oracle = rays
         # the default policy builds no K4 layout: attach it, as a build
         # under ATEN_TPU_KERNEL=smt does
         t = time.time()
@@ -1400,7 +1685,8 @@ def main():
         log(f"phase 9 {name}: {scene['trl_nodes'].shape[0]} cut-tree nodes, "
             f"{scene['trl_recs'].shape[0]} slots, window {scene['trl_window']}; the K4 "
             f"layout takes {time.time() - t:.2f} s to build and upload (host)")
-        e, work, oracle_work, plain_ms = compare_smt(f"phase 9 {name}", scene, ro, rd, dist)
+        e, work, oracle_work, plain_ms = compare_smt(f"phase 9 {name}", scene, ro, rd, dist,
+                                                     oracle)
         err9 = max(err9, e)
         pool = pool_bytes(scene, smt_cuda._SCENE_FIELDS)
         pool_bvh = array_bytes(scene, BVH_ARRAYS)
@@ -1585,6 +1871,7 @@ def main():
 
     zoo_phase(card, dev)
     train_phase(card, dev)
+    kernels += lod_phase(card, dev)
 
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from aten_tpu.accel import build as jbuild
+from aten_tpu.accel import voxel as jvox
 from aten_tpu.scene import scenedefs as jdefs
 from aten_tpu.scene.scene import SceneBuilder as JaxSceneBuilder
 from aten_tpu_torch import native
@@ -144,8 +145,18 @@ def test_bridge_rejects_unported_features():
     with pytest.raises(NotImplementedError, match="med_sigma_a"):
         bridge.from_numpy({**arrays, "med_sigma_a": np.zeros((1, 3), np.float32)},
                           ref.static, "cpu")
-    with pytest.raises(NotImplementedError):
-        bridge.from_numpy(arrays, {**ref.static, "has_voxel_lod": True}, "cpu")
+    # voxel LOD is ported: the annotation and lod_depth come across, with
+    # K1's records of the tree the port bakes from them
+    jb = JaxSceneBuilder()
+    tdefs.populate_procedural_mesh_scene(jb, 16, 16, n_u=24, n_v=12)
+    lod = jvox.enable_voxel_lod(jb.build(), lod_depth=3)
+    via = bridge.from_numpy(jax.tree_util.tree_map(np.asarray, lod.arrays), lod.static, "cpu")
+    assert via["has_voxel_lod"] and via["lod_bake_depth"] == 3 and int(via["lod_depth"]) == 3
+    for k in ("nodes_voxel_mtl", "nodes_depth"):
+        np.testing.assert_array_equal(via[k].numpy(), np.asarray(lod[k]))
+    assert not any(k.startswith("trl_") for k in via.arrays)
+    word = bvh_layout.unpack_nodes(via["bvh_nodes"].numpy())[4]
+    assert (word <= -2).sum() > 0  # voxel leaves in the baked records
     # envmaps and textures are ported: their arrays come across
     both = bridge.from_numpy({**arrays, **tenv.build_env_tables(np.ones((2, 4, 3), np.float32))},
                              ref.static, "cpu")

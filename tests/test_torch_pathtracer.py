@@ -34,6 +34,7 @@ import torch
 from aten_tpu.core.camera import PinholeCamera as JaxPinholeCamera
 from aten_tpu.integrator.pathtracer import render_image as jax_render_image
 from aten_tpu.scene.scene import SceneBuilder as JaxSceneBuilder
+from aten_tpu_torch.accel.voxel import enable_voxel_lod
 from aten_tpu_torch.core.camera import PinholeCamera
 from aten_tpu_torch.integrator.pathtracer import PathTracer, render_image
 from aten_tpu_torch.scene import bridge
@@ -135,16 +136,21 @@ def test_unported_scene_features_raise():
                               width=8, height=8)
     with pytest.raises(NotImplementedError):
         render_image(scene, cam, spp=1)
-    # media and voxel LOD are still unported (every material family is)
+    # media are still unported (every material family is); voxel LOD is
+    # ported: a scene after enable_voxel_lod renders
     b = SceneBuilder()
     with pytest.raises(NotImplementedError, match="media"):
         b.add_medium(sigma_a=(0.1, 0.1, 0.1))
     m = b.add_material(MaterialType.DIFFUSE)
-    b.add_quad([0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], m)
-    scene = b.build("cpu")
-    lod = type(scene)(scene.arrays, {**scene.static, "has_voxel_lod": True}, scene.device)
-    with pytest.raises(NotImplementedError, match="voxel LOD"):
-        render_image(lod, cam, spp=1)
+    for i in range(8):
+        for j in range(8):
+            x, y = i / 8, j / 8
+            b.add_quad([x, y, 0], [x + 0.125, y, 0], [x + 0.125, y + 0.125, 0],
+                       [x, y + 0.125, 0], m)
+    lod = enable_voxel_lod(b.build("cpu"), lod_depth=3)
+    assert lod["has_voxel_lod"] and (lod["nodes_voxel_mtl"] >= 0).any()
+    img = render_image(lod, cam, spp=1)
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 
 
 def test_material_zoo_matches_golden():

@@ -41,7 +41,7 @@ from aten_tpu_torch.integrator.pathtracer import render_image
 from aten_tpu_torch.ops import bvh_layout, plk_cuda, plk_layout, traverse_cuda
 from aten_tpu_torch.scene import bridge
 from aten_tpu_torch.scene import scenedefs as tdefs
-from aten_tpu_torch.scene.scene import Scene, SceneBuilder, to_tensors
+from aten_tpu_torch.scene.scene import Scene, SceneBuilder, with_plk_layout
 from test_torch_bvh_scene import reference_native  # noqa: F401  (the one guard)
 
 # Tier-1 runs these files in parallel workers; torch's default of one
@@ -60,12 +60,8 @@ def _np(h):
 def _with_plk(scene):
     """`scene` with the Plücker layout of its own BVH attached, as the
     builder attaches it above the pool line."""
-    bvh = {k: scene[k].numpy() for k in bridge.BVH_KEYS}
-    lay = plk_layout.build_plk_layout(bvh, scene["tri_v0"].numpy(), scene["tri_e1"].numpy(),
-                                      scene["tri_e2"].numpy(), scene["num_tris"])
-    arrays = {**scene.arrays, **to_tensors({k: lay[k] for k in plk_layout.ARRAY_KEYS}, "cpu")}
-    static = {**scene.static, "traversal": "plk", "plk_window": lay["plk_window"]}
-    return Scene(arrays, static, scene.device)
+    s = with_plk_layout(scene)
+    return Scene(s.arrays, {**s.static, "traversal": "plk"}, s.device)
 
 
 _SETUP = {}
