@@ -50,6 +50,16 @@ starts inside a voxel's box (its entry t <= t_min): the oracle then
 enters the subtree, which the baked tree no longer has.  Such a scene
 never takes the dense test.
 
+Work counts: the oracle walk returns each ray's node steps as `steps`,
+as the reference's does (:240-241, read by utils/debug.py's heatmap).
+With stats=True the three plain walks also return totals and per-ray
+counts ("counts"), the ones the kStats instantiations of K1 and K3 store
+(ops/traverse_cuda.py, ops/plk_cuda.py), which tools/trav_stats.py
+reads.
+
+`occlusion_alpha` is the shadow test of scenes with alpha: a bounded
+loop of closest-hit walks through alpha surfaces (reference :478-530).
+
 Traversal is discrete structure: it reads its rays and their t_max
 without gradients, as the reference stops them (traverse.py:169), so a
 kernel inside an autograd graph sees no tensor that requires grad.
@@ -246,10 +256,20 @@ def _traverse_plain(scene, ro, rd, t0, any_hit, t_min, stats=False, baked=False)
     oracle), or with baked=True over K1's records of the tree baked at
     lod_bake_depth (`_walk_tree`): the K1 kernel's plain version there.
 
+    The hits carry `steps` [N] int32, each lane's node steps (every
+    iteration it takes with cur >= 0, voxel nodes included), as the
+    reference oracle counts them (:240-241) for its heatmap; a lane with
+    t0 <= t_min takes none here, where the reference walks it without a
+    possible hit.
+
     With stats=True also returns {"node_steps", "prim_tests"} and, with
     LOD, "voxel_tests": box tests, primitive tests and voxel tests summed
     over the lanes, the work these rays need (the counterpart of the
-    reference kernel's `stats` variant)."""
+    reference kernel's `stats` variant); and the hits carry "counts",
+    {"node_steps", "prim_tests"} per lane, the counts K1's kStats
+    instantiations store: an any-hit lane counts the prims of a leaf up to
+    its first accepted hit, where the kernel stops the leaf
+    (bvh_traverse.cu), though this walk tests the rest."""
     dev = ro.device
     N = ro.shape[0]
     num_tris = scene["num_tris"]
@@ -276,7 +296,12 @@ def _traverse_plain(scene, ro, rd, t0, any_hit, t_min, stats=False, baked=False)
     u = torch.zeros_like(t)
     v = torch.zeros_like(t)
     counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    steps_out = torch.zeros((N,), dtype=torch.int32, device=dev)
+    tests_out = torch.zeros((N,), dtype=torch.int32, device=dev)
+    steps = torch.zeros_like(lane, dtype=torch.int32)
+    tests = torch.zeros_like(lane, dtype=torch.int32)
     while lane.numel():
+        steps += 1
         if stats:
             counts[0] += lane.numel()
         ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
@@ -299,12 +324,14 @@ def _traverse_plain(scene, ro, rd, t0, any_hit, t_min, stats=False, baked=False)
         ps = nps[cur]
         pc = npc[cur]
         do_leaf = ahit & (ps >= 0)
+        taken = torch.zeros_like(do_leaf)  # any-hit: the leaf had an accepted hit
         for k in range(LEAF_MAX):
             valid = do_leaf & (k < pc)
             if not bool(valid.any()):
                 break
             if stats:
                 counts[1] += valid.sum()
+                tests += valid & ~taken
             pid = order[torch.clamp(ps + k, 0, P - 1)]
             is_tri = pid < num_tris
             tid = torch.clamp(pid, 0, T - 1)
@@ -324,6 +351,8 @@ def _traverse_plain(scene, ro, rd, t0, any_hit, t_min, stats=False, baked=False)
             prim = torch.where(closer, pid.to(torch.int32), prim)
             u = torch.where(closer, torch.where(is_tri, tu, 0.0), u)
             v = torch.where(closer, torch.where(is_tri, tv, 0.0), v)
+            if any_hit:
+                taken |= closer
         cur = torch.where(ahit, nhit[cur], nmiss[cur])
         if any_hit:
             cur = torch.where(prim >= 0, -1, cur)
@@ -334,16 +363,47 @@ def _traverse_plain(scene, ro, rd, t0, any_hit, t_min, stats=False, baked=False)
             prim_out[fin] = prim[done]
             u_out[fin] = u[done]
             v_out[fin] = v[done]
+            steps_out[fin] = steps[done]
+            tests_out[fin] = tests[done]
             keep = ~done
             lane, o, d, inv = lane[keep], o[keep], d[keep], inv[keep]
             t, cur, prim, u, v = t[keep], cur[keep], prim[keep], u[keep], v[keep]
+            steps, tests = steps[keep], tests[keep]
     out = {"t": t_out, "prim": prim_out, "u": u_out, "v": v_out,
-           "hit": prim_out >= 0}
+           "hit": prim_out >= 0, "steps": steps_out}
     if stats:
+        out["counts"] = {"node_steps": steps_out, "prim_tests": tests_out}
         n = counts.tolist()
         work = {"node_steps": n[0], "prim_tests": n[1]}
         return out, (work if vox is None else {**work, "voxel_tests": n[2]})
     return out
+
+
+# The per-ray counts of the treelet walks' stats: node steps, leaves
+# entered or drained, slot tests.
+TREELET_COUNTS = ("node_steps", "leaves", "slot_tests")
+
+
+class _PerRay:
+    """Per-ray counts TREELET_COUNTS of a compacting walk: `lane` holds
+    the walking lanes' int32 counts, `retire` stores the finished ones;
+    all no-ops without stats."""
+
+    def __init__(self, n, lane, on):
+        self.on = on
+        if on:
+            self.out = [torch.zeros((n,), dtype=torch.int32, device=lane.device)
+                        for _ in TREELET_COUNTS]
+            self.lane = [torch.zeros_like(lane, dtype=torch.int32) for _ in TREELET_COUNTS]
+
+    def retire(self, fin, done, keep):
+        if self.on:
+            for out, c in zip(self.out, self.lane):
+                out[fin] = c[done]
+            self.lane = [c[keep] for c in self.lane]
+
+    def counts(self):
+        return dict(zip(TREELET_COUNTS, self.out))
 
 
 # K3's winner code: the slot's index in its leaf fills the low mantissa
@@ -432,7 +492,9 @@ def _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
 
     With stats=True also returns {"node_steps", "leaves", "slot_tests"}
     (and "voxel_tests" with LOD) summed over the lanes: box tests, fat
-    leaves entered, (lane, slot) Plücker tests and voxel tests."""
+    leaves entered, (lane, slot) Plücker tests and voxel tests; and the
+    hits carry "counts", {"node_steps", "leaves", "slot_tests"} per lane,
+    the counts K3's kStats instantiations store."""
     dev = ro.device
     N = ro.shape[0]
     nbmin, nbmax = scene["plk_bmin"], scene["plk_bmax"]
@@ -455,9 +517,11 @@ def _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
     cur = torch.zeros_like(lane)
     slot = torch.full_like(lane, -1, dtype=torch.int32)
     counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    per_ray = _PerRay(N, lane, stats)
     while lane.numel():
         if stats:
             counts[0] += lane.numel()
+            per_ray.lane[0] += 1
         ss = sstart[cur]
         if lod:
             t_enter, t_exit = _slab(nbmin[cur], nbmax[cur], o, inv)
@@ -477,6 +541,8 @@ def _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
             if stats:
                 counts[1] += at.numel()
                 counts[2] += c.sum()
+                per_ray.lane[1][at] += 1
+                per_ray.lane[2][at] += c
             best = _plk_leaves(consts, ss[at], c, d[at], mw[at], o[at], t_min)
             bt = (best & ~_PLK_NB).view(torch.float32)
             closer = bt < t[at]
@@ -491,6 +557,7 @@ def _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
             t_out[fin] = t[done]
             slot_out[fin] = slot[done]
             keep = ~done
+            per_ray.retire(fin, done, keep)
             lane, o, d, inv, mw = lane[keep], o[keep], d[keep], inv[keep], mw[keep]
             t, cur, slot = t[keep], cur[keep], slot[keep]
     prim = torch.where(slot_out >= 0, s2p[slot_out.clamp(0, n_slots - 1).long()], -1)
@@ -498,6 +565,7 @@ def _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
         prim = torch.where(slot_out >= n_slots, slot_out - n_slots, prim)
     out = {"t": t_out, "prim": prim}
     if stats:
+        out["counts"] = per_ray.counts()
         n = counts.tolist()
         work = {"node_steps": n[0], "leaves": n[1], "slot_tests": n[2]}
         return out, ({**work, "voxel_tests": n[3]} if lod else work)
@@ -573,7 +641,8 @@ def _traverse_trl_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
 
     With stats=True also returns {"node_steps", "leaves", "slot_tests"}
     (and "voxel_tests" with LOD) summed over the lanes: box tests, leaves
-    drained, slot tests and voxel tests."""
+    drained, slot tests and voxel tests; and the hits carry "counts", the
+    same three per lane."""
     dev = ro.device
     N = ro.shape[0]
     nodes, links, recs = scene["trl_nodes"], scene["trl_links"], scene["trl_recs"]
@@ -594,11 +663,13 @@ def _traverse_trl_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
     pstart = torch.full_like(lane, -1)
     pcount = torch.zeros_like(lane)
     counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    per_ray = _PerRay(N, lane, stats)
     while lane.numel():
         active = cur >= 0
         curc = cur.clamp(min=0)
         if stats:
             counts[0] += active.sum()
+            per_ray.lane[0] += active
         nd = nodes[curc]
         ndi = nodes_i[curc]
         if lod:
@@ -621,6 +692,8 @@ def _traverse_trl_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
             if stats:
                 counts[1] += dr.numel()
                 counts[2] += pcount[dr].sum()
+                per_ray.lane[1][dr] += 1
+                per_ray.lane[2][dr] += pcount[dr].to(torch.int32)
             t_dr, p_dr = _trl_leaves(recs, pstart[dr], pcount[dr], o[dr], d[dr], t[dr], t_min)
             t[dr] = t_dr
             prim[dr] = torch.where(p_dr >= 0, p_dr, prim[dr])
@@ -636,11 +709,13 @@ def _traverse_trl_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
             t_out[fin] = t[done]
             prim_out[fin] = prim[done]
             keep = ~done
+            per_ray.retire(fin, done, keep)
             lane, o, d, inv, order2 = lane[keep], o[keep], d[keep], inv[keep], order2[keep]
             t, cur, prim = t[keep], cur[keep], prim[keep]
             pstart, pcount = pstart[keep], pcount[keep]
     out = {"t": t_out, "prim": prim_out}
     if stats:
+        out["counts"] = per_ray.counts()
         n = counts.tolist()
         work = {"node_steps": n[0], "leaves": n[1], "slot_tests": n[2]}
         return out, ({**work, "voxel_tests": n[3]} if lod else work)
@@ -774,3 +849,49 @@ def occluded(scene, ro, rd, dist, eps=1e-3, impl="auto"):
         scene, ro, rd, t_max=dist - eps, any_hit=True, t_min=eps, impl=impl
     )
     return res["hit"] & (dist > eps)
+
+
+def occlusion_alpha(scene, ro, rd, dist, eps=1e-3, max_hits=10, impl="auto"):
+    """Shadow occlusion through alpha-translucent surfaces, in [0, 1] (0:
+    fully visible): up to max_hits closest hits along [eps, dist - eps],
+    each multiplying the transmittance by (1 - alpha), alpha the
+    material's times the albedo map's alpha at the hit's uv
+    (HitTestToTargetLight's bounded loop, pathtracing_impl.h:266-351;
+    the reference's traverse.py:478-530).  A lane stops at a miss, once
+    its transmittance is at most 1e-4, or when its segment is used up.
+    The reference runs all max_hits walks over every lane; here a walk
+    takes only the lanes still active and the loop ends when none is,
+    which changes no lane's result."""
+    from aten_tpu_torch.integrator.pathtracer import eval_hit
+    from aten_tpu_torch.scene.materials import gather_material
+    from aten_tpu_torch.scene.textures import sample_texture
+
+    n = ro.shape[0]
+    trans = torch.ones(n, dtype=torch.float32, device=ro.device)
+    remaining = torch.broadcast_to(
+        torch.as_tensor(dist, dtype=torch.float32, device=ro.device), (n,)) - eps
+    lane = torch.nonzero(remaining > 0).squeeze(1)
+    cur_ro = ro[lane]
+    d = rd[lane]
+    rem = remaining[lane]
+    for _ in range(max_hits):
+        if not lane.numel():
+            break
+        res = traverse_sorted(scene, cur_ro, d, t_max=rem, t_min=eps, impl=impl)
+        h = eval_hit(scene, cur_ro, d, res)
+        mat = gather_material(scene["materials"], h["mtl"])
+        a = mat["alpha"]
+        if "tex_stack" in scene:
+            rgba = sample_texture(scene, mat["albedo_map"], h["uv"][..., 0],
+                                  h["uv"][..., 1], default=1.0)
+            a = a * rgba[..., 3]
+        hit = res["hit"]
+        tr = torch.where(hit, trans[lane] * (1.0 - a), trans[lane])
+        trans[lane] = tr
+        # advance past the hit; lanes blocked by opaque surfaces stop
+        t_adv = torch.where(hit, res["t"] + eps, 0.0)
+        cur_ro = cur_ro + t_adv[..., None] * d
+        rem = rem - t_adv
+        keep = hit & (tr > 1e-4) & (rem > 0)
+        lane, cur_ro, d, rem = lane[keep], cur_ro[keep], d[keep], rem[keep]
+    return 1.0 - trans

@@ -26,19 +26,32 @@ A voxel-LOD scene (accel/voxel.py) resolves a voxel hit on the entry
 face of the node's box, with the node's dominant material shaded as
 DIFFUSE and no light.
 
-Not ported yet (a scene that needs them raises NotImplementedError):
-alpha and stencil punch-through, thin-lens and equirect cameras,
-blue-noise sampling and the AOV outputs.
+Cameras: pinhole, thin-lens (its lens sample drawn from the CMJ stream
+after the pixel jitter) and equirect, by the static `cam_type`.  The
+sampler "bluenoise" takes the pixel jitter and each bounce's three BSDF
+dimensions from core/bluenoise.py's masks in place of the CMJ draws,
+which are still drawn, as in the reference.
+
+A scene with a stencil material (`has_stencil`) resolves its primary
+rays through STENCIL surfaces to the ALWAYS surface behind them
+(`_resolve_stencil`).  A scene with alpha below 1 (`has_alpha`) sends
+its shadow rays through accel/traverse.py::occlusion_alpha, and at each
+hit draws one more number: with probability 1 - alpha (the material's
+times its albedo map's) the path punches through, straight on with its
+MIS state, and neither shades nor ends there.
+
+Not ported yet: the AOV outputs.
 """
 from __future__ import annotations
 
 import torch
 
 from aten_tpu_torch.accel.tlas import apply_affine
-from aten_tpu_torch.accel.traverse import occluded, traverse_sorted
+from aten_tpu_torch.accel.traverse import occluded, occlusion_alpha, traverse, traverse_sorted
 from aten_tpu_torch.core import camera as cam_mod
 from aten_tpu_torch.core import sampler as smp
 from aten_tpu_torch.core import vecmath as vm
+from aten_tpu_torch.core.bluenoise import BlueNoiseSampler
 from aten_tpu_torch.integrator.film import Film
 from aten_tpu_torch.scene import textures as tex_mod
 from aten_tpu_torch.scene.envmap import eval_env
@@ -57,15 +70,23 @@ _STYLIZED_BRDF = int(MaterialType.STYLIZED_BRDF)
 
 # lanes per dispatch: 512x512x16 keeps the path state to a few hundred MB
 MAX_LANES = 4 << 20
+SAMPLERS = ("cmj", "bluenoise")
+CAMERA_TYPES = ("pinhole", "thinlens", "equirect")
 
 
 def check_scene(scene):
-    """Raise NotImplementedError for scene features the port lacks."""
-    for flag, what in (("has_alpha", "alpha punch-through"),
-                       ("has_stencil", "stencil punch-through")):
-        if scene.get(flag):
-            raise NotImplementedError(f"{what} is not ported yet")
+    """Raise NotImplementedError for material types the port lacks."""
     brdf_mod.check_used_types(scene.get("used_mtl_types"))
+
+
+_BLUENOISE = {}
+
+
+def _get_bluenoise(device):
+    """The blue-noise sampler (64x64 masks, 4 layers) on `device`."""
+    if device not in _BLUENOISE:
+        _BLUENOISE[device] = BlueNoiseSampler(device=device)
+    return _BLUENOISE[device]
 
 
 def eval_hit(scene, ro, rd, hit):
@@ -148,13 +169,50 @@ def eval_hit(scene, ro, rd, hit):
     return out
 
 
+def _resolve_stencil(scene, ro, rd, max_lookups=4, eps=1e-3, impl="auto"):
+    """Bounce-0 stencil punch-through (CheckStencil, pathtracing_impl.h
+    :612-678; the reference's pathtracer.py:195-223): where the primary
+    hit is a STENCIL material (stencil 1), walk on through up to
+    max_lookups surfaces for an ALWAYS one (stencil 2) facing the ray,
+    and restart the ray just before it.  A NONE surface (stencil 0), an
+    ALWAYS one facing away, a miss or exhausted lookups leave the ray as
+    it was, so the stencil surface shades.  Only the lanes whose primary
+    hit is a stencil walk on, which changes no lane's result."""
+    hit0 = traverse(scene, ro, rd, impl=impl)
+    h0 = eval_hit(scene, ro, rd, hit0)
+    m0 = gather_material(scene["materials"], h0["mtl"])
+    lane = torch.nonzero(hit0["hit"] & (m0["stencil"] == 1.0)).squeeze(1)
+    ro_out = ro.clone()
+    d = rd[lane]
+    cur = h0["p"][lane] + d * eps
+    for _ in range(max_lookups):
+        if not lane.numel():
+            break
+        res = traverse(scene, cur, d, t_min=eps, impl=impl)
+        h = eval_hit(scene, cur, d, res)
+        stencil = gather_material(scene["materials"], h["mtl"])["stencil"]
+        front = vm.dot(h["ns"], -d, keepdims=False) > 0.0
+        take = res["hit"] & (stencil == 2.0) & front
+        ro_out[lane[take]] = (h["p"] - d * eps)[take]
+        go = res["hit"] & ~take & (stencil != 0.0) & ~((stencil == 2.0) & ~front)
+        lane, d, cur = lane[go], d[go], (h["p"] + d * eps)[go]
+    return ro_out
+
+
 def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
-                 max_depth, rr_depth, spp_chunk=1, impl="auto", y0=0, tile_h=None):
+                 max_depth, rr_depth, spp_chunk=1, impl="auto", y0=0, tile_h=None,
+                 cam_type="pinhole", sampler="cmj"):
     """Radiance [tile_h*width, 3] of the rows [y0, y0 + tile_h) (default:
     the whole image), averaged over samples [sample, sample + spp_chunk);
     lane c*Npix + p traces sample `sample + c` of the band's pixel p, in
     scan order.  Seeds use the global pixel id, so a band equals the same
-    rows of the whole image bit for bit."""
+    rows of the whole image bit for bit.  cam_type: "pinhole",
+    "thinlens" or "equirect" (`cam_arrays` of that camera); sampler:
+    "cmj" or "bluenoise"."""
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r}: one of {SAMPLERS}")
+    if cam_type not in CAMERA_TYPES:
+        raise ValueError(f"unknown camera type {cam_type!r}: one of {CAMERA_TYPES}")
     dev = scene.device
     used = scene["used_mtl_types"]
     if tile_h is None:
@@ -172,9 +230,25 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
 
     state = smp.make_state(pixel_seed, frame, samp_idx, spp, bounce=0)
     ju, jv, state = smp.next_2d(state)
+    if sampler == "bluenoise":
+        # the blue-noise pixel jitter; the reference draws it from its
+        # mask stack by (pixel, frame * 64 + sample, dimension)
+        bn = _get_bluenoise(dev)
+        fkey = frame * 64 + samp_idx
+        ju = bn.sample(px, py, fkey, 0)
+        jv = bn.sample(px, py, fkey, 1)
     s = (px + ju) / width
     t = (float(height - 1) - py + jv) / height
-    ro, rd = cam_mod.generate_ray(cam_arrays, s, t)
+    if cam_type == "thinlens":
+        # the lens sample comes from the same CMJ stream
+        ul1, ul2, state = smp.next_2d(state)
+        ro, rd = cam_mod.generate_ray_thinlens(cam_arrays, s, t, ul1, ul2)
+    elif cam_type == "equirect":
+        ro, rd = cam_mod.generate_ray_equirect(cam_arrays, s, t)
+    else:
+        ro, rd = cam_mod.generate_ray(cam_arrays, s, t)
+    if scene.get("has_stencil"):
+        ro = _resolve_stencil(scene, ro, rd, impl=impl)
 
     radiance = torch.zeros((N, 3), dtype=torch.float32, device=dev)
     throughput = torch.ones((N, 3), dtype=torch.float32, device=dev)
@@ -182,7 +256,13 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
     pdf_prev = torch.ones((N,), dtype=torch.float32, device=dev)
     prev_singular = torch.ones((N,), dtype=torch.bool, device=dev)
 
+    # alpha-translucent scenes send shadow rays through the bounded
+    # punch-through walk; opaque ones keep the binary any-hit test
+    has_alpha = bool(scene.get("has_alpha"))
+
     def occluded_fn(o, d, dist):
+        if has_alpha:
+            return occlusion_alpha(scene, o, d, dist, impl=impl)
         return occluded(scene, o, d, dist, impl=impl)
 
     for bounce in range(max_depth):
@@ -211,10 +291,21 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
         # per-bounce sampler re-seed (reference bounce-dim offset)
         state = smp.make_state(pixel_seed, frame, samp_idx, spp, bounce=bounce + 1)
 
+        # translucent-by-alpha punch-through (CheckMaterialTranslucentByAlpha,
+        # pathtracing_impl.h:511-610): with probability 1 - alpha the path
+        # goes on straight through the surface, stochastically (one ray)
+        # where the reference blends
+        if has_alpha:
+            u_alpha, state = smp.next_1d(state)
+            a_eff = mat["alpha"] * mat.get("tex_alpha", 1.0)
+            punch = alive & hit["hit"] & (u_alpha >= a_eff)
+        else:
+            punch = torch.zeros_like(alive)
+
         # toon-as-light (HitTeminatedMaterial's toon branch): the term draws
         # from every lane's state, only in scenes that use a toon family;
         # at bounce 0 a live toon hit adds it like an emitter, and a toon
-        # hit ends its path at any depth
+        # hit that does not punch through ends its path at any depth
         if _TOON in used or _STYLIZED_BRDF in used:
             is_toon = (mat["type"] == _TOON) | (mat["type"] == _STYLIZED_BRDF)
             t_rgb, state = toon_term(
@@ -223,8 +314,9 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
                 stylized=mat["type"] == _STYLIZED_BRDF)
             if bounce == 0:
                 radiance = radiance + torch.where(
-                    (alive & hit["hit"] & is_toon)[..., None], throughput * t_rgb, 0.0)
-            alive = alive & ~is_toon
+                    (alive & hit["hit"] & is_toon & ~punch)[..., None], throughput * t_rgb,
+                    0.0)
+            alive = alive & (~is_toon | punch)
 
         # implicit emitter hit (HitImplicitLight)
         is_emis = mat["type"] == _EMISSIVE
@@ -235,11 +327,11 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
         w_imp = torch.where(h["light"] >= 0, w_imp, 1.0)
         front = cos_l > 0.0
         radiance = radiance + torch.where(
-            (hit_emit & front)[..., None],
+            (hit_emit & front & ~punch)[..., None],
             throughput * mat["base_color"] * w_imp[..., None],
             0.0,
         )
-        alive = alive & hit["hit"] & ~is_emis
+        alive = alive & hit["hit"] & (~is_emis | punch)
 
         wo = -rd
         # NEE, skipped for singular BSDFs; dead lanes pass dist 0
@@ -249,7 +341,7 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
             used,
         )
         is_singular_mat = (mat["type"] == _SPECULAR) | (mat["type"] == _REFRACTION)
-        nee_ok = alive & ~is_singular_mat
+        nee_ok = alive & ~is_singular_mat & ~punch
         radiance = radiance + torch.where(nee_ok[..., None], throughput * contrib, 0.0)
 
         # Russian roulette (ComputeRussianProbability); the survival
@@ -266,6 +358,11 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
         # BSDF sample + next ray (PrepareForNextBounce)
         u1, u2, state = smp.next_2d(state)
         u3, state = smp.next_1d(state)
+        if sampler == "bluenoise":
+            base = 2 + bounce * 3
+            u1 = bn.sample(px, py, fkey, base)
+            u2 = bn.sample(px, py, fkey, base + 1)
+            u3 = bn.sample(px, py, fkey, base + 2)
         samp = brdf_mod.sample_brdf(mat, h["ns"], wo, u1, u2, u3, used)
         n_or = brdf_mod.orient_normal(h["ns"], wo)
         cos_wi = torch.abs(vm.dot(n_or, samp["wi"], keepdims=False))
@@ -274,16 +371,20 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
         pdf_det = torch.clamp(samp["pdf"], min=1e-9).detach()
         weight = samp["bsdf"] * (cos_wi / pdf_det)[..., None]
         throughput = torch.where(
-            (alive & good)[..., None], throughput * weight, throughput)
-        alive = alive & good
+            (alive & good & ~punch)[..., None], throughput * weight, throughput)
+        alive = alive & (good | punch)
 
         # detached sampling: the next ray is a constant under autograd;
-        # gradients flow through the bsdf and pdf values, not the warp
+        # gradients flow through the bsdf and pdf values, not the warp.
+        # Punch-through lanes go on straight through the surface, with
+        # their direction and MIS state.
         off_n = torch.where(samp["transmission"][..., None], -n_or, n_or)
-        ro = (h["p"] + off_n * 1e-3).detach()
-        rd = samp["wi"].detach()
-        pdf_prev = samp["pdf"]
-        prev_singular = samp["singular"]
+        ro_next = (h["p"] + off_n * 1e-3).detach()
+        p3 = punch[..., None]
+        ro = torch.where(p3, (h["p"] + rd * 1e-3).detach(), ro_next)
+        rd = torch.where(p3, rd, samp["wi"].detach())
+        pdf_prev = torch.where(punch, pdf_prev, samp["pdf"])
+        prev_singular = torch.where(punch, prev_singular, samp["singular"])
 
     # invalid-radiance guard (Renderer::isInvalidColor)
     bad = ~torch.all(torch.isfinite(radiance), dim=-1) | torch.any(radiance < 0, dim=-1)
@@ -295,13 +396,12 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
 
 def render_sample(scene, cam_arrays, width, height, frame, sample, spp=1,
                   max_depth=5, rr_depth=3, spp_chunk=1, impl="auto",
-                  sampler="cmj"):
+                  cam_type="pinhole", sampler="cmj"):
     """Mean radiance [height, width, 3] of samples [sample, sample+spp_chunk)."""
-    if sampler != "cmj":
-        raise NotImplementedError(f"sampler {sampler!r} is not ported yet (cmj only)")
     check_scene(scene)
     rad = _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
-                       max_depth, rr_depth, spp_chunk=spp_chunk, impl=impl)
+                       max_depth, rr_depth, spp_chunk=spp_chunk, impl=impl,
+                       cam_type=cam_type, sampler=sampler)
     return rad.reshape(height, width, 3)
 
 
@@ -311,7 +411,7 @@ def render_image(scene, cam, spp=16, max_depth=5, rr_depth=3, frame=0,
     spp_chunk samples per dispatch (default: all of spp, capped at
     MAX_LANES lanes), lowered to a divisor of spp so every chunk weighs
     the same.  impl selects the traversal (see accel/traverse.py)."""
-    cam_mod.camera_type_of(cam)
+    cam_type = cam_mod.camera_type_of(cam)
     cam_arrays = cam.arrays(scene.device)
     if spp_chunk is None:
         spp_chunk = max(1, min(spp, MAX_LANES // (cam.width * cam.height)))
@@ -322,7 +422,7 @@ def render_image(scene, cam, spp=16, max_depth=5, rr_depth=3, frame=0,
     for s in range(0, spp, spp_chunk):
         acc = acc + render_sample(
             scene, cam_arrays, cam.width, cam.height, frame, s, spp,
-            max_depth, rr_depth, spp_chunk=spp_chunk, impl=impl,
+            max_depth, rr_depth, spp_chunk=spp_chunk, impl=impl, cam_type=cam_type,
         ) * spp_chunk
     return acc / spp
 
@@ -331,7 +431,7 @@ class PathTracer:
     """Progressive renderer (Renderer::render + FilmProgressive)."""
 
     def __init__(self, scene, cam, spp_per_frame=1, max_depth=5, rr_depth=3):
-        cam_mod.camera_type_of(cam)
+        self.cam_type = cam_mod.camera_type_of(cam)
         self.scene = scene
         self.cam = cam
         self.cam_arrays = cam.arrays(scene.device)
@@ -346,7 +446,7 @@ class PathTracer:
             img = render_sample(
                 self.scene, self.cam_arrays, self.cam.width, self.cam.height,
                 self.frame, s, self.spp_per_frame, self.max_depth,
-                self.rr_depth,
+                self.rr_depth, cam_type=self.cam_type,
             )
             self.film.accumulate(img)
         self.frame += 1

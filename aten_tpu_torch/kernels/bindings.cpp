@@ -20,19 +20,24 @@ constexpr int64_t kMaxRays = int64_t{1} << 31;
 extern "C" {
 
 // Returns 0, a cudaError_t of the launch (> 0), or -1 for bad arguments.
-// `next_ray` is one zeroed counter in device memory.
+// `next_ray` is one zeroed counter in device memory.  `steps` and `tests`
+// [n] are both null (the plain instantiations) or both set (the kStats
+// ones, which write each ray's node steps and prim tests there).
 int aten_bvh_traverse(const float* nodes, const float* prims, int32_t num_tris,
                       const float* ro, const float* rd, const float* t0,
                       float* t, int32_t* prim, float* u, float* v, int64_t n,
                       float t_min, int32_t any_hit, int32_t lod,
+                      int32_t* steps, int32_t* tests,
                       unsigned* next_ray, void* stream) {
   if (n < 0 || n >= kMaxRays || num_tris < 0) return -1;
   if (n > 0 && (!ro || !rd || !t0 || !t || !prim || !u || !v || !next_ray))
     return -1;
   if (!nodes || !prims || !aligned16(nodes) || !aligned16(prims)) return -1;
+  if (!steps != !tests) return -1;
   const aten_tpu_torch::BvhView bvh{nodes, prims, num_tris};
   const aten_tpu_torch::RayView rays{ro, rd, t0, t, prim, u, v, n};
-  return aten_tpu_torch::launch_bvh_traverse(bvh, rays, t_min, any_hit != 0,
+  const aten_tpu_torch::CountView counts{steps, nullptr, tests};
+  return aten_tpu_torch::launch_bvh_traverse(bvh, rays, counts, t_min, any_hit != 0,
                                              lod != 0, next_ray, stream);
 }
 
@@ -54,19 +59,24 @@ int aten_tlas_traverse(const float* nodes, const float* insts, const float* prim
                                               next_ray, stream);
 }
 
-// The Plücker treelet walk; returns as aten_bvh_traverse does.
+// The Plücker treelet walk; returns as aten_bvh_traverse does.  `steps`,
+// `leaves` and `tests` [n] are all null or all set (the kStats
+// instantiations: node steps, fat leaves entered, slot tests per ray).
 int aten_plk_traverse(const float* nodes, const float* consts,
                       const int32_t* slot2prim, int32_t n_slots, const float* ro,
                       const float* rd, const float* t0, float* t,
                       int32_t* prim, int64_t n, float t_min, int32_t any_hit,
-                      int32_t lod, unsigned* next_ray, void* stream) {
+                      int32_t lod, int32_t* steps, int32_t* leaves, int32_t* tests,
+                      unsigned* next_ray, void* stream) {
   if (n < 0 || n >= kMaxRays || n_slots < 0) return -1;
   if (n > 0 && (!ro || !rd || !t0 || !t || !prim || !next_ray)) return -1;
   if (!nodes || !consts || !slot2prim || !aligned16(nodes) || !aligned16(consts))
     return -1;
+  if (!steps != !leaves || !steps != !tests) return -1;
   const aten_tpu_torch::PlkView plk{nodes, consts, slot2prim, n_slots};
   const aten_tpu_torch::RayView rays{ro, rd, t0, t, prim, nullptr, nullptr, n};
-  return aten_tpu_torch::launch_plk_traverse(plk, rays, t_min, any_hit != 0,
+  const aten_tpu_torch::CountView counts{steps, leaves, tests};
+  return aten_tpu_torch::launch_plk_traverse(plk, rays, counts, t_min, any_hit != 0,
                                              lod != 0, next_ray, stream);
 }
 

@@ -27,6 +27,16 @@
 // handled inside the node loop, as inner nodes are: they test no prims.
 // The !kLod instantiations are the kernels of before, unchanged.
 //
+// The kStats instantiations are the `stats=True` variant of the TPU
+// kernel (:813-816, :911-913, :1000-1002, :1026-1032), which counts node
+// iterations and leaf rows per 1024-ray tile for one tile-wide vote.
+// Here each thread walks its own ray, so each ray counts its own work:
+// node steps (every node the inner loop visits, voxel leaves included)
+// and prim tests (the leaf loop's tests, an any-hit ray's up to its
+// first accepted hit), stored once where the ray retires (CountView).
+// Their plain version is _traverse_plain(stats=True)'s "counts"; the
+// hits are the !kStats instantiation's, bit for bit.
+//
 // Bound: a data-dependent pointer chase.  The whole pool fits the 50 MB
 // L2 cache, so the latency of each dependent load, not bandwidth or
 // arithmetic, sets the time, and divergent rays in a warp serialise.
@@ -55,9 +65,10 @@ namespace {
 constexpr int kBlock = 128;
 constexpr int kMinIdle = 8;  // idle lanes at which a warp takes new rays
 
-template <bool kAnyHit, bool kLod>
+template <bool kAnyHit, bool kLod, bool kStats>
 __global__ void __launch_bounds__(kBlock)
-    bvh_traverse_kernel(BvhView b, RayView r, float t_min, unsigned* next_ray) {
+    bvh_traverse_kernel(BvhView b, RayView r, CountView c, float t_min,
+                        unsigned* next_ray) {
   const float4* __restrict__ nodes = reinterpret_cast<const float4*>(b.nodes);
   const float4* __restrict__ prims = reinterpret_cast<const float4*>(b.prims);
   int ray = -1;
@@ -65,6 +76,7 @@ __global__ void __launch_bounds__(kBlock)
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
   float ix = 0.0f, iy = 0.0f, iz = 0.0f, t = 0.0f, bu = 0.0f, bv = 0.0f;
   int32_t prim = -1, cur = -1;
+  int32_t steps = 0, tests = 0;  // kStats: this ray's node steps, prim tests
   while (true) {
     if (take_rays(next_ray, r.n, kMinIdle, ray, open)) {
       const int64_t i3 = 3 * static_cast<int64_t>(ray);
@@ -75,6 +87,7 @@ __global__ void __launch_bounds__(kBlock)
       t = t0;
       prim = -1;
       bu = bv = 0.0f;
+      if constexpr (kStats) steps = tests = 0;
       // a ray with t0 <= t_min can never hit (any prim needs t_min < t < t0)
       cur = t0 > t_min ? 0 : -1;
     }
@@ -83,6 +96,7 @@ __global__ void __launch_bounds__(kBlock)
     int32_t leaf = -1;
     if (ray >= 0) {
       while (cur >= 0) {
+        if constexpr (kStats) ++steps;
         const float4 lo = __ldg(nodes + 2 * cur), hi = __ldg(nodes + 2 * cur + 1);
         const int32_t miss = __float_as_int(lo.w);
         if constexpr (kLod) {
@@ -118,6 +132,7 @@ __global__ void __launch_bounds__(kBlock)
       const float4* rec = prims + 3 * static_cast<int64_t>(leaf >> kLeafShift);
       const int32_t pc = leaf & kLeafCount;
       for (int32_t k = 0; k < pc; ++k, rec += 3) {
+        if constexpr (kStats) ++tests;
         const float4 a = __ldg(rec), e1 = __ldg(rec + 1);
         const int32_t pid = __float_as_int(a.w);
         float tp, tu = 0.0f, tv = 0.0f;
@@ -144,36 +159,52 @@ __global__ void __launch_bounds__(kBlock)
       r.prim[ray] = prim;
       r.u[ray] = bu;
       r.v[ray] = bv;
+      if constexpr (kStats) {
+        c.steps[ray] = steps;
+        c.tests[ray] = tests;
+      }
       ray = -1;
     }
   }
 }
 
-template <bool kAnyHit, bool kLod>
-void launch(const BvhView& bvh, const RayView& rays, float t_min,
-            unsigned* next_ray, cudaStream_t s) {
+template <bool kAnyHit, bool kLod, bool kStats>
+void launch(const BvhView& bvh, const RayView& rays, const CountView& counts,
+            float t_min, unsigned* next_ray, cudaStream_t s) {
   const int64_t blocks =
-      persistent_blocks(bvh_traverse_kernel<kAnyHit, kLod>, kBlock, rays.n);
-  bvh_traverse_kernel<kAnyHit, kLod><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
-      bvh, rays, t_min, next_ray);
+      persistent_blocks(bvh_traverse_kernel<kAnyHit, kLod, kStats>, kBlock, rays.n);
+  bvh_traverse_kernel<kAnyHit, kLod, kStats>
+      <<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(bvh, rays, counts, t_min,
+                                                        next_ray);
+}
+
+template <bool kAnyHit, bool kLod>
+void launch(const BvhView& bvh, const RayView& rays, const CountView& counts,
+            float t_min, unsigned* next_ray, cudaStream_t s) {
+  if (counts.steps) {
+    launch<kAnyHit, kLod, true>(bvh, rays, counts, t_min, next_ray, s);
+  } else {
+    launch<kAnyHit, kLod, false>(bvh, rays, counts, t_min, next_ray, s);
+  }
 }
 
 }  // namespace
 
-int launch_bvh_traverse(const BvhView& bvh, const RayView& rays, float t_min,
-                        bool any_hit, bool lod, unsigned* next_ray, void* stream) {
+int launch_bvh_traverse(const BvhView& bvh, const RayView& rays, const CountView& counts,
+                        float t_min, bool any_hit, bool lod, unsigned* next_ray,
+                        void* stream) {
   if (rays.n <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lod) {
     if (any_hit) {
-      launch<true, true>(bvh, rays, t_min, next_ray, s);
+      launch<true, true>(bvh, rays, counts, t_min, next_ray, s);
     } else {
-      launch<false, true>(bvh, rays, t_min, next_ray, s);
+      launch<false, true>(bvh, rays, counts, t_min, next_ray, s);
     }
   } else if (any_hit) {
-    launch<true, false>(bvh, rays, t_min, next_ray, s);
+    launch<true, false>(bvh, rays, counts, t_min, next_ray, s);
   } else {
-    launch<false, false>(bvh, rays, t_min, next_ray, s);
+    launch<false, false>(bvh, rays, counts, t_min, next_ray, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,14 +37,25 @@ struct RayView {
   int64_t n;
 };
 
+// Per-ray work counts of the kStats instantiations, written where each
+// ray retires; all null for the plain instantiations.  K1 fills `steps`
+// (node steps, voxel leaves included) and `tests` (prim tests); K3 fills
+// `steps`, `leaves` (fat leaves entered) and `tests` (slot tests).
+struct CountView {
+  int32_t* steps;   // [n]
+  int32_t* leaves;  // [n]
+  int32_t* tests;   // [n]
+};
+
 // Enqueues the walk on `stream`; returns the cudaError_t of the launch.
 // `next_ray` is one zeroed counter from which the persistent warps take
 // their rays; rays.n < 2^31.  `lod`: the voxel-LOD variant, for a tree
 // baked for voxel LOD, whose voxel leaves hold kVoxelWord - id
-// (traverse_device.cuh) in the leaf word.
+// (traverse_device.cuh) in the leaf word.  counts.steps non-null: the
+// kStats instantiation, which also writes counts.steps and counts.tests.
 int launch_bvh_traverse(const BvhView& bvh, const RayView& rays,
-                        float t_min, bool any_hit, bool lod, unsigned* next_ray,
-                        void* stream);
+                        const CountView& counts, float t_min, bool any_hit,
+                        bool lod, unsigned* next_ray, void* stream);
 
 // The packed records of ops/tlas_layout.py; device pointers, 16-byte
 // aligned (read as float4).
@@ -85,10 +96,10 @@ struct PlkView {
 };
 
 // Writes rays.t and rays.prim; rays.u and rays.v are not used.  As
-// launch_bvh_traverse.
+// launch_bvh_traverse; the kStats instantiation writes all three counts.
 int launch_plk_traverse(const PlkView& plk, const RayView& rays,
-                        float t_min, bool any_hit, bool lod, unsigned* next_ray,
-                        void* stream);
+                        const CountView& counts, float t_min, bool any_hit,
+                        bool lod, unsigned* next_ray, void* stream);
 
 // The treelet layout of ops/trl_layout.py; device pointers.
 // `nodes` and `recs` are 16-byte aligned (read as float4), `links`

@@ -39,6 +39,15 @@
 // drain.  The shift is undone at the end (the reference's wrapper,
 // :2113-2117).  The !kLod instantiations are the kernels of before.
 //
+// The kStats instantiations are the `stats=True` variant (:1087-1090,
+// :1264-1266, :1289-1294), which counts node iterations and drains per
+// 1024-ray tile.  Each ray here counts its own: node steps (every node
+// its walk visits, voxel leaves included), fat leaves entered, and slot
+// tests (each leaf's slot count, whichever lanes of the warp test them),
+// stored once where the ray retires (CountView).  Their plain version is
+// _traverse_plk_plain(stats=True)'s "counts"; the hits are the !kStats
+// instantiation's, bit for bit.
+//
 // Bound: a dependent walk of the cut tree, then up to 64 records of 64 B
 // per fat leaf entered, each read once per ray.  On the 512k-prim scene
 // the records' 35 MB fit the 50 MB L2, so the latency of the walk's
@@ -99,9 +108,10 @@ __device__ __forceinline__ int32_t slot_code(const float4* __restrict__ rec,
   return signok && tt > t_min ? (__float_as_int(tt) & ~kSlotMask) | j : kNoHit;
 }
 
-template <bool kAnyHit, bool kLod>
+template <bool kAnyHit, bool kLod, bool kStats>
 __global__ void __launch_bounds__(kBlock)
-    plk_traverse_kernel(PlkView p, RayView r, float t_min, unsigned* next_ray) {
+    plk_traverse_kernel(PlkView p, RayView r, CountView c, float t_min,
+                        unsigned* next_ray) {
   const float4* __restrict__ nodes = reinterpret_cast<const float4*>(p.nodes);
   const float4* __restrict__ recs = reinterpret_cast<const float4*>(p.consts);
   const int lane = threadIdx.x & 31;
@@ -111,6 +121,7 @@ __global__ void __launch_bounds__(kBlock)
   float ix = 0.0f, iy = 0.0f, iz = 0.0f, mx = 0.0f, my = 0.0f, mz = 0.0f;
   float t = 0.0f;
   int32_t slot = -1, cur = -1;
+  int32_t steps = 0, leaves = 0, tests = 0;  // kStats: this ray's counts
   while (true) {
     if (take_rays(next_ray, r.n, kMinIdle, ray, open)) {
       const int64_t i3 = 3 * static_cast<int64_t>(ray);
@@ -125,12 +136,14 @@ __global__ void __launch_bounds__(kBlock)
       t = t0;
       slot = -1;
       cur = t0 > t_min ? 0 : -1;
+      if constexpr (kStats) steps = leaves = tests = 0;
     }
     if (!__any_sync(kFullWarp, ray >= 0)) break;  // the queue is empty
     // the cut tree's inner nodes until a fat leaf whose box the ray hits
     int32_t leaf = -1;
     if (ray >= 0) {
       while (cur >= 0) {
+        if constexpr (kStats) ++steps;
         const float4 lo = __ldg(nodes + 2 * cur), hi = __ldg(nodes + 2 * cur + 1);
         const int32_t miss = __float_as_int(lo.w);
         if constexpr (kLod) {
@@ -157,6 +170,10 @@ __global__ void __launch_bounds__(kBlock)
           continue;
         }
         cur = miss;  // a fat leaf's hit link is its miss link
+        if constexpr (kStats) {
+          ++leaves;
+          tests += leaf & kLeafCount;
+        }
         break;
       }
     }
@@ -203,36 +220,53 @@ __global__ void __launch_bounds__(kBlock)
       } else {
         r.prim[ray] = slot >= 0 ? __ldg(p.slot2prim + slot) : -1;
       }
+      if constexpr (kStats) {
+        c.steps[ray] = steps;
+        c.leaves[ray] = leaves;
+        c.tests[ray] = tests;
+      }
       ray = -1;
     }
   }
 }
 
-template <bool kAnyHit, bool kLod>
-void launch(const PlkView& plk, const RayView& rays, float t_min,
-            unsigned* next_ray, cudaStream_t s) {
+template <bool kAnyHit, bool kLod, bool kStats>
+void launch(const PlkView& plk, const RayView& rays, const CountView& counts,
+            float t_min, unsigned* next_ray, cudaStream_t s) {
   const int64_t blocks =
-      persistent_blocks(plk_traverse_kernel<kAnyHit, kLod>, kBlock, rays.n);
-  plk_traverse_kernel<kAnyHit, kLod><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
-      plk, rays, t_min, next_ray);
+      persistent_blocks(plk_traverse_kernel<kAnyHit, kLod, kStats>, kBlock, rays.n);
+  plk_traverse_kernel<kAnyHit, kLod, kStats>
+      <<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(plk, rays, counts, t_min,
+                                                        next_ray);
+}
+
+template <bool kAnyHit, bool kLod>
+void launch(const PlkView& plk, const RayView& rays, const CountView& counts,
+            float t_min, unsigned* next_ray, cudaStream_t s) {
+  if (counts.steps) {
+    launch<kAnyHit, kLod, true>(plk, rays, counts, t_min, next_ray, s);
+  } else {
+    launch<kAnyHit, kLod, false>(plk, rays, counts, t_min, next_ray, s);
+  }
 }
 
 }  // namespace
 
-int launch_plk_traverse(const PlkView& plk, const RayView& rays, float t_min,
-                        bool any_hit, bool lod, unsigned* next_ray, void* stream) {
+int launch_plk_traverse(const PlkView& plk, const RayView& rays, const CountView& counts,
+                        float t_min, bool any_hit, bool lod, unsigned* next_ray,
+                        void* stream) {
   if (rays.n <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lod) {
     if (any_hit) {
-      launch<true, true>(plk, rays, t_min, next_ray, s);
+      launch<true, true>(plk, rays, counts, t_min, next_ray, s);
     } else {
-      launch<false, true>(plk, rays, t_min, next_ray, s);
+      launch<false, true>(plk, rays, counts, t_min, next_ray, s);
     }
   } else if (any_hit) {
-    launch<true, false>(plk, rays, t_min, next_ray, s);
+    launch<true, false>(plk, rays, counts, t_min, next_ray, s);
   } else {
-    launch<false, false>(plk, rays, t_min, next_ray, s);
+    launch<false, false>(plk, rays, counts, t_min, next_ray, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,7 +8,11 @@ records `plk_consts` and `plk_slot2prim`.  It replaces the TPU kernel
 launched by `_traverse_plk_tiles` :1276).  On a voxel-LOD scene it runs
 the `lod` variant, the `has_lod=True` branch (:1214-1224, the wrapper's
 id translation :2113-2117), over the layout of the baked tree, and
-raises when the scene's `lod_depth` differs from its `lod_bake_depth`.  Its arguments are checked on
+raises when the scene's `lod_depth` differs from its `lod_bake_depth`.
+With stats=True it runs the kStats instantiation, the `stats=True`
+variant (:1087-1090, :1264-1266, :1289-1294), counted per ray, and also
+returns each ray's node steps, fat leaves entered and slot tests; only
+the traversal-stats tool and the on-card check call it.  Its arguments are checked on
 every device; for tensors on the CPU it then runs the kernel's plain
 version, accel/traverse.py::_traverse_plk_plain, and on a CUDA tensor it
 launches the kernel or raises, never falling back.  The kernel lives in
@@ -21,14 +25,19 @@ import torch
 from aten_tpu_torch.ops.bvh_layout import NODE_WORDS
 from aten_tpu_torch.ops.lod_layout import lod_of
 from aten_tpu_torch.ops.plk_layout import RECORD, WINDOW
-from aten_tpu_torch.ops.traverse_cuda import _checked, _packed, load_library, next_ray_counter
+from aten_tpu_torch.ops.traverse_cuda import (
+    _checked, _packed, count_tensors, load_library, next_ray_counter)
 
 KERNELS = ("plk_traverse_closest", "plk_traverse_any")
 LOD_KERNELS = ("plk_traverse_lod_closest", "plk_traverse_lod_any")
+STATS_KERNELS = ("plk_traverse_stats_closest", "plk_traverse_stats_any")
+LOD_STATS_KERNELS = ("plk_traverse_lod_stats_closest", "plk_traverse_lod_stats_any")
+# the per-ray counts of the kStats instantiations
+COUNTS = ("node_steps", "leaves", "slot_tests")
 
 # Launches per kernel instantiation since the last reset: the one place
 # that adds to a count is the line after a successful launch below.
-launch_counts = dict.fromkeys(KERNELS + LOD_KERNELS, 0)
+launch_counts = dict.fromkeys(KERNELS + LOD_KERNELS + STATS_KERNELS + LOD_STATS_KERNELS, 0)
 
 
 def reset_launch_counts():
@@ -43,11 +52,12 @@ _SCENE_FIELDS = (
 )
 
 
-def plk_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
+def plk_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4, stats=False):
     """Closest (or any) hit of rays ro, rd [N,3] with t_max t0 [N] against
     the scene's Plücker layout.  Returns (t, prim), each [N]: t the
     winner's t with its 6 low mantissa bits cleared (t0 on a miss), prim
-    its global id (-1 on a miss)."""
+    its global id (-1 on a miss); with stats=True also {"node_steps",
+    "leaves", "slot_tests"}, each ray's int32 counts."""
     dev = ro.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"plk_traverse: unsupported device {dev}")
@@ -65,23 +75,31 @@ def plk_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
     if dev.type == "cpu":
         from aten_tpu_torch.accel.traverse import _traverse_plk_plain
 
+        if stats:
+            h = _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min, stats=True)[0]
+            return h["t"], h["prim"], h["counts"]
         h = _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min)
         return h["t"], h["prim"]
     t = torch.empty(n, dtype=torch.float32, device=dev)
     prim = torch.empty(n, dtype=torch.int32, device=dev)
+    counts = count_tensors(COUNTS, n, dev) if stats else None
+    out = (t, prim) + ((counts,) if stats else ())
     if n == 0:
-        return t, prim
+        return out
     lib = load_library()
     counter = next_ray_counter(dev)
+    count_p = [counts[k].data_ptr() for k in COUNTS] if stats else [None] * 3
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.aten_plk_traverse(
             *ptrs, scene["plk_slot2prim"].shape[0], ro_p, rd_p, t0_p, t.data_ptr(),
-            prim.data_ptr(), n, float(t_min), int(any_hit), int(lod), counter.data_ptr(),
-            stream)
+            prim.data_ptr(), n, float(t_min), int(any_hit), int(lod), *count_p,
+            counter.data_ptr(), stream)
     if rc != 0:
         what = ("bad arguments" if rc < 0
                 else lib.aten_cuda_error_string(rc).decode())
         raise RuntimeError(f"plk_traverse launch failed ({rc}): {what}")
-    launch_counts[(LOD_KERNELS if lod else KERNELS)[int(any_hit)]] += 1
-    return t, prim
+    names = ((LOD_STATS_KERNELS if lod else STATS_KERNELS) if stats
+             else (LOD_KERNELS if lod else KERNELS))
+    launch_counts[names[int(any_hit)]] += 1
+    return out

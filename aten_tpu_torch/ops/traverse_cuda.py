@@ -12,6 +12,10 @@ On a voxel-LOD scene (accel/voxel.py) it runs the `lod` variant, the
 `has_lod=True` branch of `_make_treelet_kernel` (:922-923, :950-963),
 over the records of the tree baked at the scene's `lod_bake_depth`, and
 raises when the scene's `lod_depth` differs from it.
+With stats=True it runs the kStats instantiation, the `stats=True`
+variant of `_make_treelet_kernel` (:813-816, :911-913, :1000-1002,
+:1026-1032), counted per ray, and also returns each ray's node steps and
+prim tests; only the traversal-stats tool and the on-card check call it.
 For tensors on the CPU it runs the kernel's plain version,
 accel/traverse.py::_traverse_plain (over the baked records, baked=True,
 on a voxel-LOD scene); on a CUDA tensor it launches the kernel or
@@ -46,10 +50,14 @@ CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
               "-Xptxas=-v")
 KERNELS = ("bvh_traverse_closest", "bvh_traverse_any")
 LOD_KERNELS = ("bvh_traverse_lod_closest", "bvh_traverse_lod_any")
+STATS_KERNELS = ("bvh_traverse_stats_closest", "bvh_traverse_stats_any")
+LOD_STATS_KERNELS = ("bvh_traverse_lod_stats_closest", "bvh_traverse_lod_stats_any")
+# the per-ray counts of the kStats instantiations
+COUNTS = ("node_steps", "prim_tests")
 
 # Launches per kernel instantiation since the last reset: the one place
 # that adds to a count is the line after a successful launch below.
-launch_counts = dict.fromkeys(KERNELS + LOD_KERNELS, 0)
+launch_counts = dict.fromkeys(KERNELS + LOD_KERNELS + STATS_KERNELS + LOD_STATS_KERNELS, 0)
 
 _lib = None
 
@@ -85,7 +93,7 @@ def load_library(verbose=False):
     lib.aten_bvh_traverse.restype = ctypes.c_int
     lib.aten_bvh_traverse.argtypes = (
         [vp] * 2 + [ctypes.c_int32] + [vp] * 7
-        + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, ctypes.c_int32, vp, vp])
+        + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, ctypes.c_int32] + [vp] * 4)
     lib.aten_tlas_traverse.restype = ctypes.c_int
     lib.aten_tlas_traverse.argtypes = (
         [vp] * 3 + [ctypes.c_int32] * 2 + [vp] * 8
@@ -93,7 +101,7 @@ def load_library(verbose=False):
     lib.aten_plk_traverse.restype = ctypes.c_int
     lib.aten_plk_traverse.argtypes = (
         [vp] * 3 + [ctypes.c_int32] + [vp] * 5
-        + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, ctypes.c_int32, vp, vp])
+        + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, ctypes.c_int32] + [vp] * 5)
     lib.aten_smt_traverse.restype = ctypes.c_int
     lib.aten_smt_traverse.argtypes = (
         [vp] * 8 + [ctypes.c_int64, ctypes.c_float] + [ctypes.c_int32] * 3 + [vp, vp])
@@ -144,15 +152,24 @@ def _checked(name, x, dtype, tail, device):
     return x.data_ptr()
 
 
-def bvh_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
+def count_tensors(names, n, device):
+    """{name: int32 [n]} outputs of a kStats launch."""
+    return {k: torch.empty(n, dtype=torch.int32, device=device) for k in names}
+
+
+def bvh_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4, stats=False):
     """Closest (or any) hit of rays ro, rd [N,3] with t_max t0 [N] against
     the scene's threaded BVH (of a voxel-LOD scene: its baked tree).
-    Returns (t, prim, u, v), each [N]."""
+    Returns (t, prim, u, v), each [N], and with stats=True also
+    {"node_steps", "prim_tests"}, each ray's int32 counts."""
     lod = lod_of(scene)
     if ro.device.type == "cpu":
         from aten_tpu_torch.accel.traverse import _traverse_plain
 
-        h = _traverse_plain(scene, ro, rd, t0, any_hit, t_min, baked=lod)
+        h = _traverse_plain(scene, ro, rd, t0, any_hit, t_min, stats=stats, baked=lod)
+        if stats:
+            h = h[0]
+            return h["t"], h["prim"], h["u"], h["v"], h["counts"]
         return h["t"], h["prim"], h["u"], h["v"]
     if ro.device.type != "cuda":
         raise ValueError(f"bvh_traverse: unsupported device {ro.device}")
@@ -168,19 +185,24 @@ def bvh_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
     prim = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty(n, dtype=torch.float32, device=dev)
     v = torch.empty(n, dtype=torch.float32, device=dev)
+    counts = count_tensors(COUNTS, n, dev) if stats else None
+    out = (t, prim, u, v) + ((counts,) if stats else ())
     if n == 0:
-        return t, prim, u, v
+        return out
     lib = load_library()
     counter = next_ray_counter(dev)
+    count_p = [counts[k].data_ptr() for k in COUNTS] if stats else [None, None]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.aten_bvh_traverse(
             *ptrs, int(scene["num_tris"]), ro_p, rd_p, t0_p,
             t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-            n, float(t_min), int(any_hit), int(lod), counter.data_ptr(), stream)
+            n, float(t_min), int(any_hit), int(lod), *count_p, counter.data_ptr(), stream)
     if rc != 0:
         what = ("bad arguments" if rc < 0
                 else lib.aten_cuda_error_string(rc).decode())
         raise RuntimeError(f"bvh_traverse launch failed ({rc}): {what}")
-    launch_counts[(LOD_KERNELS if lod else KERNELS)[int(any_hit)]] += 1
-    return t, prim, u, v
+    names = ((LOD_STATS_KERNELS if lod else STATS_KERNELS) if stats
+             else (LOD_KERNELS if lod else KERNELS))
+    launch_counts[names[int(any_hit)]] += 1
+    return out

@@ -19,7 +19,9 @@ Where each reference function maps:
     `_set_params` (:163-206) and `make_train_step` (:209) keep their names.
 
 A group must serve the scene's device: gloo on a card, or NCCL on the
-CPU, raises.  A failed collective is never caught.
+CPU, raises.  A failed collective is never caught.  Scenes with alpha or
+stencil materials render and train through the same `_trace_paths`,
+which detaches a punch-through ray's origin as the reference stops it.
 """
 from __future__ import annotations
 

@@ -34,8 +34,8 @@ adds the texture stack and its mip chain (scene/textures.py) with the
 statics `has_albedo_maps`, `has_roughness_maps` and `has_normal_maps`.
 
 Not ported yet (it raises NotImplementedError): participating media.
-Alpha and stencil materials build, but the path tracer refuses scenes
-that use them.
+Materials with alpha below 1 or a stencil tag set the statics
+`has_alpha` and `has_stencil`, which the path tracer reads.
 """
 from __future__ import annotations
 

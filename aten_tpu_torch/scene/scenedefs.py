@@ -100,12 +100,12 @@ def material_test_scene(width=512, height=512, envmap=None, *, device="cuda"):
     return b.build(device), cam
 
 
-def populate_toon_scene(b, width, height, stylized=False):
+def populate_toon_scene(b, width, height, stylized=False, **toon_mtl):
     """The toon fixture (reference scenedefs.py:318-356): two toon spheres,
     one on the diffuse base and one with a stylized GGX highlight, both
     keyed to one point light through a 64-texel 4-band remap ramp, the
     first with a rim light, on a diffuse floor.  `stylized` makes both
-    StylizedBrdf."""
+    StylizedBrdf; `toon_mtl` adds fields to both toon materials (alpha)."""
     lid = b.add_point_light((4.0, 7.0, 6.0), (420.0, 400.0, 380.0))
     ramp = np.zeros((1, 64, 3), np.float32)
     for i in range(64):
@@ -118,14 +118,14 @@ def populate_toon_scene(b, width, height, stylized=False):
         mtype, base_color=(0.85, 0.45, 0.35),
         toon_remap_tex=remap, toon_target_light=lid,
         toon_rim_enable=1.0, toon_rim_color=(0.4, 0.45, 0.7),
-        toon_rim_width=0.35, toon_rim_softness=0.4, toon_rim_spread=1.0,
+        toon_rim_width=0.35, toon_rim_softness=0.4, toon_rim_spread=1.0, **toon_mtl,
     )
     toon_s = b.add_material(
         mtype, base_color=(0.4, 0.55, 0.9),
         toon_remap_tex=remap, toon_target_light=lid,
         toon_type=1.0, roughness=0.2, ior=6.0,
         toon_hl_split_t=0.25, toon_hl_square_sharp=2.0,
-        toon_hl_square_magnitude=0.3,
+        toon_hl_square_magnitude=0.3, **toon_mtl,
     )
     floor = b.add_material(MaterialType.DIFFUSE, base_color=(0.6, 0.6, 0.6))
     ext = 20.0
@@ -250,13 +250,14 @@ def torus_knot_mesh(n_u=400, n_v=128, p=2, q=3, scale=0.65, tube=0.25,
             uv.astype(np.float32), faces)
 
 
-def populate_procedural_mesh_scene(b, width, height, n_u=400, n_v=128):
+def populate_procedural_mesh_scene(b, width, height, n_u=400, n_v=128, **knot_mtl):
     """The reference's dragon_scene (scenedefs.py:142-167) with the dragon
     replaced by a torus-knot tube of 2*n_u*n_v triangles: GGX gold mesh,
-    grey floor, one quad area light, dim background."""
+    grey floor, one quad area light, dim background.  `knot_mtl` adds
+    fields to the knot's material (alpha, stencil)."""
     gold = b.add_material(
-        MaterialType.GGX, base_color=(0.95, 0.75, 0.35), roughness=0.25, ior=2.5
-    )
+        MaterialType.GGX, base_color=(0.95, 0.75, 0.35), roughness=0.25, ior=2.5,
+        **knot_mtl)
     floor = b.add_material(MaterialType.DIFFUSE, base_color=(0.55, 0.55, 0.55))
     emit = b.add_material(MaterialType.EMISSIVE, base_color=(26.0, 25.0, 23.0))
     pos, nml, uv, faces = torus_knot_mesh(n_u, n_v)
@@ -277,6 +278,73 @@ def procedural_mesh_scene(width=512, height=512, n_u=400, n_v=128, *,
     """The slice fixture: 2*n_u*n_v + 4 prims (102,404 at the default)."""
     b = SceneBuilder()
     cam = populate_procedural_mesh_scene(b, width, height, n_u, n_v)
+    return b.build(device), cam
+
+
+def cutout_mask(seed=0, n=64):
+    """A seeded [n, n, 4] RGBA cutout, a stand-in for a foliage card: five
+    leaf-green discs whose alpha is 1 inside, 0 outside and ramps over a
+    soft edge of about two texels, the colour varying per disc."""
+    rng = np.random.default_rng(seed)
+    y, x = (np.mgrid[0:n, 0:n] + 0.5) / n
+    alpha = np.zeros((n, n))
+    rgb = np.zeros((n, n, 3))
+    for _ in range(5):
+        cx, cy = rng.uniform(0.2, 0.8, 2)
+        r = rng.uniform(0.12, 0.22)
+        a = np.clip((r - np.hypot(x - cx, y - cy)) * n / 2.0, 0.0, 1.0)
+        col = np.array([0.15, 0.45, 0.1]) * rng.uniform(0.7, 1.3, 3)
+        rgb = np.where((a > alpha)[..., None], col, rgb)
+        alpha = np.maximum(alpha, a)
+    return np.concatenate([rgb, alpha[..., None]], -1).astype(np.float32)
+
+
+def populate_alpha_mesh_scene(b, width, height, n_u=400, n_v=128, seed=0):
+    """The alpha fixture: the mesh scene with the knot at alpha 0.7 and 64
+    alpha-mapped quads, horizontal, in four layers of a 4x4 grid of 2x2
+    cards between the area light (y = 14) and the knot (y 6 to 10.5,
+    each layer shifted by up to 0.4 from the seed), all taking
+    `cutout_mask(seed)` as their albedo map: foliage cards, so a shadow
+    ray toward the light passes through several of them.  2*n_u*n_v + 132
+    prims."""
+    cam = populate_procedural_mesh_scene(b, width, height, n_u, n_v, alpha=0.7)
+    leaf = b.add_material(MaterialType.DIFFUSE, base_color=(1.0, 1.0, 1.0),
+                          albedo_map=b.add_texture(cutout_mask(seed)))
+    rng = np.random.default_rng(seed)
+    uv = [[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 1.0]]
+    for y in (6.0, 7.5, 9.0, 10.5):
+        dx, dz = rng.uniform(-0.4, 0.4, 2)
+        for i in range(4):
+            for j in range(4):
+                x0, z0 = -4.0 + 2.0 * i + dx, -4.0 + 2.0 * j + dz
+                b.add_mesh([[x0, y, z0], [x0 + 2, y, z0], [x0 + 2, y, z0 + 2], [x0, y, z0 + 2]],
+                           [[0, 1, 2], [0, 2, 3]], leaf, uv=uv)
+    return cam
+
+
+def alpha_mesh_scene(width=512, height=512, n_u=400, n_v=128, seed=0, *, device="cuda"):
+    """The alpha fixture: 102,532 prims at the default, on K1."""
+    b = SceneBuilder()
+    cam = populate_alpha_mesh_scene(b, width, height, n_u, n_v, seed)
+    return b.build(device), cam
+
+
+def populate_stencil_mesh_scene(b, width, height, n_u=400, n_v=128):
+    """The stencil fixture: the mesh scene with the knot ALWAYS (stencil
+    2) and a red STENCIL quad (stencil 1) upright at z = 5 between the
+    camera and the knot's lower left, x in [-3, 1], y in [-0.2, 3.4].
+    Through the quad the camera sees the knot; where only the floor lies
+    behind it, the quad shades.  2*n_u*n_v + 6 prims."""
+    cam = populate_procedural_mesh_scene(b, width, height, n_u, n_v, stencil=2.0)
+    portal = b.add_material(MaterialType.DIFFUSE, base_color=(0.8, 0.15, 0.1), stencil=1.0)
+    b.add_quad([-3.0, -0.2, 5.0], [1.0, -0.2, 5.0], [1.0, 3.4, 5.0], [-3.0, 3.4, 5.0], portal)
+    return cam
+
+
+def stencil_mesh_scene(width=512, height=512, n_u=400, n_v=128, *, device="cuda"):
+    """The stencil fixture: 102,406 prims at the default, on K1."""
+    b = SceneBuilder()
+    cam = populate_stencil_mesh_scene(b, width, height, n_u, n_v)
     return b.build(device), cam
 
 

@@ -32,7 +32,8 @@ def shadow_distance(dist, cos_l, eps=1e-3):
 def nee_contribution(scene, mat, p, ns, wo, state, occluded_fn, used):
     """Direct-light contribution at a batch of shading points.
 
-    occluded_fn(ro, rd, dist) -> bool [N] (the shadow traversal).
+    occluded_fn(ro, rd, dist) -> [N] occlusion: a bool (the binary shadow
+    traversal) or a float in [0, 1] (accel/traverse.py::occlusion_alpha).
     Returns (rgb [N,3], new sampler state).
     """
     num_lights = scene["num_lights"]

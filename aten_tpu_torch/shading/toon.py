@@ -98,7 +98,8 @@ def toon_term(scene, mat, p, ns, rd, state, occluded_fn, stylized=None):
 
     mat: the lanes' material rows (after the texture maps).  Draws
     next_2d, then next_1d, from every lane's state.  occluded_fn(ro, rd,
-    dist) -> bool [N] tests the shadow ray toward the target light.
+    dist) -> [N] occlusion (bool, or a float in [0, 1] in an alpha scene)
+    tests the shadow ray toward the target light.
     stylized: bool [N], the StylizedBrdf lanes (default none).
     """
     n = brdf_mod.orient_normal(ns, -rd)

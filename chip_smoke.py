@@ -47,7 +47,15 @@ LOD oracle walk on 4,194,304 camera and bounce rays each, timed in turns
 beside their non-LOD instantiations, and the three LOD scenes (the
 102,404-prim mesh at lod_depth 9 and 15, the 512,004-prim mesh at 18)
 rendered at 512x512 x 16 spp through them, each against the oracle
-walk's render.  Each main-path render and step is profiled, with its ten costliest device
+walk's render.  Phase 15 holds the kStats instantiations of K1 and K3
+(per-ray work counts) bitwise against their plain instantiations' hits
+and their plain versions' counts on 4,194,304 camera and bounce rays,
+timed in turns with them, runs the traversal-stats tool
+(python -m aten_tpu_torch.tools.trav_stats) on its scenes, and renders
+the alpha and stencil fixtures, the mesh scene through thin-lens and
+equirect cameras, and with the blue-noise sampler, through K1, each
+against the plain walk (the blue-noise render against the CPU).  Each
+main-path render and step is profiled, with its ten costliest device
 ops and each traversal kernel's summed device time. It prints the
 measured times and each kernel's bound (the least time the card could
 take for the work).
@@ -496,6 +504,22 @@ def log_render_work(phase, scene, cam, walks, phase_work, n_phase):
             per_ph = ", ".join(f"{k} {v / n_phase:.2f}" for k, v in ref.items())
             log(f"{phase} render rays ({kind}-hit, {live} live rays of 128x128 2spp depth 5), "
                 f"{name} walk per ray: {per}; on the phase's own rays: {per_ph}")
+
+
+def timed_render(fn):
+    """One timed fn() (a render on the card, after its warm-up): (its
+    result, wall s, the launches it made, peak allocated bytes, bytes
+    held before it), the launch counts and the peak reset just before."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t, read_counts(), torch.cuda.max_memory_allocated(), held
 
 
 def timed_ms(fn):
@@ -973,6 +997,272 @@ def lod_phase(card, dev):
         del img, plain
         torch.cuda.empty_cache()
     log(f"phase 14 took {time.time() - t14:.1f} s")
+    return entries
+
+
+# Phase 15's kStats runs: (scene, kernel, lod_depth); the bytes of the
+# per-ray counts each kStats instantiation writes beside its hits
+STATS_RUNS = (("mesh102k", "K1", None), ("mesh102k@9", "K1", 9),
+              ("mesh512k", "K3", None), ("mesh512k@18", "K3", 18))
+COUNT_BYTES = {"K1": 8, "K3": 12}
+# the traversal-stats tool's runs in phase 15b: (scene, kernel override)
+TOOL_RUNS = (("mesh", None), ("large", None), ("mesh@9", None), ("large@18", None),
+             ("mesh@15", None), ("mesh@15", "k1"))
+TOOL_RES = 1024
+
+
+def stats_counts(kernel, scene, ro, rd, t0, any_hit, t_min, stats):
+    """K1 or K3 through its wrapper, the kStats instantiation with stats:
+    (hits, counts or None), hits (t, prim[, u, v])."""
+    from aten_tpu_torch.ops import plk_cuda, traverse_cuda
+
+    fn = traverse_cuda.bvh_traverse if kernel == "K1" else plk_cuda.plk_traverse
+    out = fn(scene, ro, rd, t0, any_hit=any_hit, t_min=t_min, stats=stats)
+    return (out[:-1], out[-1]) if stats else (out, None)
+
+
+def stats_plain(kernel, scene, ro, rd, t0, any_hit, t_min):
+    """The plain version's per-ray counts and totals."""
+    from aten_tpu_torch.accel.traverse import _traverse_plain, _traverse_plk_plain
+
+    if kernel == "K1":
+        h, work = _traverse_plain(scene, ro, rd, t0, any_hit, t_min, stats=True,
+                                  baked=bool(scene.get("has_voxel_lod")))
+    else:
+        h, work = _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min, stats=True)
+    return h["counts"], work
+
+
+def kernel_render(phase, card, scene, cam, names, **kw):
+    """A 512x512-class render through the kernels `names` on the card: a
+    warm-up, then one timed render (wall, Mpaths/s, peak memory, the
+    launches, each of `names` launched and no other kernel), then a
+    profiled one.  Returns the image (numpy)."""
+    import numpy as np
+
+    from aten_tpu_torch.integrator.pathtracer import render_image
+
+    render_image(scene, cam, **kw)  # warm-up
+    img, wall, launches, peak, held = timed_render(lambda: render_image(scene, cam, **kw))
+    img = img.cpu().numpy()
+    log(f"{phase} launches: {launches}")
+    assert all(launches[k] > 0 for k in names), (phase, launches)
+    assert all(v == 0 for k, v in launches.items() if k not in names), (phase, launches)
+    assert np.isfinite(img).all() and (img >= 0).all()
+    assert 1e-3 <= img.mean() <= 1e3 and img.std() > 0, (phase, img.mean(), img.std())
+    n = cam.width * cam.height * kw["spp"]
+    log(f"{phase} {cam.width}x{cam.height} {kw['spp']}spp depth {kw['max_depth']} RR "
+        f"{kw['rr_depth']}: mean {img.mean():.5f} std {img.std():.5f} wall {wall * 1e3:.1f} ms, "
+        f"{n / wall / 1e6:.3f} Mpaths/s, {peak_text(peak, held)} [{card}]")
+    log_profile(phase, card, profile_render(lambda: render_image(scene, cam, **kw)))
+    return img
+
+
+def against_plain(phase, scene, cam, spp=4):
+    """The scene through the kernels against the plain walk's render 128
+    pixels wide (the camera's aspect), spp samples, depth 3, RR 2 (the
+    plain walk is host-bound: depth 3 keeps phase 15 in its budget),
+    within the full-image bounds."""
+    from aten_tpu_torch.integrator.pathtracer import render_image
+
+    small = dataclasses.replace(cam, width=128, height=128 * cam.height // cam.width)
+    kw = {"spp": spp, "max_depth": 3, "rr_depth": 2}
+    t = time.time()
+    ik = render_image(scene, small, **kw).cpu().numpy()
+    ip = render_image(scene, small, impl="plain", **kw).cpu().numpy()
+    size = f"{small.width}x{small.height} {spp}spp"
+    log(f"{phase}: the kernels' and the plain walk's {size} renders took "
+        f"{time.time() - t:.1f} s")
+    check_image_bounds(f"{phase} {size} depth 3, kernels vs the plain walk", ik, ip)
+
+
+def stats_phase(card, dev):
+    """Phase 15: the kStats instantiations of K1 and K3, the traversal-stats
+    tool, and alpha, stencil, the cameras and blue noise through K1.  15a: on
+    4,194,304 camera and bounce rays of the 102,404-prim mesh (K1), its
+    voxel-LOD scene at lod_depth 9 (K1-lod), the 512,004-prim mesh (K3)
+    and its LOD scene at 18 (K3-lod), each kStats instantiation's hits
+    bitwise those of its plain instantiation and its per-ray counts
+    bitwise those of its plain version, timed in turns with the plain
+    instantiation; 15b: aten_tpu_torch/tools/trav_stats.py on its five
+    scenes and on mesh@15 through K1-lod, the one run that launches the
+    kStats instantiations (their launch counts), and K1-lod and K4-lod
+    timed in turns on mesh@15's baked tree; 15c: alpha_mesh_scene
+    and 15d: stencil_mesh_scene at 512x512 x 16 spp, depth 5, RR 3,
+    through K1, timed with peak memory and profiled, each against the
+    plain walk's render at 128x128 x 4 spp, depth 3; 15e: the mesh scene
+    through a thin-lens camera focused on the knot (512x512 x 16 spp) and
+    an equirect one (1024x512 x 8 spp), each against the plain walk at
+    128 pixels wide x 4 spp, depth 3, and render_sample(sampler="bluenoise",
+    spp_chunk=16) at 512x512, with a 64x64 render on the card against
+    the port on this machine's CPU.  Returns the kStats instantiations'
+    JSON entries."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.accel import traverse as trav_mod
+    from aten_tpu_torch.accel.traverse import _t0_of, _traverse_plain
+    from aten_tpu_torch.accel.voxel import enable_voxel_lod
+    from aten_tpu_torch.core.camera import EquirectCamera, ThinLensCamera
+    from aten_tpu_torch.integrator.pathtracer import render_sample
+    from aten_tpu_torch.ops import plk_cuda, smt_cuda, traverse_cuda
+    from aten_tpu_torch.scene.scenedefs import (
+        alpha_mesh_scene, large_mesh_scene, procedural_mesh_scene, stencil_mesh_scene)
+    from aten_tpu_torch.tools import trav_stats
+
+    t15 = time.time()
+    rng = np.random.default_rng(SEED + 15)
+    big, cam = procedural_mesh_scene(512, 512, device=dev)
+    large, lcam = large_mesh_scene(512, 512, device=dev)
+    scenes = {"mesh102k": (big, cam), "mesh102k@9": (enable_voxel_lod(big, lod_depth=9), cam),
+              "mesh512k": (large, lcam),
+              "mesh512k@18": (enable_voxel_lod(large, lod_depth=18), lcam)}
+    n_main = cam.width * cam.height * 16
+    log(f"phase 15a: scenes built in {time.time() - t15:.1f} s")
+
+    # 15a: each kStats instantiation against its plain instantiation and
+    # its plain version
+    results = {}
+    for name, kernel, depth in STATS_RUNS:
+        scene, c = scenes[name]
+        lod = depth is not None
+        impl = "cuda" if kernel == "K1" else "plk"
+        cro, crd = camera_rays(c, dev, jitter_rng=rng, subsamples=8)
+        bro, brd = bounce_rays(scene, cro, crd, n_main - cro.shape[0], rng, impl)
+        ro, rd = torch.cat([cro, bro]), torch.cat([crd, brd])
+        dist = torch.tensor(rng.uniform(0.0, 20.0, n_main), dtype=torch.float32, device=dev)
+        del cro, crd, bro, brd
+        fields = traverse_cuda._SCENE_FIELDS if kernel == "K1" else plk_cuda._SCENE_FIELDS
+        pool = pool_bytes(scene, fields) if lod else array_bytes(scene, BVH_ARRAYS)
+        for kind, tmax, any_hit, t_min in (("closest", None, False, 1e-4),
+                                           ("any", dist, True, 1e-3)):
+            t0 = _t0_of(tmax, n_main, dev)
+            hs, cs = stats_counts(kernel, scene, ro, rd, t0, any_hit, t_min, True)
+            hn, _ = stats_counts(kernel, scene, ro, rd, t0, any_hit, t_min, False)
+            same_hits = all(torch.equal(a, b) for a, b in zip(hs, hn))
+            (cp, work), plain_ms = timed_ms(
+                lambda: stats_plain(kernel, scene, ro, rd, t0, any_hit, t_min))
+            same_counts = {k: bool(torch.equal(cs[k], cp[k])) for k in cs}
+            # the bound: the query's least work, the oracle walk's (K1's
+            # plain version on an uncut tree)
+            owork = work if kernel == "K1" and not lod else _traverse_plain(
+                scene, ro, rd, t0, any_hit, t_min, stats=True)[1]
+            out_bytes = (16 if kernel == "K1" else 8) + COUNT_BYTES[kernel]
+            b = bound(n_main, out_bytes, pool, owork)
+            turns = [cuda_ms(lambda st=st: stats_counts(kernel, scene, ro, rd, t0, any_hit,
+                                                        t_min, st), reps=10)
+                     for st in (True, False, False, True)]
+            ms, base_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            per_ray = ", ".join(f"{k} {float(v.double().mean()):.3f}" for k, v in cs.items())
+            log(f"phase 15a {name} {kind}-hit {kernel}{'-lod' if lod else ''} kStats: hits "
+                f"bitwise equal to the plain instantiation's {same_hits}; per-ray counts "
+                f"bitwise equal to the plain version's {same_counts}; per ray {per_ray}")
+            log(f"phase 15a timing {kind}-hit, {n_main} rays, {name}: kStats {ms:.3f} ms "
+                f"({turns[0]:.3f}, {turns[3]:.3f}), plain instantiation {base_ms:.3f} ms "
+                f"({turns[1]:.3f}, {turns[2]:.3f}), in turns ({ms / base_ms:.3f}x); plain "
+                f"version with counts {plain_ms:.1f} ms; bound (the oracle walk's work {owork} "
+                f"over {pool} B, {out_bytes} B out per ray) {b[0]:.4f} ms by {b[1]} ({b[2]} B, "
+                f"{b[3]} ops), {ms / b[0]:.1f}x the bound [{card}]")
+            assert same_hits and all(same_counts.values()), (name, kind)
+            names = {"K1": (traverse_cuda.LOD_STATS_KERNELS if lod
+                            else traverse_cuda.STATS_KERNELS),
+                     "K3": (plk_cuda.LOD_STATS_KERNELS if lod
+                            else plk_cuda.STATS_KERNELS)}[kernel]
+            results[names[int(any_hit)]] = {"ms": ms, "plain_ms": plain_ms, "bound": b,
+                                             "kernel": kernel}
+        del ro, rd, dist
+        torch.cuda.empty_cache()
+    del scenes, big, large
+    torch.cuda.empty_cache()
+    log(f"phase 15a took {time.time() - t15:.1f} s")
+
+    # 15b: the traversal-stats tool, the one entry point of the kStats
+    # instantiations
+    t = time.time()
+    reset_counts()
+    for name, kernel in TOOL_RUNS:
+        trav_stats.run(name, dev, TOOL_RES, kernel=kernel, log=lambda m: log(f"phase 15b {m}"))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"phase 15b trav_stats launches: {launches}; took {time.time() - t:.1f} s [{card}]")
+    assert all(launches[k] > 0 for k in results), launches
+    # the two LOD walks the counts compare, on one baked tree (mesh@15)
+    # and the tool's primary rays, timed in turns
+    scene, c, _ = trav_stats.build_scene("mesh@15", TOOL_RES, dev, kernel="k4")
+    assert "bvh_nodes" in scene  # the build's K1 records, beside the K4 layout
+    ro, rd = trav_stats.primary_rays(c, TOOL_RES, dev)
+    t0 = _t0_of(None, ro.shape[0], dev)
+    walks = {"K1": lambda: traverse_cuda.bvh_traverse(scene, ro, rd, t0),
+             "K4": lambda: smt_cuda.smt_traverse(scene, ro, rd, t0, chains=trav_mod.CHAINS)}
+    turns = [cuda_ms(walks[k], reps=10) for k in ("K1", "K4", "K4", "K1")]
+    log(f"phase 15b mesh@15 closest-hit on the tool's {ro.shape[0]} primary rays, in turns: "
+        f"K1-lod {(turns[0] + turns[3]) / 2:.3f} ms ({turns[0]:.3f}, {turns[3]:.3f}), K4-lod "
+        f"C={trav_mod.CHAINS} {(turns[1] + turns[2]) / 2:.3f} ms ({turns[1]:.3f}, "
+        f"{turns[2]:.3f}) [{card}]")
+    del scene, ro, rd, t0
+    entries = [
+        {"name": k, "route": "cuda",
+         "source": KERNEL_SOURCE if r["kernel"] == "K1" else PLK_SOURCE,
+         "replaces": REPLACES if r["kernel"] == "K1" else PLK_REPLACES,
+         "launches": launches[k], "max_abs_err": 0.0, "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+         "library_ms": None}
+        for k, r in results.items()]
+
+    kw = {"spp": 16, "max_depth": 5, "rr_depth": 3}
+    k1 = traverse_cuda.KERNELS
+    # 15c: alpha punch-through; its shadow rays walk closest hits
+    t = time.time()
+    scene, c = alpha_mesh_scene(512, 512, device=dev)
+    assert scene["has_alpha"] and "traversal" not in scene, scene.static
+    log(f"phase 15c alpha_mesh_scene: {scene['num_tris'] + scene['num_spheres']} prims, "
+        f"built in {time.time() - t:.1f} s")
+    kernel_render("phase 15c alpha_mesh_scene", card, scene, c, k1[:1], **kw)
+    against_plain("phase 15c alpha_mesh_scene", scene, c)
+    # 15d: stencil punch-through
+    t = time.time()
+    scene, c = stencil_mesh_scene(512, 512, device=dev)
+    assert scene["has_stencil"] and not scene["has_alpha"], scene.static
+    log(f"phase 15d stencil_mesh_scene: {scene['num_tris'] + scene['num_spheres']} prims, "
+        f"built in {time.time() - t:.1f} s")
+    kernel_render("phase 15d stencil_mesh_scene", card, scene, c, k1, **kw)
+    against_plain("phase 15d stencil_mesh_scene", scene, c)
+    del scene
+    torch.cuda.empty_cache()
+
+    # 15e: thin-lens and equirect cameras, blue noise
+    scene, c = procedural_mesh_scene(512, 512, device=dev)
+    focus = float(np.linalg.norm(np.subtract(c.lookat, c.origin)))
+    tl = ThinLensCamera(origin=c.origin, lookat=c.lookat, vfov_deg=c.vfov_deg, width=c.width,
+                        height=c.height, lens_radius=0.3, focus_dist=focus)
+    kernel_render("phase 15e thin-lens", card, scene, tl, k1, **kw)
+    against_plain("phase 15e thin-lens", scene, tl)
+    eq = EquirectCamera(origin=(0.0, 2.0, 7.0), lookat=(0.0, 1.5, 0.0), width=2 * c.width,
+                        height=c.height)
+    kernel_render("phase 15e equirect", card, scene, eq, k1, **{**kw, "spp": 8})
+    against_plain("phase 15e equirect", scene, eq)
+    ca = c.arrays(dev)
+
+    def bn(sc, a, w, spp):
+        return render_sample(sc, a, w, w, 0, 0, spp, 5, 3, spp_chunk=spp, sampler="bluenoise")
+
+    bn(scene, ca, c.width, 16)  # warm-up, and the masks
+    img, wall, launches, peak, held = timed_render(lambda: bn(scene, ca, c.width, 16))
+    img = img.cpu().numpy()
+    assert np.isfinite(img).all() and img.std() > 0 and all(launches[k] > 0 for k in k1)
+    log(f"phase 15e bluenoise render_sample {c.width}x{c.height} spp_chunk 16 depth 5: mean "
+        f"{img.mean():.5f} std {img.std():.5f} wall {wall * 1e3:.1f} ms, "
+        f"{n_main / wall / 1e6:.3f} Mpaths/s, {peak_text(peak, held)}, launches "
+        f"{ {k: launches[k] for k in k1} } [{card}]")
+    t = time.time()
+    small = dataclasses.replace(c, width=64, height=64)
+    imgs = [bn(scene, small.arrays(dev), 64, 4).cpu().numpy()]
+    cpu_scene, _ = procedural_mesh_scene(64, 64, device="cpu")
+    imgs.append(bn(cpu_scene, small.arrays("cpu"), 64, 4).numpy())
+    log(f"phase 15e bluenoise 64x64 on the CPU took {time.time() - t:.1f} s")
+    check_image_bounds("phase 15e bluenoise render_sample 64x64 4spp depth 5, card vs CPU",
+                       *imgs)
+    log(f"phase 15 took {time.time() - t15:.1f} s (budget 150 s)")
     return entries
 
 
@@ -1459,13 +1749,8 @@ def main():
 
     # -- phase 4: the mesh path, 512x512 x 16 spp, depth 5, RR depth 3
     render_image(big, cam, spp=16, max_depth=5, rr_depth=3)  # warm-up
-    torch.cuda.synchronize()
-    reset_counts()
-    t = time.time()
-    img = render_image(big, cam, spp=16, max_depth=5, rr_depth=3)
-    torch.cuda.synchronize()
-    wall = time.time() - t
-    launches = read_counts()
+    img, wall, launches, peak, held = timed_render(
+        lambda: render_image(big, cam, spp=16, max_depth=5, rr_depth=3))
     img = img.cpu().numpy()
     log(f"phase 4 main path launches: {launches}")
     assert all(launches[k] > 0 for k in traverse_cuda.KERNELS), launches
@@ -1474,7 +1759,7 @@ def main():
     assert 1e-3 <= img.mean() <= 1e3 and img.std() > 0, (img.mean(), img.std())
     mpaths = 512 * 512 * 16 / wall / 1e6
     log(f"phase 4 render 512x512 16spp depth 5: mean {img.mean():.5f} std {img.std():.5f} "
-        f"wall {wall * 1e3:.1f} ms, {mpaths:.3f} Mpaths/s [{card}]")
+        f"wall {wall * 1e3:.1f} ms, {mpaths:.3f} Mpaths/s, {peak_text(peak, held)} [{card}]")
     log_profile("phase 4", card, profile_render(
         lambda: render_image(big, cam, spp=16, max_depth=5, rr_depth=3)))
     small = dataclasses.replace(cam, width=128, height=128)
@@ -1549,13 +1834,8 @@ def main():
 
     # -- phase 6: the instanced path, 512x512 x 16 spp, depth 5, RR depth 3
     render_image(inst, icam, spp=16, max_depth=5, rr_depth=3)  # warm-up
-    torch.cuda.synchronize()
-    reset_counts()
-    t = time.time()
-    img = render_image(inst, icam, spp=16, max_depth=5, rr_depth=3)
-    torch.cuda.synchronize()
-    wall = time.time() - t
-    launches6 = read_counts()
+    img, wall, launches6, peak, held = timed_render(
+        lambda: render_image(inst, icam, spp=16, max_depth=5, rr_depth=3))
     img = img.cpu().numpy()
     log(f"phase 6 main path launches: {launches6}")
     assert all(launches6[k] > 0 for k in tlas_cuda.KERNELS), launches6
@@ -1564,7 +1844,7 @@ def main():
     assert 1e-3 <= img.mean() <= 1e3 and img.std() > 0, (img.mean(), img.std())
     mpaths = 512 * 512 * 16 / wall / 1e6
     log(f"phase 6 render 512x512 16spp depth 5: mean {img.mean():.5f} std {img.std():.5f} "
-        f"wall {wall * 1e3:.1f} ms, {mpaths:.3f} Mpaths/s [{card}]")
+        f"wall {wall * 1e3:.1f} ms, {mpaths:.3f} Mpaths/s, {peak_text(peak, held)} [{card}]")
     log_profile("phase 6", card, profile_render(
         lambda: render_image(inst, icam, spp=16, max_depth=5, rr_depth=3)))
     small = dataclasses.replace(icam, width=128, height=128)
@@ -1632,13 +1912,8 @@ def main():
 
     # -- phase 8: the large mesh path, 512x512 x 16 spp, depth 5, RR depth 3
     render_image(large, lcam, spp=16, max_depth=5, rr_depth=3)  # warm-up
-    torch.cuda.synchronize()
-    reset_counts()
-    t = time.time()
-    img = render_image(large, lcam, spp=16, max_depth=5, rr_depth=3)
-    torch.cuda.synchronize()
-    wall = time.time() - t
-    launches8 = read_counts()
+    img, wall, launches8, peak, held = timed_render(
+        lambda: render_image(large, lcam, spp=16, max_depth=5, rr_depth=3))
     img = img.cpu().numpy()
     log(f"phase 8 main path launches: {launches8}")
     assert all(launches8[k] > 0 for k in plk_cuda.KERNELS), launches8
@@ -1647,7 +1922,7 @@ def main():
     assert 1e-3 <= img.mean() <= 1e3 and img.std() > 0, (img.mean(), img.std())
     mpaths = 512 * 512 * 16 / wall / 1e6
     log(f"phase 8 render 512x512 16spp depth 5: mean {img.mean():.5f} std {img.std():.5f} "
-        f"wall {wall * 1e3:.1f} ms, {mpaths:.3f} Mpaths/s [{card}]")
+        f"wall {wall * 1e3:.1f} ms, {mpaths:.3f} Mpaths/s, {peak_text(peak, held)} [{card}]")
     log_profile("phase 8", card, profile_render(
         lambda: render_image(large, lcam, spp=16, max_depth=5, rr_depth=3)))
     small = dataclasses.replace(lcam, width=128, height=128)
@@ -1741,13 +2016,8 @@ def main():
     del cb, ro, rd, t0, hp
     # the 102k scene's render with every traversal forced onto K4
     render_image(big, cam, spp=16, max_depth=5, rr_depth=3, impl="smt")  # warm-up
-    torch.cuda.synchronize()
-    reset_counts()
-    t = time.time()
-    img = render_image(big, cam, spp=16, max_depth=5, rr_depth=3, impl="smt")
-    torch.cuda.synchronize()
-    wall = time.time() - t
-    launches9 = read_counts()
+    img, wall, launches9, peak, held = timed_render(
+        lambda: render_image(big, cam, spp=16, max_depth=5, rr_depth=3, impl="smt"))
     img = img.cpu().numpy()
     k4_names = [smt_cuda.kernel_name(a, trav_mod.CHAINS) for a in (False, True)]
     log(f"phase 9 impl='smt' render launches: {launches9}")
@@ -1757,7 +2027,7 @@ def main():
     assert 1e-3 <= img.mean() <= 1e3 and img.std() > 0, (img.mean(), img.std())
     log(f"phase 9 render 512x512 16spp depth 5 on K4 (C={trav_mod.CHAINS}): mean "
         f"{img.mean():.5f} std {img.std():.5f} wall {wall * 1e3:.1f} ms, "
-        f"{512 * 512 * 16 / wall / 1e6:.3f} Mpaths/s [{card}]")
+        f"{512 * 512 * 16 / wall / 1e6:.3f} Mpaths/s, {peak_text(peak, held)} [{card}]")
     log_profile("phase 9", card, profile_render(
         lambda: render_image(big, cam, spp=16, max_depth=5, rr_depth=3, impl="smt")))
     small = dataclasses.replace(cam, width=128, height=128)
@@ -1872,6 +2142,7 @@ def main():
     zoo_phase(card, dev)
     train_phase(card, dev)
     kernels += lod_phase(card, dev)
+    kernels += stats_phase(card, dev)
 
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

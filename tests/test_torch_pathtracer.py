@@ -128,16 +128,32 @@ def test_progressive_pathtracer_accumulates_samples():
 
 
 def test_unported_scene_features_raise():
-    b = SceneBuilder()
-    glass = b.add_material(MaterialType.DIFFUSE, alpha=0.5)
-    b.add_quad([0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], glass)
-    scene = b.build("cpu")
+    """Participating media are still unported and raise.  The alpha quad
+    this test once saw refused now renders as aten_tpu renders it: a
+    black veil at alpha 0.5 before the blue-grey background, at 16x16,
+    4 spp, within the full-image bounds.  Voxel LOD is ported: a scene
+    after enable_voxel_lod renders."""
+    from aten_tpu.scene.materials import MaterialType as JMT
+
+    def populate(b, mt):
+        glass = b.add_material(mt.DIFFUSE, base_color=(0.0, 0.0, 0.0), alpha=0.5)
+        b.add_quad([0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], glass)
+        b.set_background((0.25, 0.3, 0.4))
+
+    jb, tb = JaxSceneBuilder(), SceneBuilder()
+    populate(jb, JMT)
+    populate(tb, MaterialType)
+    scene = tb.build("cpu")
+    assert scene["has_alpha"]
     cam = PinholeCamera(origin=(0.5, 0.5, 2.0), lookat=(0.5, 0.5, 0.0),
-                              width=8, height=8)
-    with pytest.raises(NotImplementedError):
-        render_image(scene, cam, spp=1)
-    # media are still unported (every material family is); voxel LOD is
-    # ported: a scene after enable_voxel_lod renders
+                        width=16, height=16)
+    ref = np.asarray(jax_render_image(jb.build(), JaxPinholeCamera(**dataclasses.asdict(cam)),
+                                      spp=4))
+    img = render_image(scene, cam, spp=4).numpy()
+    frac, mean_rel = _image_bounds(img, ref)
+    assert frac < 5e-3 and mean_rel < 3e-3, (frac, mean_rel)
+    assert 0.2 < img[8, 8].mean() / 0.3166 < 0.8  # about half the background comes through
+    # media are still unported (every material family is)
     b = SceneBuilder()
     with pytest.raises(NotImplementedError, match="media"):
         b.add_medium(sigma_a=(0.1, 0.1, 0.1))
@@ -149,7 +165,8 @@ def test_unported_scene_features_raise():
                        [x, y + 0.125, 0], m)
     lod = enable_voxel_lod(b.build("cpu"), lod_depth=3)
     assert lod["has_voxel_lod"] and (lod["nodes_voxel_mtl"] >= 0).any()
-    img = render_image(lod, cam, spp=1)
+    small = dataclasses.replace(cam, width=8, height=8)
+    img = render_image(lod, small, spp=1)
     assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 
 

@@ -111,9 +111,29 @@ def test_pinhole_rays(cam_kw):
 
 
 def test_unported_cameras_raise():
-    with pytest.raises(NotImplementedError):
-        tcam.generate_ray_thinlens({}, None, None, None, None)
-    with pytest.raises(NotImplementedError):
-        tcam.generate_ray_equirect({}, None, None)
-    with pytest.raises(NotImplementedError):
-        tcam.camera_type_of(jcam.ThinLensCamera(origin=(0, 0, 1), lookat=(0, 0, 0)))
+    """Thin-lens and equirect cameras, once refused, route through the
+    integrator (the port's counterpart of
+    tests/test_camera.py::test_camera_dispatch_in_render_path): a big
+    lens blurs the Cornell box, a pin-sized one converges to the pinhole
+    render's mean, and the equirect render from inside the box sees
+    geometry in every column.  A camera type the integrator does not
+    know raises."""
+    from aten_tpu_torch.integrator.pathtracer import render_image, render_sample
+    from aten_tpu_torch.scene.scenedefs import cornell_box
+
+    scene, cam = cornell_box(48, 48, device="cpu")
+    img_pin = render_image(scene, cam, spp=8, max_depth=2).numpy()
+    dist = float(np.linalg.norm(np.subtract(cam.lookat, cam.origin)))
+    base = dict(origin=cam.origin, lookat=cam.lookat, vfov_deg=cam.vfov_deg, width=48, height=48)
+    tl = tcam.ThinLensCamera(**base, lens_radius=0.8, focus_dist=dist * 0.4)
+    img_tl = render_image(scene, tl, spp=8, max_depth=2).numpy()
+    assert np.isfinite(img_tl).all() and np.abs(img_tl - img_pin).mean() > 0.05
+    tl0 = tcam.ThinLensCamera(**base, lens_radius=1e-6, focus_dist=dist)
+    img_tl0 = render_image(scene, tl0, spp=8, max_depth=2).numpy()
+    np.testing.assert_allclose(img_tl0.mean(), img_pin.mean(), rtol=0.1)
+    eq = tcam.EquirectCamera(origin=(0.0, 0.0, 0.5), lookat=(0.0, 0.0, 0.0), width=64, height=32)
+    img_eq = render_image(scene, eq, spp=4, max_depth=2).numpy()
+    assert np.isfinite(img_eq).all() and (img_eq.max(axis=(0, 2)) > 0).all()
+    assert tcam.camera_type_of(tl) == "thinlens" and tcam.camera_type_of(eq) == "equirect"
+    with pytest.raises(ValueError, match="camera type"):
+        render_sample(scene, cam.arrays("cpu"), 48, 48, 0, 0, cam_type="fisheye")

@@ -89,6 +89,9 @@ def _setup(name):
         if name == "grid":
             _populate_grid(jb, JaxMaterialType)
             cam = _populate_grid(tb, MaterialType)
+        elif name == "cornell":
+            tdefs.populate_cornell_box(jb, 64, 64)
+            cam = tdefs.populate_cornell_box(tb, 64, 64)
         else:
             tdefs.populate_procedural_mesh_scene(jb, 32, 32, **KNOT)
             cam = tdefs.populate_procedural_mesh_scene(tb, 32, 32, **KNOT)
@@ -305,6 +308,42 @@ def test_oracle_matches_reference(reference_native, lod_depth):
             np.testing.assert_array_equal(ga[k], v, err_msg=k)
     else:
         assert n_vox > 50 and float((ga["prim"] >= vb).mean()) > 0.0
+
+
+@pytest.mark.parametrize("lod_depth", [1, 2, 3, 4, 5])
+def test_cornell_spheres_lod_walks_match_reference(lod_depth):
+    """Voxel LOD over spheres: the Cornell box (12 triangles, 2 spheres)
+    at lod_depth 1 to 5, 4,096 camera rays through pixel centres.  The
+    oracle walk and K1's plain version (impl "cuda" on CPU tensors, the
+    baked tree) agree with traverse(impl="jax"), run eagerly, on every
+    ray's prim, t within 1e-4, and every any-hit verdict."""
+    jl, tl = _lod("cornell", lod_depth)
+    _, _, cam = _setup("cornell")
+    jc = jcam.PinholeCamera(**dataclasses.asdict(cam))
+    lp = np.arange(64 * 64)
+    ro, rd = jcam.generate_ray(jc.arrays(), jnp.asarray(((lp % 64) + 0.5) / 64, jnp.float32),
+                               jnp.asarray(((lp // 64) + 0.5) / 64, jnp.float32))
+    ro, rd = np.asarray(ro), np.asarray(rd)
+    vb = tl["num_tris"] + tl["num_spheres"]
+    dist = _dist(ro.shape[0], lod_depth)
+    # eagerly: the jitted walk contracts FMAs, which moves the winner at
+    # the box's edges (6 of these rays at lod_depth 4); eager XLA rounds
+    # every op as the port does
+    with jax.disable_jit():
+        want = _np(jax_traverse(jl, jnp.asarray(ro), jnp.asarray(rd), impl="jax"))
+        wa = _np(jax_traverse(jl, jnp.asarray(ro), jnp.asarray(rd), t_max=jnp.asarray(dist),
+                              any_hit=True, t_min=1e-3, impl="jax"))
+    # the 14 prims' tree is 4 levels deep: voxels win down to lod_depth 3
+    assert (want["prim"] >= 0).mean() > 0.9
+    assert (want["prim"] >= vb).any() == (lod_depth <= 3), int((want["prim"] >= vb).sum())
+    for impl in ("plain", "cuda"):
+        got = _port(tl, ro, rd, impl)
+        np.testing.assert_array_equal(got["prim"], want["prim"], err_msg=impl)
+        m = want["prim"] >= 0
+        np.testing.assert_allclose(got["t"][m], want["t"][m], rtol=T_TOL, atol=T_TOL,
+                                   err_msg=impl)
+        ga = _port(tl, ro, rd, impl, t_max=dist, any_hit=True, t_min=1e-3)
+        np.testing.assert_array_equal(ga["hit"], wa["hit"], err_msg=impl)
 
 
 def test_lod_scene_never_takes_the_dense_test():
