@@ -74,7 +74,7 @@ from aten_tpu_torch.accel.build import LEAF_MAX
 from aten_tpu_torch.core import vecmath as vm
 from aten_tpu_torch.ops.bvh_layout import LEAF_COUNT, LEAF_SHIFT
 from aten_tpu_torch.ops.lod_layout import VOXEL_WORD
-from aten_tpu_torch.ops.plk_layout import WINDOW as PLK_WINDOW
+from aten_tpu_torch.ops.plk_layout import MAX_WINDOW
 from aten_tpu_torch.ops.smt_cuda import CHAIN_COUNTS, DEFAULT_CHAINS
 
 # Below this primitive count every ray tests every prim (reference :34).
@@ -406,10 +406,9 @@ class _PerRay:
         return dict(zip(TREELET_COUNTS, self.out))
 
 
-# K3's winner code: the slot's index in its leaf fills the low mantissa
-# bits of t (traverse_pallas.py:1073-1076, :1144-1146); +inf, slot 0,
-# stands for no hit.
-_PLK_NB = PLK_WINDOW - 1
+# K3's winner code: the slot's index in its leaf fills the low
+# log2(window) mantissa bits of t (traverse_pallas.py:1073-1076,
+# :1144-1146); +inf, slot 0, stands for no hit.
 _PLK_SENT = 0x7F800000
 # (lane, slot) pairs the plain leaf test takes at once
 _PLK_PAIRS = 1 << 22
@@ -421,10 +420,11 @@ def _plk_safe_inv(d):
     return torch.where(d.abs() > 1e-12, 1.0 / d, 1e12)
 
 
-def _plk_leaf_codes(consts, slot, j, d, mw, o, t_min):
+def _plk_leaf_codes(consts, slot, j, d, mw, o, t_min, nb):
     """Winner codes of (lane, slot) pairs: the Plücker test of
     traverse_pallas.py:1131-1145 in its op order.  slot, j [n] int; d, mw,
-    o [n,3] the pairs' rd, ro x rd and ro."""
+    o [n,3] the pairs' rd, ro x rd and ro; nb = window - 1, the code's
+    slot bits."""
     e = consts[slot]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     mx, my, mz = mw[:, 0], mw[:, 1], mw[:, 2]
@@ -444,17 +444,17 @@ def _plk_leaf_codes(consts, slot, j, d, mw, o, t_min):
               | (s2.view(torch.int32) ^ idn)) >= 0
     tt = numn * (1.0 / den)  # den = 0: inf or NaN, never valid
     valid = signok & (tt > t_min)
-    code = (tt.view(torch.int32) & ~_PLK_NB) | j.to(torch.int32)
+    code = (tt.view(torch.int32) & ~nb) | j.to(torch.int32)
     return torch.where(valid, code, _PLK_SENT)
 
 
 def _leaf_pairs(ss, cnt):
     """The (lane, slot) pairs of lanes testing fat leaves (slots ss ..
     ss+cnt-1), in chunks of lanes of at most _PLK_PAIRS pairs (a leaf
-    holds at most PLK_WINDOW): per chunk (a, n, lane_of, j, slot), the
+    holds at most MAX_WINDOW): per chunk (a, n, lane_of, j, slot), the
     chunk's first lane a and its n lanes, and per pair its lane in the
     chunk, its index in the leaf and its slot."""
-    per = max(1, _PLK_PAIRS // PLK_WINDOW)
+    per = max(1, _PLK_PAIRS // MAX_WINDOW)
     for a in range(0, ss.shape[0], per):
         c = cnt[a:a + per].long()
         n = c.shape[0]
@@ -463,13 +463,13 @@ def _leaf_pairs(ss, cnt):
         yield a, n, lane_of, j, ss[a:a + per].long()[lane_of] + j
 
 
-def _plk_leaves(consts, ss, cnt, d, mw, o, t_min):
+def _plk_leaves(consts, ss, cnt, d, mw, o, t_min, nb):
     """Least winner code of each lane's fat leaf (slots ss .. ss+cnt-1),
-    `_PLK_SENT` where no slot is hit."""
+    `_PLK_SENT` where no slot is hit; nb = window - 1."""
     best = torch.full((ss.shape[0],), _PLK_SENT, dtype=torch.int32, device=ss.device)
     for a, n, lane_of, j, slot in _leaf_pairs(ss, cnt):
         code = _plk_leaf_codes(consts, slot, j, d[a:a + n][lane_of],
-                               mw[a:a + n][lane_of], o[a:a + n][lane_of], t_min)
+                               mw[a:a + n][lane_of], o[a:a + n][lane_of], t_min, nb)
         best[a:a + n].scatter_reduce_(0, lane_of, code, "amin")
     return best
 
@@ -480,8 +480,9 @@ def _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
     at a fat leaf it takes the least winner code over the leaf's slots
     (ties to the smaller slot) and keeps it on a strict `<` of its
     truncated t, as the reference kernel merges (traverse_pallas.py
-    :1148-1156).  Any-hit lanes stop after the leaf that found a hit;
-    lanes with t0 <= t_min keep (t0, -1).  Returns {"t", "prim"}, t the
+    :1148-1156); the code's slot bits, and so t's truncation, follow the
+    layout's window (`plk_window`).  Any-hit lanes stop after the leaf
+    that found a hit; lanes with t0 <= t_min keep (t0, -1).  Returns {"t", "prim"}, t the
     truncated t of the winner (t0 on a miss), prim its global id.
 
     In a voxel-LOD scene a voxel leaf of the baked cut tree (its slot
@@ -503,6 +504,7 @@ def _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
     consts, s2p = scene["plk_consts"], scene["plk_slot2prim"]
     lod = bool(scene.get("has_voxel_lod"))
     n_slots = s2p.shape[0]
+    nb = int(scene["plk_window"]) - 1
 
     t_out = t0.clone()
     slot_out = torch.full((N,), -1, dtype=torch.int32, device=dev)
@@ -543,11 +545,11 @@ def _traverse_plk_plain(scene, ro, rd, t0, any_hit, t_min, stats=False):
                 counts[2] += c.sum()
                 per_ray.lane[1][at] += 1
                 per_ray.lane[2][at] += c
-            best = _plk_leaves(consts, ss[at], c, d[at], mw[at], o[at], t_min)
-            bt = (best & ~_PLK_NB).view(torch.float32)
+            best = _plk_leaves(consts, ss[at], c, d[at], mw[at], o[at], t_min, nb)
+            bt = (best & ~nb).view(torch.float32)
             closer = bt < t[at]
             t[at] = torch.where(closer, bt, t[at])
-            slot[at] = torch.where(closer, (best & _PLK_NB) + ss[at], slot[at])
+            slot[at] = torch.where(closer, (best & nb) + ss[at], slot[at])
         cur = torch.where(ahit, nhit[cur], nmiss[cur])
         if any_hit:
             cur = torch.where(slot >= 0, -1, cur)
@@ -610,13 +612,13 @@ def _trl_leaves(recs, ss, cnt, o, d, t, t_min):
         tp = torch.where(hp, tp, float("inf"))
         best = torch.full((n,), float("inf"), dtype=torch.float32, device=ss.device)
         best.scatter_reduce_(0, lane_of, tp, "amin")
-        first = torch.full((n,), PLK_WINDOW, dtype=torch.int64, device=ss.device)
+        first = torch.full((n,), MAX_WINDOW, dtype=torch.int64, device=ss.device)
         at_best = hp & (tp == best[lane_of])
         first.scatter_reduce_(0, lane_of[at_best], j[at_best], "amin")
         tl = t_new[a:a + n]
-        closer = (first < PLK_WINDOW) & (best < tl)
+        closer = (first < MAX_WINDOW) & (best < tl)
         t_new[a:a + n] = torch.where(closer, best, tl)
-        fs = (ss[a:a + n].long() + first.clamp(max=PLK_WINDOW - 1)).clamp(max=recs.shape[0] - 1)
+        fs = (ss[a:a + n].long() + first.clamp(max=MAX_WINDOW - 1)).clamp(max=recs.shape[0] - 1)
         prim[a:a + n] = torch.where(closer, recs.view(torch.int32)[fs, 9], -1)
     return t_new, prim
 

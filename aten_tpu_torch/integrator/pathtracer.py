@@ -40,7 +40,13 @@ hit draws one more number: with probability 1 - alpha (the material's
 times its albedo map's) the path punches through, straight on with its
 MIS state, and neither shades nor ends there.
 
-Not ported yet: the AOV outputs.
+`render_sample_with_aovs` (want_aovs=True) also returns the first-hit
+G-buffer of the reference's FillAOVs (svgf_impl.h:63; the reference's
+pathtracer.py:339-350, :383-398): normal (shading, after the normal
+map), depth (the hit's t), albedo (base colour after the albedo map),
+pos, prim, mtl and inst (the instance, -1 outside two-level scenes),
+taken at bounce 0 where the ray hits, from the first sample of the
+chunk.  A missed lane keeps depth -1, ids -1 and zero vectors.
 """
 from __future__ import annotations
 
@@ -201,14 +207,16 @@ def _resolve_stencil(scene, ro, rd, max_lookups=4, eps=1e-3, impl="auto"):
 
 def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
                  max_depth, rr_depth, spp_chunk=1, impl="auto", y0=0, tile_h=None,
-                 cam_type="pinhole", sampler="cmj"):
+                 cam_type="pinhole", sampler="cmj", want_aovs=False):
     """Radiance [tile_h*width, 3] of the rows [y0, y0 + tile_h) (default:
     the whole image), averaged over samples [sample, sample + spp_chunk);
     lane c*Npix + p traces sample `sample + c` of the band's pixel p, in
     scan order.  Seeds use the global pixel id, so a band equals the same
     rows of the whole image bit for bit.  cam_type: "pinhole",
     "thinlens" or "equirect" (`cam_arrays` of that camera); sampler:
-    "cmj" or "bluenoise"."""
+    "cmj" or "bluenoise".  want_aovs: return (radiance, aovs), the
+    first-hit G-buffer {normal, depth, albedo, pos, prim, mtl, inst} of
+    the first sample, each [tile_h*width, ...]."""
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r}: one of {SAMPLERS}")
     if cam_type not in CAMERA_TYPES:
@@ -265,6 +273,14 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
             return occlusion_alpha(scene, o, d, dist, impl=impl)
         return occluded(scene, o, d, dist, impl=impl)
 
+    aovs = None
+    if want_aovs:
+        # what a lane keeps with no first hit (a miss, or max_depth 0)
+        no_id = torch.full((N,), -1, dtype=torch.int32, device=dev)
+        aovs = {"normal": torch.zeros_like(radiance), "depth": torch.full_like(pdf_prev, -1.0),
+                "albedo": torch.zeros_like(radiance), "pos": torch.zeros_like(radiance),
+                "prim": no_id, "mtl": no_id, "inst": no_id}
+
     for bounce in range(max_depth):
         hit = traverse_sorted(
             scene, ro, rd, t_max=torch.where(alive, vm.INF, 0.0), impl=impl)
@@ -279,6 +295,20 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
         if "is_voxel" in h:
             # voxel hits shade as DIFFUSE (FillMaterial, material_impl.h:232-262)
             mat["type"] = torch.where(h["is_voxel"], _DIFFUSE, mat["type"])
+        if want_aovs and bounce == 0:
+            # the first-hit G-buffer (FillAOVs, svgf_impl.h:63)
+            first = hit["hit"]
+            f3 = first[..., None]
+            inst = hit.get("inst")
+            aovs = {
+                "normal": torch.where(f3, h["ns"], aovs["normal"]),
+                "depth": torch.where(first, hit["t"], aovs["depth"]),
+                "albedo": torch.where(f3, mat["base_color"], aovs["albedo"]),
+                "pos": torch.where(f3, h["p"], aovs["pos"]),
+                "prim": torch.where(first, hit["prim"], aovs["prim"]),
+                "mtl": torch.where(first, h["mtl"], aovs["mtl"]),
+                "inst": aovs["inst"] if inst is None else torch.where(first, inst, aovs["inst"]),
+            }
 
         # miss: the envmap, MIS-weighted against its light, or the background
         miss = alive & ~hit["hit"]
@@ -391,6 +421,8 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
     radiance = torch.where(bad[..., None], 0.0, radiance)
     if spp_chunk > 1:
         radiance = radiance.reshape(spp_chunk, n_pix, 3).mean(dim=0)
+    if want_aovs:
+        return radiance, {k: v[:n_pix] for k, v in aovs.items()}
     return radiance
 
 
@@ -403,6 +435,24 @@ def render_sample(scene, cam_arrays, width, height, frame, sample, spp=1,
                        max_depth, rr_depth, spp_chunk=spp_chunk, impl=impl,
                        cam_type=cam_type, sampler=sampler)
     return rad.reshape(height, width, 3)
+
+
+def render_sample_with_aovs(scene, cam_arrays, width, height, frame, sample, spp=1,
+                            max_depth=5, rr_depth=3, impl="auto", y0=0, tile_h=None):
+    """One sample's radiance [tile_h, width, 3] and its first-hit G-buffer
+    (the SVGF input; the reference's pathtracer.py:612-624): {normal,
+    albedo, pos [tile_h, width, 3] float32; depth [tile_h, width]
+    float32; prim, mtl, inst [tile_h, width] int32}, of the rows
+    [y0, y0 + tile_h) (default: the whole image, which the reference
+    renders; a band is bitwise the same rows of it).  With max_depth 0
+    no ray is traced: the AOVs are those of a miss, as the reference's."""
+    check_scene(scene)
+    tile_h = height if tile_h is None else tile_h
+    rad, aovs = _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
+                             max_depth, rr_depth, impl=impl, y0=y0, tile_h=tile_h,
+                             want_aovs=True)
+    return (rad.reshape(tile_h, width, 3),
+            {k: v.reshape((tile_h, width) + tuple(v.shape[1:])) for k, v in aovs.items()})
 
 
 def render_image(scene, cam, spp=16, max_depth=5, rr_depth=3, frame=0,

@@ -59,15 +59,16 @@ int aten_tlas_traverse(const float* nodes, const float* insts, const float* prim
                                               next_ray, stream);
 }
 
-// The Plücker treelet walk; returns as aten_bvh_traverse does.  `steps`,
-// `leaves` and `tests` [n] are all null or all set (the kStats
-// instantiations: node steps, fat leaves entered, slot tests per ray).
+// The Plücker treelet walk at drain window `window` (8, 16, 32, 64 or
+// 128); returns as aten_bvh_traverse does.  `steps`, `leaves` and `tests`
+// [n] are all null or all set (the kStats instantiations: node steps, fat
+// leaves entered, slot tests per ray).
 int aten_plk_traverse(const float* nodes, const float* consts,
                       const int32_t* slot2prim, int32_t n_slots, const float* ro,
                       const float* rd, const float* t0, float* t,
                       int32_t* prim, int64_t n, float t_min, int32_t any_hit,
-                      int32_t lod, int32_t* steps, int32_t* leaves, int32_t* tests,
-                      unsigned* next_ray, void* stream) {
+                      int32_t lod, int32_t window, int32_t* steps, int32_t* leaves,
+                      int32_t* tests, unsigned* next_ray, void* stream) {
   if (n < 0 || n >= kMaxRays || n_slots < 0) return -1;
   if (n > 0 && (!ro || !rd || !t0 || !t || !prim || !next_ray)) return -1;
   if (!nodes || !consts || !slot2prim || !aligned16(nodes) || !aligned16(consts))
@@ -77,15 +78,16 @@ int aten_plk_traverse(const float* nodes, const float* consts,
   const aten_tpu_torch::RayView rays{ro, rd, t0, t, prim, nullptr, nullptr, n};
   const aten_tpu_torch::CountView counts{steps, leaves, tests};
   return aten_tpu_torch::launch_plk_traverse(plk, rays, counts, t_min, any_hit != 0,
-                                             lod != 0, next_ray, stream);
+                                             lod != 0, window, next_ray, stream);
 }
 
-// The multi-chain treelet walk; returns as aten_bvh_traverse does.
+// The multi-chain treelet walk at drain window `window` (a multiple of 8
+// up to 128); returns as aten_bvh_traverse does.
 int aten_smt_traverse(const float* nodes, const int32_t* links,
                       const float* recs, const float* ro, const float* rd,
                       const float* t0, float* t, int32_t* prim, int64_t n,
                       float t_min, int32_t any_hit, int32_t chains,
-                      int32_t lod, unsigned* next_ray, void* stream) {
+                      int32_t lod, int32_t window, unsigned* next_ray, void* stream) {
   if (n < 0 || n >= kMaxRays || !(t_min >= 0.0f)) return -1;
   if (n > 0 && (!ro || !rd || !t0 || !t || !prim || !next_ray)) return -1;
   if (!nodes || !links || !recs) return -1;
@@ -95,7 +97,7 @@ int aten_smt_traverse(const float* nodes, const int32_t* links,
   const aten_tpu_torch::TrlView trl{nodes, links, recs};
   const aten_tpu_torch::RayView rays{ro, rd, t0, t, prim, nullptr, nullptr, n};
   return aten_tpu_torch::launch_smt_traverse(trl, rays, t_min, any_hit != 0,
-                                             chains, lod != 0, next_ray, stream);
+                                             chains, lod != 0, window, next_ray, stream);
 }
 
 const char* aten_cuda_error_string(int code) {

@@ -21,9 +21,13 @@ struct BvhView {
   int32_t num_tris;     // prims below this id are triangles
 };
 
-// Bits of a packed leaf word (ops/bvh_layout.py: LEAF_SHIFT, LEAF_COUNT).
+// Bits of a packed leaf word (ops/bvh_layout.py: LEAF_SHIFT, LEAF_COUNT):
+// K1's and K5's prim ranges, and (kTreelet*) the fat leaves' slot ranges
+// of K3 and K4, whose counts reach 128 (TREELET_LEAF_SHIFT).
 constexpr int kLeafShift = 7;
 constexpr int32_t kLeafCount = (1 << kLeafShift) - 1;
+constexpr int kTreeletLeafShift = 8;
+constexpr int32_t kTreeletLeafCount = (1 << kTreeletLeafShift) - 1;
 
 // Rays in, hits out; all device pointers, n entries each.
 struct RayView {
@@ -88,7 +92,7 @@ int launch_tlas_traverse(const TlasView& tlas, const TlasRayView& rays,
 // `nodes` and `consts` 16-byte aligned (read as float4).
 struct PlkView {
   const float* nodes;         // [Kt,8] packed cut-tree records as BvhView's,
-                              //        leaf = slot start << 7 | slot count
+                              //        leaf = slot start << 8 | slot count
   const float* consts;        // [S,16] slot records
   const int32_t* slot2prim;   // [S] global prim id of each slot
   int32_t n_slots;            // S: the voxel-LOD variant's winners at or
@@ -97,9 +101,11 @@ struct PlkView {
 
 // Writes rays.t and rays.prim; rays.u and rays.v are not used.  As
 // launch_bvh_traverse; the kStats instantiation writes all three counts.
+// `window`: the layout's drain window, 8, 16, 32, 64 or 128 (-1 for any
+// other).
 int launch_plk_traverse(const PlkView& plk, const RayView& rays,
                         const CountView& counts, float t_min, bool any_hit,
-                        bool lod, unsigned* next_ray, void* stream);
+                        bool lod, int window, unsigned* next_ray, void* stream);
 
 // The treelet layout of ops/trl_layout.py; device pointers.
 // `nodes` and `recs` are 16-byte aligned (read as float4), `links`
@@ -113,12 +119,13 @@ struct TrlView {
 };
 
 // Writes rays.t and rays.prim with `chains` rays per lane (1, 2, 4 or 8;
-// -1 for any other); rays.u and rays.v are not used.  As
-// launch_bvh_traverse; slot starts < 2^24 and t_min >= 0 (the drain orders
+// -1 for any other) at the layout's drain window `window` (a multiple of 8
+// up to 128; -1 for any other); rays.u and rays.v are not used.  As
+// launch_bvh_traverse; slot starts < 2^23 and t_min >= 0 (the drain orders
 // a hit's t by its bits).
 int launch_smt_traverse(const TrlView& trl, const RayView& rays, float t_min,
-                        bool any_hit, int chains, bool lod, unsigned* next_ray,
-                        void* stream);
+                        bool any_hit, int chains, bool lod, int window,
+                        unsigned* next_ray, void* stream);
 
 const char* cuda_error_string(int code);
 

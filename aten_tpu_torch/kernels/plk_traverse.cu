@@ -20,8 +20,10 @@
 //     dot products with the ray's (rd, ro x rd, ro, 1), s2 = den - s0 - s1,
 //     inside when all three sides share den's sign bit, tt = numn * (1/den)
 //     with an IEEE reciprocal, valid when tt > t_min;
-//   * the winner code (bits(tt) & ~63) | j minimised over the leaf, so t
-//     keeps 17 mantissa bits and a tie in a leaf goes to the smaller slot;
+//   * the winner code (bits(tt) & ~(W - 1)) | j minimised over the leaf,
+//     W the layout's drain window (a power of two, 8 to 128), so t keeps
+//     23 - log2(W) mantissa bits (17 at W = 64) and a tie in a leaf goes
+//     to the smaller slot;
 //     codes order as the floats do because tt > t_min > 0, and an integer
 //     minimum is exact whichever lanes take which slots;
 //   * a strict `<` merge of the leaf's winner into the ray's t;
@@ -48,7 +50,11 @@
 // _traverse_plk_plain(stats=True)'s "counts"; the hits are the !kStats
 // instantiation's, bit for bit.
 //
-// Bound: a dependent walk of the cut tree, then up to 64 records of 64 B
+// The drain window W is a template parameter (instantiations at 8, 16,
+// 32, 64 and 128): it sets the code's slot bits and the slots each lane
+// tests, ceil(W / 32).  The kernels at W = 64 are those of before.
+//
+// Bound: a dependent walk of the cut tree, then up to W records of 64 B
 // per fat leaf entered, each read once per ray.  On the 512k-prim scene
 // the records' 35 MB fit the 50 MB L2, so the latency of the walk's
 // dependent loads and the ~48 operations per slot, run for every slot of
@@ -60,8 +66,9 @@
 //     whose box it hits, or its walk ends;
 //   * then the warp drains the leaves its lanes stand on, one leaf after
 //     another: the leaf's owner hands its ray to the warp with shuffles,
-//     lane l tests slots l and l + 32, whose records are neighbours
-//     (coalesced 16-byte loads), and __reduce_min_sync gives the leaf's
+//     lane l tests slots l, l + 32, ... below the leaf's count, whose
+//     records are neighbours (coalesced 16-byte loads), and
+//     __reduce_min_sync gives the leaf's
 //     least code to the owner, which merges it.  Lanes whose own ray is
 //     done or walking help drain instead of idling, and no warp waits on
 //     the lane with the longest leaf.
@@ -75,7 +82,6 @@ namespace {
 
 constexpr int kBlock = 128;
 constexpr int kMinIdle = 8;                // idle lanes at which a warp takes rays
-constexpr int32_t kSlotMask = 63;          // WINDOW - 1: slot bits of a code
 constexpr int32_t kNoHit = 0x7F800000;     // +inf, slot 0
 
 // K3's safe inverse (traverse_pallas.py:1094-1097).
@@ -84,7 +90,8 @@ __device__ __forceinline__ float plk_safe_inv(float d) {
 }
 
 // The winner code of slot j of a leaf whose record is `rec`, kNoHit when
-// the ray (o, d, m = o x d) misses it.
+// the ray (o, d, m = o x d) misses it; kSlotMask = W - 1.
+template <int32_t kSlotMask>
 __device__ __forceinline__ int32_t slot_code(const float4* __restrict__ rec,
                                              int32_t j, float ox, float oy,
                                              float oz, float dx, float dy,
@@ -108,10 +115,12 @@ __device__ __forceinline__ int32_t slot_code(const float4* __restrict__ rec,
   return signok && tt > t_min ? (__float_as_int(tt) & ~kSlotMask) | j : kNoHit;
 }
 
-template <bool kAnyHit, bool kLod, bool kStats>
+template <bool kAnyHit, bool kLod, bool kStats, int kWindow>
 __global__ void __launch_bounds__(kBlock)
     plk_traverse_kernel(PlkView p, RayView r, CountView c, float t_min,
                         unsigned* next_ray) {
+  constexpr int32_t kSlotMask = kWindow - 1;  // slot bits of a code
+  constexpr int kPerLane = (kWindow + 31) / 32;
   const float4* __restrict__ nodes = reinterpret_cast<const float4*>(p.nodes);
   const float4* __restrict__ recs = reinterpret_cast<const float4*>(p.consts);
   const int lane = threadIdx.x & 31;
@@ -172,7 +181,7 @@ __global__ void __launch_bounds__(kBlock)
         cur = miss;  // a fat leaf's hit link is its miss link
         if constexpr (kStats) {
           ++leaves;
-          tests += leaf & kLeafCount;
+          tests += leaf & kTreeletLeafCount;
         }
         break;
       }
@@ -192,15 +201,19 @@ __global__ void __launch_bounds__(kBlock)
       const float smx = __shfl_sync(kFullWarp, mx, src);
       const float smy = __shfl_sync(kFullWarp, my, src);
       const float smz = __shfl_sync(kFullWarp, mz, src);
-      const int32_t ss = sl >> kLeafShift, cnt = sl & kLeafCount;
+      const int32_t ss = sl >> kTreeletLeafShift, cnt = sl & kTreeletLeafCount;
       const float4* rec = recs + 4 * (static_cast<int64_t>(ss) + lane);
       int32_t best = kNoHit;
       if (lane < cnt) {
-        best = slot_code(rec, lane, sox, soy, soz, sdx, sdy, sdz, smx, smy, smz, t_min);
+        best = slot_code<kSlotMask>(rec, lane, sox, soy, soz, sdx, sdy, sdz, smx, smy,
+                                    smz, t_min);
       }
-      if (lane + 32 < cnt) {
-        best = min(best, slot_code(rec + 4 * 32, lane + 32, sox, soy, soz, sdx, sdy,
-                                   sdz, smx, smy, smz, t_min));
+#pragma unroll
+      for (int k = 1; k < kPerLane; ++k) {
+        if (lane + 32 * k < cnt) {
+          best = min(best, slot_code<kSlotMask>(rec + 4 * 32 * k, lane + 32 * k, sox, soy,
+                                                soz, sdx, sdy, sdz, smx, smy, smz, t_min));
+        }
       }
       best = __reduce_min_sync(kFullWarp, best);
       if (lane == src) {
@@ -230,43 +243,67 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
-template <bool kAnyHit, bool kLod, bool kStats>
+template <bool kAnyHit, bool kLod, bool kStats, int kWindow>
 void launch(const PlkView& plk, const RayView& rays, const CountView& counts,
             float t_min, unsigned* next_ray, cudaStream_t s) {
-  const int64_t blocks =
-      persistent_blocks(plk_traverse_kernel<kAnyHit, kLod, kStats>, kBlock, rays.n);
-  plk_traverse_kernel<kAnyHit, kLod, kStats>
+  const int64_t blocks = persistent_blocks(
+      plk_traverse_kernel<kAnyHit, kLod, kStats, kWindow>, kBlock, rays.n);
+  plk_traverse_kernel<kAnyHit, kLod, kStats, kWindow>
       <<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(plk, rays, counts, t_min,
                                                         next_ray);
 }
 
-template <bool kAnyHit, bool kLod>
+template <bool kAnyHit, bool kLod, int kWindow>
 void launch(const PlkView& plk, const RayView& rays, const CountView& counts,
             float t_min, unsigned* next_ray, cudaStream_t s) {
   if (counts.steps) {
-    launch<kAnyHit, kLod, true>(plk, rays, counts, t_min, next_ray, s);
+    launch<kAnyHit, kLod, true, kWindow>(plk, rays, counts, t_min, next_ray, s);
   } else {
-    launch<kAnyHit, kLod, false>(plk, rays, counts, t_min, next_ray, s);
+    launch<kAnyHit, kLod, false, kWindow>(plk, rays, counts, t_min, next_ray, s);
+  }
+}
+
+template <int kWindow>
+void launch_window(const PlkView& plk, const RayView& rays, const CountView& counts,
+                   float t_min, bool any_hit, bool lod, unsigned* next_ray,
+                   cudaStream_t s) {
+  if (lod) {
+    if (any_hit) {
+      launch<true, true, kWindow>(plk, rays, counts, t_min, next_ray, s);
+    } else {
+      launch<false, true, kWindow>(plk, rays, counts, t_min, next_ray, s);
+    }
+  } else if (any_hit) {
+    launch<true, false, kWindow>(plk, rays, counts, t_min, next_ray, s);
+  } else {
+    launch<false, false, kWindow>(plk, rays, counts, t_min, next_ray, s);
   }
 }
 
 }  // namespace
 
 int launch_plk_traverse(const PlkView& plk, const RayView& rays, const CountView& counts,
-                        float t_min, bool any_hit, bool lod, unsigned* next_ray,
-                        void* stream) {
+                        float t_min, bool any_hit, bool lod, int window,
+                        unsigned* next_ray, void* stream) {
+  if (window != 8 && window != 16 && window != 32 && window != 64 && window != 128) return -1;
   if (rays.n <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lod) {
-    if (any_hit) {
-      launch<true, true>(plk, rays, counts, t_min, next_ray, s);
-    } else {
-      launch<false, true>(plk, rays, counts, t_min, next_ray, s);
-    }
-  } else if (any_hit) {
-    launch<true, false>(plk, rays, counts, t_min, next_ray, s);
-  } else {
-    launch<false, false>(plk, rays, counts, t_min, next_ray, s);
+  switch (window) {
+    case 8:
+      launch_window<8>(plk, rays, counts, t_min, any_hit, lod, next_ray, s);
+      break;
+    case 16:
+      launch_window<16>(plk, rays, counts, t_min, any_hit, lod, next_ray, s);
+      break;
+    case 32:
+      launch_window<32>(plk, rays, counts, t_min, any_hit, lod, next_ray, s);
+      break;
+    case 64:
+      launch_window<64>(plk, rays, counts, t_min, any_hit, lod, next_ray, s);
+      break;
+    default:
+      launch_window<128>(plk, rays, counts, t_min, any_hit, lod, next_ray, s);
+      break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,8 +41,13 @@
 // link, and an any-hit ray with a hit drops its cursor.  The !kLod
 // instantiations are the kernels of before.
 //
+// The drain window W of the layout (any multiple of 8 up to 128) sets the
+// slots each lane tests, kPerLane = 1 (W <= 32), 2 (W <= 64) or 4, a
+// template parameter; the kernels with kPerLane = 2 are those of before,
+// and a leaf's own slot count bounds the drain at every W.
+//
 // Bound: each step is a dependent load of 40 B of node and links, then a
-// fat leaf of up to 64 slot records of 48 B (the records of the 512k-prim
+// fat leaf of up to W slot records of 48 B (the records of the 512k-prim
 // scene, 26 MB, fit the 50 MB L2 cache); ~25 operations per box test and
 // ~53 per slot test.  The design, K3's (plk_traverse.cu):
 //   * persistent warps taking rays from one counter (take_rays), C per
@@ -53,8 +58,8 @@
 //     t from before the drain, as in the plain version, while steps with
 //     no leaf to drain run on;
 //   * then the warp drains the waiting leaves one after another: the
-//     leaf's owner hands its ray over with shuffles, lane l tests slots l
-//     and l + 32 (neighbouring 48-byte records, coalesced loads), and two
+//     leaf's owner hands its ray over with shuffles, lane l tests slots l,
+//     l + 32, ... (neighbouring 48-byte records, coalesced loads), and two
 //     __reduce_min_sync give the leaf's least t, as float bits (exact: a
 //     hit's t > t_min >= 0), then its least slot with that t; the owner
 //     merges the winner with `<`.  No warp waits on the lane with the
@@ -90,7 +95,7 @@ struct Chain {
   int32_t ray;   // ray index, -1 when the chain is idle
   int32_t cur;   // node, -1 when the walk has no node left
   int32_t prim, ord;
-  int32_t pend;  // fat leaf latched on the step before, start << 7 | count, or -1
+  int32_t pend;  // fat leaf latched on the step before, start << 8 | count, or -1
   int32_t next;  // the latch of a tested step that waits for pend's drain
   bool tested;   // this step's box test is done; it waits for the drain
 };
@@ -125,7 +130,7 @@ __device__ __forceinline__ unsigned slot_key(const float4* __restrict__ rec, flo
   return hp ? __float_as_uint(tp) : kNoHit;
 }
 
-template <bool kAnyHit, int C, bool kLod>
+template <bool kAnyHit, int C, bool kLod, int kPerLane>
 __global__ void __launch_bounds__(kBlock)
     smt_traverse_kernel(TrlView p, RayView r, float t_min, unsigned* next_ray) {
   const float4* __restrict__ nodes = reinterpret_cast<const float4*>(p.nodes);
@@ -190,7 +195,7 @@ __global__ void __launch_bounds__(kBlock)
         }
         const int32_t ss = __float_as_int(nb[c].z);
         const int32_t latch =
-            hitv && ss >= 0 ? (ss << kLeafShift) | __float_as_int(nb[c].w) : -1;
+            hitv && ss >= 0 ? (ss << kTreeletLeafShift) | __float_as_int(nb[c].w) : -1;
         h.cur = hitv ? lk[c].x : lk[c].y;
         if constexpr (kLod && kAnyHit) {
           if (h.prim >= 0) h.cur = -1;  // a voxel hit ends an any-hit walk
@@ -219,19 +224,22 @@ __global__ void __launch_bounds__(kBlock)
         const float sdx = __shfl_sync(kFullWarp, h.dx, src);
         const float sdy = __shfl_sync(kFullWarp, h.dy, src);
         const float sdz = __shfl_sync(kFullWarp, h.dz, src);
-        const int32_t ss = sl >> kLeafShift, cnt = sl & kLeafCount;
+        const int32_t ss = sl >> kTreeletLeafShift, cnt = sl & kTreeletLeafCount;
         const float4* rec = recs + 3 * (static_cast<int64_t>(ss) + lane);
         unsigned key = kNoHit;
         int32_t j = lane, pid = -1;
         if (lane < cnt) key = slot_key(rec, sox, soy, soz, sdx, sdy, sdz, t_min, pid);
-        if (lane + 32 < cnt) {
-          int32_t pid2;
-          const unsigned key2 =
-              slot_key(rec + 3 * 32, sox, soy, soz, sdx, sdy, sdz, t_min, pid2);
-          if (key2 < key) {  // a tie stays with the smaller slot
-            key = key2;
-            j = lane + 32;
-            pid = pid2;
+#pragma unroll
+        for (int k = 1; k < kPerLane; ++k) {
+          if (lane + 32 * k < cnt) {
+            int32_t pid2;
+            const unsigned key2 =
+                slot_key(rec + 3 * 32 * k, sox, soy, soz, sdx, sdy, sdz, t_min, pid2);
+            if (key2 < key) {  // a tie stays with the smaller slot
+              key = key2;
+              j = lane + 32 * k;
+              pid = pid2;
+            }
           }
         }
         const unsigned kmin = __reduce_min_sync(kFullWarp, key);
@@ -264,30 +272,30 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
-template <bool kAnyHit, int C, bool kLod>
+template <bool kAnyHit, int C, bool kLod, int kPerLane>
 void launch(const TrlView& trl, const RayView& rays, float t_min, unsigned* next_ray,
             cudaStream_t s) {
-  const int64_t blocks = persistent_blocks(smt_traverse_kernel<kAnyHit, C, kLod>, kBlock,
-                                           (rays.n + C - 1) / C);
-  smt_traverse_kernel<kAnyHit, C, kLod><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
-      trl, rays, t_min, next_ray);
+  const int64_t blocks = persistent_blocks(smt_traverse_kernel<kAnyHit, C, kLod, kPerLane>,
+                                           kBlock, (rays.n + C - 1) / C);
+  smt_traverse_kernel<kAnyHit, C, kLod, kPerLane>
+      <<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(trl, rays, t_min, next_ray);
 }
 
-template <bool kAnyHit, bool kLod>
+template <bool kAnyHit, bool kLod, int kPerLane>
 int launch_chains(const TrlView& trl, const RayView& rays, float t_min, int chains,
                   unsigned* next_ray, cudaStream_t s) {
   switch (chains) {
     case 1:
-      launch<kAnyHit, 1, kLod>(trl, rays, t_min, next_ray, s);
+      launch<kAnyHit, 1, kLod, kPerLane>(trl, rays, t_min, next_ray, s);
       break;
     case 2:
-      launch<kAnyHit, 2, kLod>(trl, rays, t_min, next_ray, s);
+      launch<kAnyHit, 2, kLod, kPerLane>(trl, rays, t_min, next_ray, s);
       break;
     case 4:
-      launch<kAnyHit, 4, kLod>(trl, rays, t_min, next_ray, s);
+      launch<kAnyHit, 4, kLod, kPerLane>(trl, rays, t_min, next_ray, s);
       break;
     case 8:
-      launch<kAnyHit, 8, kLod>(trl, rays, t_min, next_ray, s);
+      launch<kAnyHit, 8, kLod, kPerLane>(trl, rays, t_min, next_ray, s);
       break;
     default:
       return -1;
@@ -295,20 +303,31 @@ int launch_chains(const TrlView& trl, const RayView& rays, float t_min, int chai
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kPerLane>
+int launch_drain(const TrlView& trl, const RayView& rays, float t_min, bool any_hit,
+                 int chains, bool lod, unsigned* next_ray, cudaStream_t s) {
+  if (lod) {
+    return any_hit
+               ? launch_chains<true, true, kPerLane>(trl, rays, t_min, chains, next_ray, s)
+               : launch_chains<false, true, kPerLane>(trl, rays, t_min, chains, next_ray, s);
+  }
+  return any_hit
+             ? launch_chains<true, false, kPerLane>(trl, rays, t_min, chains, next_ray, s)
+             : launch_chains<false, false, kPerLane>(trl, rays, t_min, chains, next_ray, s);
+}
+
 }  // namespace
 
 int launch_smt_traverse(const TrlView& trl, const RayView& rays, float t_min,
-                        bool any_hit, int chains, bool lod, unsigned* next_ray,
-                        void* stream) {
+                        bool any_hit, int chains, bool lod, int window,
+                        unsigned* next_ray, void* stream) {
   if (chains != 1 && chains != 2 && chains != 4 && chains != 8) return -1;
+  if (window < 8 || window > 128 || window % 8 != 0) return -1;
   if (rays.n <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lod) {
-    return any_hit ? launch_chains<true, true>(trl, rays, t_min, chains, next_ray, s)
-                   : launch_chains<false, true>(trl, rays, t_min, chains, next_ray, s);
-  }
-  return any_hit ? launch_chains<true, false>(trl, rays, t_min, chains, next_ray, s)
-                 : launch_chains<false, false>(trl, rays, t_min, chains, next_ray, s);
+  if (window <= 32) return launch_drain<1>(trl, rays, t_min, any_hit, chains, lod, next_ray, s);
+  if (window <= 64) return launch_drain<2>(trl, rays, t_min, any_hit, chains, lod, next_ray, s);
+  return launch_drain<4>(trl, rays, t_min, any_hit, chains, lod, next_ray, s);
 }
 
 }  // namespace aten_tpu_torch

@@ -11,10 +11,14 @@ is laid out in preorder (accel/build.py), so an internal node's hit link
 is the next node, i + 1, and a leaf's hit link equals its miss link.
 `pack_nodes` checks both facts on every tree it packs and raises if one
 fails.  `leaf` is -1 on an internal node; on a leaf it packs the start
-and count of its range as `start << LEAF_SHIFT | count`: for K1 the
-leaf's prim range in leaf order (count <= LEAF_MAX), for K3 the fat
-leaf's slot range (count <= 64).  A voxel leaf of a tree baked for voxel
-LOD (ops/lod_layout.py) holds `VOXEL_WORD - id` (<= -2) there instead.
+and count of its range as `start << shift | count`: for K1 (and K5's
+pool, ops/tlas_layout.py) the leaf's prim range in leaf order (count <=
+LEAF_MAX, shift LEAF_SHIFT, starts below MAX_START = 2^24), for K3 the
+fat leaf's slot range (count <= its window, at most 128, so shift
+TREELET_LEAF_SHIFT, slot starts below TREELET_MAX_START = 2^23; K4
+packs the same word in its kernel).  A voxel leaf of a tree baked for
+voxel LOD (ops/lod_layout.py) holds `VOXEL_WORD - id` (<= -2) there
+instead.
 
 K1 also reads one 48-byte record per prim in leaf order, three float4s,
 so a leaf's prims are contiguous and the kernel makes no dependent load
@@ -36,22 +40,26 @@ from aten_tpu_torch.ops.lod_layout import voxel_words
 
 NODE_WORDS = 8     # float32 words of a node record (32 B)
 PRIM_WORDS = 12    # float32 words of a K1 prim record (48 B)
-LEAF_SHIFT = 7     # a leaf's count fills the low 7 bits (<= 64 for K3)
+LEAF_SHIFT = 7     # K1's and K5's leaf counts fill the low 7 bits
 LEAF_COUNT = (1 << LEAF_SHIFT) - 1
 MAX_START = 1 << (31 - LEAF_SHIFT)  # starts below this pack into an int32
+TREELET_LEAF_SHIFT = 8  # a fat leaf's slot count (<= 128) fills 8 bits
+TREELET_MAX_START = 1 << (31 - TREELET_LEAF_SHIFT)
 
 # the Scene arrays of K1's layout
 ARRAY_KEYS = ("bvh_nodes", "bvh_prims")
 
 
-def pack_nodes(bmin, bmax, hit, miss, start, count, is_leaf, vox=None):
+def pack_nodes(bmin, bmax, hit, miss, start, count, is_leaf, vox=None, shift=LEAF_SHIFT):
     """[K, NODE_WORDS] float32 records of a tree in preorder.
 
     bmin, bmax [K,3]; hit, miss [K] int links; is_leaf [K] bool; start,
-    count [K] the range of each leaf; vox [K] the global id of each voxel
-    leaf (also in is_leaf), -1 elsewhere, or None.  Raises ValueError
-    unless every internal node's hit link is i + 1 and every leaf's
-    equals its miss link, or if a leaf's range does not pack."""
+    count [K] the range of each leaf, packed as `start << shift | count`
+    (LEAF_SHIFT for K1 and K5, TREELET_LEAF_SHIFT for K3); vox [K] the
+    global id of each voxel leaf (also in is_leaf), -1 elsewhere, or None.
+    Raises ValueError unless every internal node's hit link is i + 1 and
+    every leaf's equals its miss link, or if a leaf's range does not
+    pack."""
     hit = np.asarray(hit, np.int64)
     miss = np.asarray(miss, np.int64)
     start = np.asarray(start, np.int64)
@@ -68,10 +76,11 @@ def pack_nodes(bmin, bmax, hit, miss, start, count, is_leaf, vox=None):
                          f"and miss link {int(miss[bad_leaf[0]])}; they must be equal")
     ranged = is_leaf if vox is None else is_leaf & (np.asarray(vox) < 0)
     s, c = start[ranged], count[ranged]
-    if ((s < 0) | (s >= MAX_START) | (c < 0) | (c > LEAF_COUNT)).any():
+    max_start, max_count = 1 << (31 - shift), (1 << shift) - 1
+    if ((s < 0) | (s >= max_start) | (c < 0) | (c > max_count)).any():
         raise ValueError("a leaf range does not pack into start << "
-                         f"{LEAF_SHIFT} | count (start < {MAX_START}, count <= {LEAF_COUNT})")
-    leaf = voxel_words(np.where(is_leaf, (start << LEAF_SHIFT) | count, -1), vox)
+                         f"{shift} | count (start < {max_start}, count <= {max_count})")
+    leaf = voxel_words(np.where(is_leaf, (start << shift) | count, -1), vox)
     rec = np.zeros((K, NODE_WORDS), np.float32)
     rec[:, 0:3] = bmin
     rec[:, 4:7] = bmax
@@ -81,16 +90,16 @@ def pack_nodes(bmin, bmax, hit, miss, start, count, is_leaf, vox=None):
     return rec
 
 
-def unpack_nodes(rec):
-    """The arrays `pack_nodes` packed: (bmin, bmax, hit, miss, leaf, start,
-    count), the ints int32; start and count are -1 and 0 on internal
-    nodes and voxel leaves."""
+def unpack_nodes(rec, shift=LEAF_SHIFT):
+    """The arrays `pack_nodes` packed with `shift`: (bmin, bmax, hit, miss,
+    leaf, start, count), the ints int32; start and count are -1 and 0 on
+    internal nodes and voxel leaves."""
     ints = np.ascontiguousarray(rec).view(np.int32)
     miss, leaf = ints[:, 3].copy(), ints[:, 7].copy()
     is_leaf = leaf >= 0
     hit = np.where(leaf != -1, miss, np.arange(1, rec.shape[0] + 1)).astype(np.int32)
-    start = np.where(is_leaf, leaf >> LEAF_SHIFT, -1).astype(np.int32)
-    count = np.where(is_leaf, leaf & LEAF_COUNT, 0).astype(np.int32)
+    start = np.where(is_leaf, leaf >> shift, -1).astype(np.int32)
+    count = np.where(is_leaf, leaf & ((1 << shift) - 1), 0).astype(np.int32)
     return rec[:, 0:3].copy(), rec[:, 4:7].copy(), hit, miss, leaf, start, count
 
 

@@ -13,7 +13,7 @@ A voxel leaf carries the global id of its voxel, `vox_base + voxid`
 with vox_base = num_tris + num_spheres and voxid the node's index in the
 *original* tree (the oracle's id).  Each layout stores it as the word
 `VOXEL_WORD - id` (<= -2) where it otherwise keeps a leaf's range: K1's
-and K3's packed leaf word (-1 on interior nodes, `start << 7 | count`
+and K3's packed leaf word (-1 on interior nodes, `start << shift | count`
 >= 0 on leaves), K3's `plk_slot_start` and K4's slot-start word (-1 on
 interior nodes, a slot >= 0 on fat leaves).
 

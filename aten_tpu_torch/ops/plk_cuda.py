@@ -12,8 +12,10 @@ raises when the scene's `lod_depth` differs from its `lod_bake_depth`.
 With stats=True it runs the kStats instantiation, the `stats=True`
 variant (:1087-1090, :1264-1266, :1289-1294), counted per ray, and also
 returns each ray's node steps, fat leaves entered and slot tests; only
-the traversal-stats tool and the on-card check call it.  Its arguments are checked on
-every device; for tensors on the CPU it then runs the kernel's plain
+the traversal-stats tool and the on-card check call it.  It runs at the
+layout's drain window `plk_window` (8, 16, 32, 64 or 128: one
+instantiation each) and raises on any other.  Its arguments are checked
+on every device; for tensors on the CPU it then runs the kernel's plain
 version, accel/traverse.py::_traverse_plk_plain, and on a CUDA tensor it
 launches the kernel or raises, never falling back.  The kernel lives in
 the library of ops/traverse_cuda.py.
@@ -24,20 +26,34 @@ import torch
 
 from aten_tpu_torch.ops.bvh_layout import NODE_WORDS
 from aten_tpu_torch.ops.lod_layout import lod_of
-from aten_tpu_torch.ops.plk_layout import RECORD, WINDOW
+from aten_tpu_torch.ops.plk_layout import RECORD, k3_window
 from aten_tpu_torch.ops.traverse_cuda import (
     _checked, _packed, count_tensors, load_library, next_ray_counter)
 
-KERNELS = ("plk_traverse_closest", "plk_traverse_any")
-LOD_KERNELS = ("plk_traverse_lod_closest", "plk_traverse_lod_any")
-STATS_KERNELS = ("plk_traverse_stats_closest", "plk_traverse_stats_any")
-LOD_STATS_KERNELS = ("plk_traverse_lod_stats_closest", "plk_traverse_lod_stats_any")
+# the drain windows of the instantiations; a name without a window
+# suffix is the default window's, 64
+WINDOWS = (8, 16, 32, 64, 128)
+
+
+def kernel_names(variant="", window=64):
+    """(closest, any) names of the instantiation `variant` ("", "lod_",
+    "stats_" or "lod_stats_") at drain window `window`."""
+    suffix = "" if window == 64 else f"_w{window}"
+    return tuple(f"plk_traverse_{variant}{kind}{suffix}" for kind in ("closest", "any"))
+
+
+KERNELS = kernel_names()
+LOD_KERNELS = kernel_names("lod_")
+STATS_KERNELS = kernel_names("stats_")
+LOD_STATS_KERNELS = kernel_names("lod_stats_")
+VARIANTS = ("", "lod_", "stats_", "lod_stats_")
 # the per-ray counts of the kStats instantiations
 COUNTS = ("node_steps", "leaves", "slot_tests")
 
 # Launches per kernel instantiation since the last reset: the one place
 # that adds to a count is the line after a successful launch below.
-launch_counts = dict.fromkeys(KERNELS + LOD_KERNELS + STATS_KERNELS + LOD_STATS_KERNELS, 0)
+launch_counts = dict.fromkeys(
+    [k for w in WINDOWS for v in VARIANTS for k in kernel_names(v, w)], 0)
 
 
 def reset_launch_counts():
@@ -55,18 +71,16 @@ _SCENE_FIELDS = (
 def plk_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4, stats=False):
     """Closest (or any) hit of rays ro, rd [N,3] with t_max t0 [N] against
     the scene's Plücker layout.  Returns (t, prim), each [N]: t the
-    winner's t with its 6 low mantissa bits cleared (t0 on a miss), prim
-    its global id (-1 on a miss); with stats=True also {"node_steps",
-    "leaves", "slot_tests"}, each ray's int32 counts."""
+    winner's t with its log2(plk_window) low mantissa bits cleared (t0 on
+    a miss), prim its global id (-1 on a miss); with stats=True also
+    {"node_steps", "leaves", "slot_tests"}, each ray's int32 counts."""
     dev = ro.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"plk_traverse: unsupported device {dev}")
-    if scene.get("plk_window") != WINDOW:
-        raise ValueError(f"the scene's Plücker layout has window "
-                         f"{scene.get('plk_window')}; the kernel takes {WINDOW}")
     lod = lod_of(scene)
     n = ro.shape[0]
     ptrs = _packed(scene, _SCENE_FIELDS, dev)
+    window = k3_window(scene["plk_window"])
     ro_p = _checked("ro", ro, torch.float32, (3,), dev)
     rd_p = _checked("rd", rd, torch.float32, (3,), dev)
     t0_p = _checked("t0", t0, torch.float32, (), dev)
@@ -93,13 +107,12 @@ def plk_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4, stats=False):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.aten_plk_traverse(
             *ptrs, scene["plk_slot2prim"].shape[0], ro_p, rd_p, t0_p, t.data_ptr(),
-            prim.data_ptr(), n, float(t_min), int(any_hit), int(lod), *count_p,
+            prim.data_ptr(), n, float(t_min), int(any_hit), int(lod), window, *count_p,
             counter.data_ptr(), stream)
     if rc != 0:
         what = ("bad arguments" if rc < 0
                 else lib.aten_cuda_error_string(rc).decode())
         raise RuntimeError(f"plk_traverse launch failed ({rc}): {what}")
-    names = ((LOD_STATS_KERNELS if lod else STATS_KERNELS) if stats
-             else (LOD_KERNELS if lod else KERNELS))
-    launch_counts[names[int(any_hit)]] += 1
+    variant = ("lod_" if lod else "") + ("stats_" if stats else "")
+    launch_counts[kernel_names(variant, window)[int(any_hit)]] += 1
     return out

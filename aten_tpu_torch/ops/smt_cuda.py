@@ -8,34 +8,49 @@ rays from a counter the wrapper zeroes.  It replaces the TPU kernel
 `_traverse_smt_tiles` :1542).  On a voxel-LOD scene it runs the `lod`
 variant at every chain count, the `has_lod=True` branch (:1489-1497),
 over the layout of the baked tree, and raises when the scene's
-`lod_depth` differs from its `lod_bake_depth`.  Its arguments are checked on every
-device; for tensors on the CPU it then runs the kernel's plain version,
-accel/traverse.py::_traverse_trl_plain, and on a CUDA tensor it launches
-the kernel or raises, never falling back.  The kernel lives in the
+`lod_depth` differs from its `lod_bake_depth`.  It drains at the
+layout's window `trl_window` (any multiple of 8 up to 128), in one of
+three instantiations by slots per lane (1 up to a window of 32, 2 up to
+64, 4 up to 128), and raises on a window it does not take.  Its
+arguments are checked on every device; for tensors on the CPU it then
+runs the kernel's plain version, accel/traverse.py::_traverse_trl_plain,
+and on a CUDA tensor it launches the kernel or raises, never falling
+back.  The kernel lives in the
 library of ops/traverse_cuda.py.
 """
 from __future__ import annotations
 
 import torch
 
-from aten_tpu_torch.ops.bvh_layout import MAX_START
+from aten_tpu_torch.ops.bvh_layout import TREELET_MAX_START
 from aten_tpu_torch.ops.lod_layout import lod_of
 from aten_tpu_torch.ops.traverse_cuda import _checked, load_library, next_ray_counter
-from aten_tpu_torch.ops.trl_layout import ORDERINGS, RECORD, TRL_NODE, WINDOW
+from aten_tpu_torch.ops.plk_layout import k4_window
+from aten_tpu_torch.ops.trl_layout import ORDERINGS, RECORD, TRL_NODE
 
 CHAIN_COUNTS = (1, 2, 4, 8)
 # The rays per lane that the card ran fastest (PERF.md §6: every count
 # timed in turns on the same rays); the reference's default is 4
 # (traverse_pallas.py:337), which on the H100 cost more.
 DEFAULT_CHAINS = 1
+# the widest window of each instantiation (slots per lane 1, 2, 4); a
+# name without a window suffix is the 64-slot one
+DRAINS = (32, 64, 128)
 KERNELS = tuple(f"smt_traverse_{kind}_c{c}" for kind in ("closest", "any")
                 for c in CHAIN_COUNTS)
 LOD_KERNELS = tuple(f"smt_traverse_lod_{kind}_c{c}" for kind in ("closest", "any")
                     for c in CHAIN_COUNTS)
 
+
+def drain_of(window):
+    """The widest window of the instantiation that drains `window`."""
+    return next(d for d in DRAINS if k4_window(window) <= d)
+
+
 # Launches per kernel instantiation since the last reset: the one place
 # that adds to a count is the line after a successful launch below.
-launch_counts = dict.fromkeys(KERNELS + LOD_KERNELS, 0)
+launch_counts = dict.fromkeys(
+    [f"{k}{'' if d == 64 else f'_w{d}'}" for d in DRAINS for k in KERNELS + LOD_KERNELS], 0)
 
 
 def reset_launch_counts():
@@ -43,8 +58,11 @@ def reset_launch_counts():
         launch_counts[k] = 0
 
 
-def kernel_name(any_hit, chains, lod=False):
-    return f"smt_traverse_{'lod_' if lod else ''}{'any' if any_hit else 'closest'}_c{chains}"
+def kernel_name(any_hit, chains, lod=False, window=64):
+    """The name of the instantiation that runs at drain window `window`."""
+    d = drain_of(window)
+    return (f"smt_traverse_{'lod_' if lod else ''}{'any' if any_hit else 'closest'}_c{chains}"
+            f"{'' if d == 64 else f'_w{d}'}")
 
 
 # (name, dtype, trailing shape) of each scene array the kernel reads
@@ -67,12 +85,10 @@ def smt_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4, chains=DEFAULT_CH
     if chains not in CHAIN_COUNTS:
         raise ValueError(f"smt_traverse: chains={chains!r}; the kernel is built "
                          f"for {CHAIN_COUNTS} rays per lane")
-    if scene.get("trl_window") != WINDOW:
-        raise ValueError(f"the scene's treelet layout has window "
-                         f"{scene.get('trl_window')}; the kernel takes {WINDOW}")
     lod = lod_of(scene)
     n = ro.shape[0]
     ptrs = [_checked(k, scene[k], dt, tail, dev) for k, dt, tail in _SCENE_FIELDS]
+    window = k4_window(scene["trl_window"])
     ro_p = _checked("ro", ro, torch.float32, (3,), dev)
     rd_p = _checked("rd", rd, torch.float32, (3,), dev)
     t0_p = _checked("t0", t0, torch.float32, (), dev)
@@ -88,9 +104,9 @@ def smt_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4, chains=DEFAULT_CH
                          "trl_links 8-byte aligned")
     if not t_min >= 0.0:
         raise ValueError(f"smt_traverse: t_min={t_min!r}; the kernel takes t_min >= 0")
-    if scene["trl_recs"].shape[0] > MAX_START:
+    if scene["trl_recs"].shape[0] > TREELET_MAX_START:
         raise ValueError(f"smt_traverse: {scene['trl_recs'].shape[0]} slots; the kernel "
-                         f"takes at most {MAX_START}")
+                         f"takes at most {TREELET_MAX_START}")
     t = torch.empty(n, dtype=torch.float32, device=dev)
     prim = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
@@ -101,10 +117,11 @@ def smt_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4, chains=DEFAULT_CH
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.aten_smt_traverse(
             *ptrs, ro_p, rd_p, t0_p, t.data_ptr(), prim.data_ptr(),
-            n, float(t_min), int(any_hit), int(chains), int(lod), counter.data_ptr(), stream)
+            n, float(t_min), int(any_hit), int(chains), int(lod), window, counter.data_ptr(),
+            stream)
     if rc != 0:
         what = ("bad arguments" if rc < 0
                 else lib.aten_cuda_error_string(rc).decode())
         raise RuntimeError(f"smt_traverse launch failed ({rc}): {what}")
-    launch_counts[kernel_name(any_hit, chains, lod)] += 1
+    launch_counts[kernel_name(any_hit, chains, lod, window)] += 1
     return t, prim

@@ -26,8 +26,9 @@ the Plücker treelet kernel of ops/plk_cuda.py and the multi-chain
 treelet kernel of ops/smt_cuda.py, is built at first
 use from the repository's sources with torch.utils.cpp_extension.load
 into build/aten_tpu_torch/, for sm_90a, with --fmad=false, under a file
-lock.  Its interface is plain C (kernels/bindings.cpp), loaded with
-ctypes.
+lock; ninja compiles the sources in parallel, and nvcc each source's
+kernels on every core (--split-compile=0, CUDA 12.1 and later).  Its
+interface is plain C (kernels/bindings.cpp), loaded with ctypes.
 """
 from __future__ import annotations
 
@@ -46,8 +47,9 @@ SOURCES = (os.path.join(KERNEL_DIR, "bvh_traverse.cu"),
            os.path.join(KERNEL_DIR, "plk_traverse.cu"),
            os.path.join(KERNEL_DIR, "smt_traverse.cu"),
            os.path.join(KERNEL_DIR, "bindings.cpp"))
+# --split-compile=0: nvcc optimizes a source's kernels on every core
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
-              "-Xptxas=-v")
+              "--split-compile=0", "-Xptxas=-v")
 KERNELS = ("bvh_traverse_closest", "bvh_traverse_any")
 LOD_KERNELS = ("bvh_traverse_lod_closest", "bvh_traverse_lod_any")
 STATS_KERNELS = ("bvh_traverse_stats_closest", "bvh_traverse_stats_any")
@@ -101,10 +103,10 @@ def load_library(verbose=False):
     lib.aten_plk_traverse.restype = ctypes.c_int
     lib.aten_plk_traverse.argtypes = (
         [vp] * 3 + [ctypes.c_int32] + [vp] * 5
-        + [ctypes.c_int64, ctypes.c_float, ctypes.c_int32, ctypes.c_int32] + [vp] * 5)
+        + [ctypes.c_int64, ctypes.c_float] + [ctypes.c_int32] * 3 + [vp] * 5)
     lib.aten_smt_traverse.restype = ctypes.c_int
     lib.aten_smt_traverse.argtypes = (
-        [vp] * 8 + [ctypes.c_int64, ctypes.c_float] + [ctypes.c_int32] * 3 + [vp, vp])
+        [vp] * 8 + [ctypes.c_int64, ctypes.c_float] + [ctypes.c_int32] * 4 + [vp, vp])
     lib.aten_cuda_error_string.restype = ctypes.c_char_p
     lib.aten_cuda_error_string.argtypes = [ctypes.c_int]
     _lib = lib

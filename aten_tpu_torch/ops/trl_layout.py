@@ -23,8 +23,9 @@ A tree baked for voxel LOD (ops/lod_layout.py) is cut as K3's is
 (voxel leaves stay nodes, no slots), and a voxel leaf's slot-start word
 holds its id as `VOXEL_WORD - id`.
 
-The window is this module's constant and travels with the layout as
-`trl_window`; nothing reads it from the environment.
+The drain window travels with the layout as `trl_window`: any multiple
+of PACK up to MAX_WINDOW (ops/plk_layout.py::k4_window), by default
+ops/plk_layout.py's WINDOW.
 
 `uses_trl` is the reference's choice of the treelet branch
 (scene/scene.py:420-438): a single-level scene whose BVH, counted at
@@ -36,7 +37,7 @@ import numpy as np
 
 from aten_tpu_torch.ops.lod_layout import voxel_words
 from aten_tpu_torch.ops.plk_layout import (
-    PACK, TREELET_MIN_BYTES, WINDOW, align_rows, treelet_cut)
+    PACK, TREELET_MIN_BYTES, WINDOW, align_rows, k4_window, treelet_cut)
 
 TRL_NODE = 8   # float32s per node record
 RECORD = 12    # float32s per slot record
@@ -107,19 +108,21 @@ def slot_records(order, tri_v0, tri_e1, tri_e2, sph_center, sph_radius,
 
 
 def build_trl_layout(bvh, tri_v0, tri_e1, tri_e2, sph_center, sph_radius,
-                     num_tris, vox=None):
-    """The K4 layout of a single-level threaded BVH.
+                     num_tris, vox=None, window=WINDOW):
+    """The K4 layout of a single-level threaded BVH with drain window
+    `window` (`k4_window`'s rule).
 
     Returns numpy arrays under ARRAY_KEYS plus the scalar `trl_window`
-    (WINDOW): trl_nodes [Kt, TRL_NODE] f32, trl_links [Kt, 12] int32
+    (the window): trl_nodes [Kt, TRL_NODE] f32, trl_links [Kt, 12] int32
     ((hit, miss) of orderings 0..5, as the reference's node lanes 6-17),
     trl_recs [n_slots, RECORD] f32.  vox [K]: the voxel leaves' global
     ids of a tree baked for voxel LOD, -1 elsewhere."""
+    window = k4_window(window)
     order = np.asarray(bvh["prim_order"], np.int64)
     bmin, bmax, hit, miss, start, count, keep = treelet_cut(
-        bvh, None if vox is None else np.asarray(vox) >= 0)
+        bvh, None if vox is None else np.asarray(vox) >= 0, window)
     links = directional_links((bmin + bmax) * np.float32(0.5), hit, miss, start)
-    row_start, slot_of_prim, n_rows = align_rows(start, count, order.shape[0])
+    row_start, slot_of_prim, n_rows = align_rows(start, count, order.shape[0], window)
     placed = slot_of_prim >= 0
     Kt = hit.shape[0]
     nodes = np.zeros((Kt, TRL_NODE), np.float32)
@@ -133,7 +136,7 @@ def build_trl_layout(bvh, tri_v0, tri_e1, tri_e2, sph_center, sph_radius,
         "trl_links": np.ascontiguousarray(links.transpose(1, 0, 2).reshape(Kt, 2 * ORDERINGS)),
         "trl_recs": slot_records(order[placed], tri_v0, tri_e1, tri_e2, sph_center, sph_radius,
                                  num_tris, slot_of_prim[placed], n_rows * PACK),
-        "trl_window": WINDOW,
+        "trl_window": window,
     }
 
 

@@ -23,6 +23,15 @@ policy, `with_plk_layout` K3's, for `traverse(impl="plk")`, and
 built for K3 or K4.  On a voxel-LOD scene (accel/voxel.py) each builds
 its layout from the tree baked at the scene's `lod_bake_depth`.
 
+The drain window (the most slots a fat leaf holds) defaults to
+ops/plk_layout.py's WINDOW (ATEN_TRL_WINDOW, read once at import).  As in
+the reference (traverse_pallas.py:681, :2136), the build runs K3 and K4
+only at that window, and K3 only where it is a power of two; a scene
+whose window K3 does not take runs K1, whose walk of the uncut tree
+gives the hits of the reference's drain at any window (its MT path).
+`with_trl_layout(window=)` and `with_plk_layout(window=)` attach a
+layout of another window, which the kernels run at that window.
+
 Instanced objects (`create_object`, `add_instance`, `obj=` on the
 geometry adds) build the two-level pool of accel/tlas.py, with the K5
 kernel's packed records of it (ops/tlas_layout.py, `tl_nodes`,
@@ -131,8 +140,10 @@ def kernel_layouts(bvh, geo, num_tris, vox=None):
     """(arrays, statics) of the one layout the kernel policy
     (accel/traverse.py::KERNEL) runs on a single-level scene with the
     threaded BVH `bvh` and geometry `geo` (numpy): K4's under "smt" on
-    the treelet branch, K3's where `uses_plk` picks it, else K1's
-    records.  vox: the voxel ids of a tree baked for voxel LOD."""
+    the treelet branch, K3's where `uses_plk` picks it and the default
+    window is one K3 takes, else K1's records; the treelet layouts at
+    the default window.  vox: the voxel ids of a tree baked for voxel
+    LOD."""
     tv0, te1, te2 = geo["tri_v0"], geo["tri_e1"], geo["tri_e2"]
     sc, sr = geo["sph_center"], geo["sph_radius"]
     n_nodes, n_prims = bvh["nodes_hit"].shape[0], bvh["prim_order"].shape[0]
@@ -141,7 +152,8 @@ def kernel_layouts(bvh, geo, num_tris, vox=None):
         lay = trl_layout.build_trl_layout(bvh, tv0, te1, te2, sc, sr, num_tris, vox=vox)
         return ({k: lay[k] for k in trl_layout.ARRAY_KEYS},
                 {"traversal": "smt", "trl_window": lay["trl_window"]})
-    if treelet and traverse.KERNEL in ("v3", "plk"):
+    if treelet and traverse.KERNEL in ("v3", "plk") and plk_layout.is_k3_window(
+            plk_layout.WINDOW):
         lay = plk_layout.build_plk_layout(bvh, tv0, te1, te2, num_tris, vox=vox)
         if plk_layout.uses_plk(n_nodes, n_prims, lay, traverse.KERNEL):
             return ({k: lay[k] for k in plk_layout.ARRAY_KEYS},
@@ -149,30 +161,32 @@ def kernel_layouts(bvh, geo, num_tris, vox=None):
     return bvh_layout.build_bvh_layout(bvh, tv0, te1, te2, sc, sr, num_tris, vox=vox), {}
 
 
-def with_trl_layout(scene: Scene) -> Scene:
+def with_trl_layout(scene: Scene, window=plk_layout.WINDOW) -> Scene:
     """`scene`, a built single-level scene, with the K4 layout of its own
-    BVH (of a voxel-LOD scene: its baked tree) attached (the `trl_*`
-    arrays and the static `trl_window`) and its `traversal` left as it
-    was: for `traverse(impl="smt")` under a kernel policy whose build
-    did not attach the layout."""
+    BVH (of a voxel-LOD scene: its baked tree) at drain window `window`
+    attached (the `trl_*` arrays and the static `trl_window`) and its
+    `traversal` left as it was: for `traverse(impl="smt")` under a
+    kernel policy whose build did not attach the layout, or at another
+    window."""
     tree, g, vox = _layout_tree(scene, "the K4 layout")
     lay = trl_layout.build_trl_layout(tree, g["tri_v0"], g["tri_e1"], g["tri_e2"],
                                       g["sph_center"], g["sph_radius"], scene["num_tris"],
-                                      vox=vox)
+                                      vox=vox, window=window)
     arrays = {**scene.arrays,
               **to_tensors({k: lay[k] for k in trl_layout.ARRAY_KEYS}, scene.device)}
     return Scene(arrays, {**scene.static, "trl_window": lay["trl_window"]}, scene.device)
 
 
-def with_plk_layout(scene: Scene) -> Scene:
+def with_plk_layout(scene: Scene, window=plk_layout.WINDOW) -> Scene:
     """`scene`, a built single-level triangle-only scene, with the K3
-    layout of its own BVH (of a voxel-LOD scene: its baked tree)
-    attached (the `plk_*` arrays and the static `plk_window`) and its
-    `traversal` left as it was: for `traverse(impl="plk")` on a scene
-    whose build chose another kernel."""
+    layout of its own BVH (of a voxel-LOD scene: its baked tree) at drain
+    window `window` attached (the `plk_*` arrays and the static
+    `plk_window`) and its `traversal` left as it was: for
+    `traverse(impl="plk")` on a scene whose build chose another kernel,
+    or at another window."""
     tree, g, vox = _layout_tree(scene, "the K3 layout")
     lay = plk_layout.build_plk_layout(tree, g["tri_v0"], g["tri_e1"], g["tri_e2"],
-                                      scene["num_tris"], vox=vox)
+                                      scene["num_tris"], vox=vox, window=window)
     if lay is None:
         raise ValueError("the K3 layout: the scene has spheres, and the Plücker test "
                          "is for triangles only")

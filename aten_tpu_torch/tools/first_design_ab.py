@@ -1,6 +1,6 @@
 """Traversal kernels against their first design, in turns on one card.
 
-    python3 -m aten_tpu_torch.tools.first_design_ab DIR [k1k3|k5k4]
+    python3 -m aten_tpu_torch.tools.first_design_ab DIR [k1k3|k5k4|l1]
 
 Run from the root of a checkout on a machine with one CUDA card.  DIR
 holds a checkout whose kernels are the first design of the group named
@@ -24,6 +24,13 @@ any-hit, on 4,194,304 rays made as chip_smoke.py makes them:
   (`aten_smt_traverse` without a ray counter).  K5 on the 19-instance
   fixture (phase 5's rays), K4 at C = 1, 2, 4 and 8 on the 102,404-prim
   and the 512,004-prim scenes (phase 9's rays: phases 2 and 7).
+* l1: the treelet-walk lab L1 (kernels/kernel_lab.cu), whose first
+  design walks every tile, plk's too, with one 1024-thread block: each
+  variant that phase 11 of chip_smoke.py runs, on its 1,048,576 primary
+  rays of the 102,404-prim scene (tools/kernel_lab.py's `lab_rays`), in
+  L1_ROUNDS rounds of turns.  Only plk was redesigned (four rays a
+  thread, its blocks double-buffered); the other variants kept their
+  first design, and their ratios show the spread of the timing.
 
 The last line is one JSON object of the times.
 """
@@ -52,7 +59,13 @@ TLAS_ARRAYS = ("tl_bmin", "tl_bmax", "tl_hit", "tl_miss", "tl_ps", "tl_pc", "tl_
                "tl_prim_order", "inst_w2l", "tri_v0", "tri_e1", "tri_e2", "sph_center",
                "sph_radius")
 TRL_ARRAYS = ("trl_nodes", "trl_links", "trl_recs")
-GROUPS = ("k1k3", "k5k4")
+# the first design of L1 (kernel_lab.cu; launch_lab.cu holds the labs'
+# error strings), and the variants phase 11 runs
+LAB_SOURCES = ("kernel_lab.cu", "launch_lab.cu")
+LAB_VARIANTS = ("nodes", "nodir", "leafu", "wide8", "wide16", "wide8_nc", "wide16_nc",
+                "spec8", "spec16", "plk")
+GROUPS = ("k1k3", "k5k4", "l1")
+L1_ROUNDS = 5
 SEED = 20261016
 N_RAYS = 512 * 512 * 16
 
@@ -66,17 +79,21 @@ def load_first_design(path, group):
     from aten_tpu_torch.ops.traverse_cuda import CUDA_FLAGS
 
     kdir = os.path.join(os.path.abspath(path), "aten_tpu_torch", "kernels")
-    build_dir = os.path.join(native.BUILD_DIR, "first_design")
+    build_dir = os.path.join(native.BUILD_DIR, f"first_design_{group}")
     os.makedirs(build_dir, exist_ok=True)
-    so = load(name="aten_tpu_torch_bvh_first_design",
-              sources=[os.path.join(kdir, f) for f in SOURCES],
+    so = load(name=f"aten_tpu_torch_first_design_{group}",
+              sources=[os.path.join(kdir, f) for f in (LAB_SOURCES if group == "l1" else SOURCES)],
               build_directory=build_dir, extra_cflags=["-O3"],
               extra_cuda_cflags=list(CUDA_FLAGS), extra_include_paths=[kdir],
               is_python_module=False, verbose=False)
     lib = ctypes.CDLL(so)
     vp, i32 = ctypes.c_void_p, ctypes.c_int32
     tail = [ctypes.c_int64, ctypes.c_float, i32]
-    if group == "k1k3":
+    if group == "l1":
+        lib.aten_kernel_lab.restype = ctypes.c_int
+        lib.aten_kernel_lab.argtypes = [i32] * 4 + [vp] * 6 + [ctypes.c_int64] + [vp] * 5 + [
+            ctypes.c_int64, vp]
+    elif group == "k1k3":
         lib.aten_bvh_traverse.restype = ctypes.c_int
         lib.aten_bvh_traverse.argtypes = [vp] * len(BVH_ARRAYS) + [i32] + [vp] * 7 + tail + [vp]
         lib.aten_plk_traverse.restype = ctypes.c_int
@@ -130,20 +147,25 @@ def first_design_run(lib, kernel, scene, ro, rd, t0, any_hit, t_min, chains=None
     return out
 
 
-def ab_times(name, card, old_fn, new_fn, cuda_ms, reps=10):
+def ab_times(name, card, old_fn, new_fn, cuda_ms, reps=10, rounds=1):
     """Device ms of old_fn and new_fn in turns (old, new, new, old) on the
-    same inputs, after checking that their outputs are bitwise equal:
-    (old ms, new ms), each the mean of its two turns."""
+    same inputs, `rounds` times, after checking that their outputs are
+    bitwise equal: (old ms, new ms, [old / new of each round]), each time
+    the mean of its turns."""
     a, b = old_fn(), new_fn()
     same = all(torch.equal(x, y) for x, y in zip(a, b))
-    turns = [cuda_ms(f, reps) for f in (old_fn, new_fn, new_fn, old_fn)]
-    old, new = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-    print(f"{name} in turns (old, new, new, old): {turns[0]:.3f}, {turns[1]:.3f}, "
-          f"{turns[2]:.3f}, {turns[3]:.3f} ms; old {old:.3f} ms, new {new:.3f} ms "
-          f"({old / new:.2f}x); outputs bitwise equal {same} [{card}]", flush=True)
+    olds, news = [], []
+    for _ in range(rounds):
+        turns = [cuda_ms(f, reps) for f in (old_fn, new_fn, new_fn, old_fn)]
+        olds.append((turns[0] + turns[3]) / 2)
+        news.append((turns[1] + turns[2]) / 2)
+        print(f"{name} in turns (old, new, new, old): {turns[0]:.3f}, {turns[1]:.3f}, "
+              f"{turns[2]:.3f}, {turns[3]:.3f} ms; old {olds[-1]:.3f} ms, new {news[-1]:.3f} "
+              f"ms ({olds[-1] / news[-1]:.3f}x); outputs bitwise equal {same} [{card}]",
+              flush=True)
     if not same:
         raise AssertionError(f"{name}: the two designs' outputs differ")
-    return old, new
+    return sum(olds) / rounds, sum(news) / rounds, [o / n for o, n in zip(olds, news)]
 
 
 def _ray_sets(smoke, rng, dev, cases):
@@ -178,7 +200,7 @@ def _ab_k1k3(lib, smoke, card, rng, dev):
         kernel = "k3" if name.startswith("K3") else "k1"
         walk = traverse_cuda.bvh_traverse if kernel == "k1" else plk_cuda.plk_traverse
         for kind, t0k, any_hit, t_min in _kinds(dist):
-            old, cur = ab_times(
+            old, cur, _ = ab_times(
                 f"{name} {kind}-hit, {N_RAYS} rays", card,
                 lambda: first_design_run(lib, kernel, scene, ro, rd, t0k, any_hit, t_min),
                 lambda: walk(scene, ro, rd, t0k, any_hit=any_hit, t_min=t_min), smoke.cuda_ms)
@@ -202,7 +224,7 @@ def _ab_k5k4(lib, smoke, card, rng, dev):
     for name, scene, ro, rd, dist in _ray_sets(smoke, rng, dev, cases):
         if name.startswith("K5"):
             for kind, t0k, any_hit, t_min in _kinds(dist):
-                old, cur = ab_times(
+                old, cur, _ = ab_times(
                     f"{name} {kind}-hit, {N_RAYS} rays", card,
                     lambda: first_design_run(lib, "k5", scene, ro, rd, t0k, any_hit, t_min),
                     lambda: tlas_cuda.tlas_traverse(scene, ro, rd, t0k, any_hit=any_hit,
@@ -212,13 +234,50 @@ def _ab_k5k4(lib, smoke, card, rng, dev):
         trl = with_trl_layout(scene)  # as phase 9 attaches it
         for kind, t0k, any_hit, t_min in _kinds(dist):
             for c in smt_cuda.CHAIN_COUNTS:
-                old, cur = ab_times(
+                old, cur, _ = ab_times(
                     f"{name} {kind}-hit C={c}, {N_RAYS} rays", card,
                     lambda: first_design_run(lib, "k4", trl, ro, rd, t0k, any_hit, t_min, c),
                     lambda: smt_cuda.smt_traverse(trl, ro, rd, t0k, any_hit=any_hit,
                                                   t_min=t_min, chains=c), smoke.cuda_ms)
                 results[f"{name} {kind} C={c}"] = {"first_design_ms": old, "ms": cur}
         del trl
+    return results
+
+
+def first_design_lab(lib, tab, ro, rd, t0, v):
+    """One launch of the first design's L1 variant `v` (a Variant of
+    tools/kernel_lab.py) over the lab's tables: (t, prim)."""
+    from aten_tpu_torch.tools import kernel_lab as kl
+
+    n = ro.shape[0]
+    t = torch.empty_like(t0)
+    prim = torch.empty(n, dtype=torch.int32, device=ro.device)
+    rc = lib.aten_kernel_lab(
+        kl.KINDS.index(v.kind), v.tile_rows, int(v.leaf_cond), kl.drain_of(tab, v),
+        *(tab[k].data_ptr() for k, _, _ in kl._TABLES), tab["recs"].shape[0],
+        ro.data_ptr(), rd.data_ptr(), t0.data_ptr(), t.data_ptr(), prim.data_ptr(), n,
+        torch.cuda.current_stream(ro.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"the first design's kernel_lab {v.kernel} launch failed ({rc})")
+    return t, prim
+
+
+def _ab_l1(lib, smoke, card, rng, dev):
+    from aten_tpu_torch.scene.scene import with_trl_layout
+    from aten_tpu_torch.scene.scenedefs import procedural_mesh_scene
+    from aten_tpu_torch.tools import kernel_lab as kl
+
+    scene, cam = procedural_mesh_scene(1024, 1024, device=dev)
+    tab = kl.tables(with_trl_layout(scene))
+    ro, rd, t0 = kl.lab_rays(cam, 1024, dev)
+    results = {}
+    for name in LAB_VARIANTS:
+        v = kl.parse(name)
+        old, cur, ratios = ab_times(
+            f"L1 {name}, {ro.shape[0]} lab rays", card,
+            lambda: first_design_lab(lib, tab, ro, rd, t0, v),
+            lambda: kl.run(tab, ro, rd, t0, v), smoke.cuda_ms, rounds=L1_ROUNDS)
+        results[f"L1 {name}"] = {"first_design_ms": old, "ms": cur, "round_ratios": ratios}
     return results
 
 
@@ -249,9 +308,13 @@ def main(argv):
     dev = torch.device("cuda", 0)
     t = time.time()
     traverse_cuda.load_library()
+    if group == "l1":
+        from aten_tpu_torch.tools import lab_library
+
+        lab_library.load_library()
     lib = load_first_design(argv[1], group)
     print(f"built both designs in {time.time() - t:.1f} s", flush=True)
-    run = _ab_k1k3 if group == "k1k3" else _ab_k5k4
+    run = {"k1k3": _ab_k1k3, "k5k4": _ab_k5k4, "l1": _ab_l1}[group]
     results = run(lib, smoke, card, np.random.default_rng(SEED), dev)
     print(json.dumps({"card": card, "rays": N_RAYS, "group": group, "ab": results}), flush=True)
 

@@ -9,7 +9,8 @@ kernels (`make_nodes_kernel` :36, `make_leafu_kernel` :96,
 `tile_rows` x 128 rays with ONE node cursor, moved by a vote of the
 tile's rays, along the link set of ONE ordering, picked from the tile's
 summed direction.  The CUDA kernels are kernels/kernel_lab.cu: one block
-of 1024 threads per tile, each thread holding tile_rows / 8 rays.
+per tile, of 1024 threads holding tile_rows / 8 rays each (plk: 512
+threads holding four).
 
 Variants (the reference's names, parsed as its `main` parses them):
   v3        the port's production kernel for the scene, K1
@@ -24,7 +25,8 @@ Variants (the reference's names, parsed as its `main` parses them):
   wide<R>[_nc][_t<N>]
             the production walk with tiles of R x 128 rays: the leaf
             latched on one step is drained on the next, behind a branch,
-            or with _nc every step, masked; _t<N> drains N slots
+            or with _nc every step, masked; it drains the layout's
+            window of slots, or with _t<N> N slots (N >= the window)
   spec<R>   wide<R>, with both successor nodes loaded before the slab
             math (R defaults to 8)
   plk       Plücker drain, 16-row tiles: on entering a leaf its 8 KB
@@ -35,15 +37,18 @@ Variants (the reference's names, parsed as its `main` parses them):
 
 R is 8 or 16.  `noext` (named in the reference's docstring, but its
 `run` has no branch for it and silently runs `leafu`) is refused, as is
-a drain window N under the layout's 64 slots: the reference's `_t32`
-read a window the layout does not have (ATEN_TRL_WINDOW is not ported,
-ROADMAP.md queue 1).
+a drain of N slots under the layout's own window (`trl_window`), which
+would skip slots of its leaves: the reference's `_t32` runs on a
+layout cut at a window of 32 (ATEN_TRL_WINDOW=32, or
+scene.scene.with_trl_layout(window=32)).
 
-The layout is the port's K4 layout (ops/trl_layout.py): node records
-[Kt, 8], links [Kt, 12], slot records [slots, 12].  `plk` adds the
-lab's own Plücker tables (`build_plucker_leaves`), whose den carries
-the lab's -n.v0 * m_x term (ROADMAP.md queue 3): it computes what the
-lab computes and is held against the lab, not against the oracle.
+The layout is the port's K4 layout (ops/trl_layout.py) at any window:
+node records [Kt, 8], links [Kt, 12], slot records [slots, 12].  `plk`
+adds the lab's own Plücker tables (`build_plucker_leaves`), blocks of
+PLK_SLOTS = 64 slots as the reference builds them, so it runs on
+layouts of a window up to 64; their den carries the lab's -n.v0 * m_x
+term (ROADMAP.md queue 3): it computes what the lab computes and is
+held against the lab, not against the oracle.
 
 `run_plain` computes every variant in torch, all live tiles a step at
 a time, in the kernels' operation order: the lab's safe inverse
@@ -61,10 +66,11 @@ import time
 import numpy as np
 import torch
 
-from aten_tpu_torch.ops.plk_layout import PACK, WINDOW
+from aten_tpu_torch.ops.plk_layout import PACK
 
 LANES = 128
 T_MIN = 1e-4
+PLK_SLOTS = 64  # slots of a Plücker block (kernels/kernel_lab.cu: kWindow)
 TILE_ROWS = (8, 16)
 VARIANTS = ("v3", "nodes", "nodir", "leafu", "wide<R>[_nc][_t<N>]", "spec<R>", "plk")
 KINDS = ("nodes", "nodir", "leafu", "wide", "spec", "plk")  # the kernels' order
@@ -89,7 +95,7 @@ class Variant:
     kind: str            # "v3" or one of KINDS
     tile_rows: int = 8
     leaf_cond: bool = True
-    drain_slots: int = WINDOW
+    drain_slots: int | None = None  # None: the layout's window
 
     @property
     def tile(self):
@@ -126,22 +132,33 @@ def parse(variant):
             raise bad
     except ValueError as e:
         raise bad from e
-    if v.tile_rows not in TILE_ROWS:
+    if v.tile_rows not in TILE_ROWS or v.drain_slots == 0:
         raise bad
-    if v.drain_slots < WINDOW:
-        raise ValueError(
-            f"{variant}: a drain of {v.drain_slots} slots skips slots of the layout's "
-            f"{WINDOW}-slot leaves; the reference's window setting ATEN_TRL_WINDOW is not "
-            "ported (ROADMAP.md queue 1)")
     return v
+
+
+def drain_of(tab, v):
+    """The slots `v` drains a leaf of the layout in `tab`: its own
+    `_t<N>`, or the layout's window.  Raises ValueError for a drain under
+    the layout's window, which would skip slots of its leaves."""
+    window = tab["window"]
+    if v.drain_slots is None:
+        return window
+    if v.drain_slots < window:
+        raise ValueError(
+            f"{v.kernel}: a drain of {v.drain_slots} slots skips slots of the layout's "
+            f"{window}-slot leaves; cut the layout at a window of at most {v.drain_slots} "
+            "(ATEN_TRL_WINDOW, or scene.scene.with_trl_layout(window=))")
+    return v.drain_slots
 
 
 # -- tables and rays ------------------------------------------------------------
 
 def build_plucker_leaves(layout):
     """The lab's Plücker tables (tools/kernel_lab.py:605-658) from the
-    K4 layout {"trl_nodes", "trl_recs"} (numpy): E [NT*8, 4*WINDOW] f32
-    (built in float64, stored as float32), pids [NT, WINDOW] i32 (-1 past
+    K4 layout {"trl_nodes", "trl_recs"} (numpy) of a window up to
+    PLK_SLOTS: E [NT*8, 4*PLK_SLOTS] f32 (built in float64, stored as
+    float32), pids [NT, PLK_SLOTS] i32 (-1 past
     a leaf's count) and the per-node treelet id [Kt] i32 (-1 off fat
     leaves), the fat leaves numbered in node order.  Per treelet and slot
     j, E's column groups hold the edge lines of v0->v1, v1->v2, v2->v0
@@ -156,9 +173,12 @@ def build_plucker_leaves(layout):
     c = count[tre_ids]
     k = np.repeat(np.arange(nt), c)
     j = np.arange(int(c.sum())) - np.repeat(np.cumsum(c) - c, c)
+    if c.size and int(c.max()) > PLK_SLOTS:
+        raise ValueError(f"a leaf of {int(c.max())} slots does not fit a {PLK_SLOTS}-slot "
+                         "Plücker block")
     r = recs[first[tre_ids][k] + j]
     v0, e1, e2 = (r[:, a:a + 3].astype(np.float64) for a in (0, 3, 6))
-    P = WINDOW
+    P = PLK_SLOTS
     E = np.zeros((nt, 8, 4 * P), np.float32)
     A, B, C = v0, v0 + e1, v0 + e2
     for g, (a, b) in enumerate(((A, B), (B, C), (C, A))):
@@ -180,9 +200,11 @@ def build_plucker_leaves(layout):
 def tables(scene):
     """The lab's tables on the scene's device: the K4 layout (`nodes`,
     `links`, `recs`; the scene must carry it, see
-    scene.scene.with_trl_layout), the Plücker tables (`emat`, `pids`,
-    `tre`) and the scene itself, which `v3` walks with K1 (its records
-    attached here where the scene's build chose another kernel)."""
+    scene.scene.with_trl_layout) and its `window`, the Plücker tables
+    (`emat`, `pids`, `tre`; with no treelet on a layout of a window
+    above PLK_SLOTS) and the scene itself, which `v3` walks with K1 (its
+    records attached here where the scene's build chose another
+    kernel)."""
     from aten_tpu_torch.scene.scene import with_bvh_layout
 
     if "trl_nodes" not in scene:
@@ -190,13 +212,19 @@ def tables(scene):
                          "(scene.scene.with_trl_layout)")
     if "bvh_nodes" not in scene:
         scene = with_bvh_layout(scene)
+    window = int(scene["trl_window"])
     host = {k: scene[k].cpu().numpy() for k in ("trl_nodes", "trl_recs")}
-    E, pids, tre = build_plucker_leaves(host)
+    if window <= PLK_SLOTS:
+        E, pids, tre = build_plucker_leaves(host)
+    else:
+        E = np.zeros((0, 4 * PLK_SLOTS), np.float32)
+        pids = np.zeros((0, PLK_SLOTS), np.int32)
+        tre = np.full(host["trl_nodes"].shape[0], -1, np.int32)
     dev = scene["trl_nodes"].device
     return {"nodes": scene["trl_nodes"], "links": scene["trl_links"],
             "recs": scene["trl_recs"], "emat": torch.from_numpy(E).to(dev),
             "pids": torch.from_numpy(pids).to(dev), "tre": torch.from_numpy(tre).to(dev),
-            "scene": scene}
+            "window": window, "scene": scene}
 
 
 def lab_order(res):
@@ -247,6 +275,10 @@ def _check(tab, ro, rd, t0, v):
             raise ValueError(f"table {k} is on {tab[k].device}, the rays on {dev}")
     if v.kind != "v3" and n % v.tile:
         raise ValueError(f"{n} rays are not whole tiles of {v.tile}")
+    if v.kind == "plk" and tab["window"] > PLK_SLOTS:
+        raise ValueError(f"plk: the layout's window {tab['window']} does not fit its "
+                         f"{PLK_SLOTS}-slot blocks")
+    return drain_of(tab, v)
 
 
 def tile_ordering(rd):
@@ -317,7 +349,7 @@ def plk_products(eb, o, d):
     sum over the block's rows in row order, as the kernel takes it.  R6
     rows are rd, ro x rd, 0, 0 and R4 rows ro, 1, 0, 0, 0, 0: the rows
     whose ray factor is zero are left out (they add +-0)."""
-    P = WINDOW
+    P = PLK_SLOTS
     ox, oy, oz = (o[:, None, :, a] for a in range(3))
     dx, dy, dz = (d[:, None, :, a] for a in range(3))
     mx, my, mz = oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx
@@ -332,7 +364,7 @@ def plk_products(eb, o, d):
 def _drain_plk(e3, pids, pend, o, d, t, prim):
     """The lab's Plücker drain (tools/kernel_lab.py:696-725) of treelets
     pend [n] for each tile's rays; returns the updated (t, prim)."""
-    P = WINDOW
+    P = PLK_SLOTS
     t, prim = t.clone(), prim.clone()
     for c in _chunks(pend.shape[0], 4 * P * t.shape[1]):
         S, NUM = plk_products(e3[pend[c]], o[c], d[c])
@@ -359,7 +391,7 @@ def run_plain(tab, ro, rd, t0, variant, tiles=None, stats=False):
     from aten_tpu_torch.accel.traverse import _plk_safe_inv, _traverse_plain
 
     v = variant if isinstance(variant, Variant) else parse(variant)
-    _check(tab, ro, rd, t0, v)
+    drain = _check(tab, ro, rd, t0, v)
     if v.kind == "v3":
         h = _traverse_plain(tab["scene"], ro, rd, t0, False, T_MIN)
         return (h["t"], h["prim"]) + (({},) if stats else ())
@@ -376,13 +408,13 @@ def run_plain(tab, ro, rd, t0, variant, tiles=None, stats=False):
     lo = torch.zeros(g, dtype=torch.long, device=dev) if v.kind == "nodir" else 2 * tile_ordering(d)
     nodes, nodes_i = tab["nodes"], tab["nodes"].view(torch.int32)
     links = tab["links"].long()
-    e3 = tab["emat"].view(-1, 8, 4 * WINDOW)
+    e3 = tab["emat"].view(-1, 8, 4 * PLK_SLOTS)
     idx = torch.arange(g, device=dev)
     cur = torch.zeros(g, dtype=torch.long, device=dev)
     pa = torch.full((g,), -1, dtype=torch.long, device=dev)  # leaf: first slot / treelet
     pb = torch.zeros(g, dtype=torch.long, device=dev)        # leaf: slots (left)
     work = torch.zeros(3, dtype=torch.int64, device=dev)
-    ar = torch.arange(max(v.drain_slots, PACK), device=dev)
+    ar = torch.arange(max(drain, PACK), device=dev)
     while idx.numel():
         cc = cur.clamp(min=0)
         nd, ndi = nodes[cc], nodes_i[cc]
@@ -488,8 +520,8 @@ def ray_walk_steps(tab, ro, rd, t0, directional=True):
 
 # (table, dtype, trailing shape) of what the kernels read
 _TABLES = (("nodes", torch.float32, (8,)), ("links", torch.int32, (12,)),
-           ("recs", torch.float32, (12,)), ("emat", torch.float32, (4 * WINDOW,)),
-           ("pids", torch.int32, (WINDOW,)), ("tre", torch.int32, ()))
+           ("recs", torch.float32, (12,)), ("emat", torch.float32, (4 * PLK_SLOTS,)),
+           ("pids", torch.int32, (PLK_SLOTS,)), ("tre", torch.int32, ()))
 
 
 def run(tab, ro, rd, t0, variant):
@@ -498,7 +530,7 @@ def run(tab, ro, rd, t0, variant):
     tensors it runs `run_plain`; on a CUDA tensor it launches the kernel
     (`v3`: K1, ops/traverse_cuda.py) or raises."""
     v = variant if isinstance(variant, Variant) else parse(variant)
-    _check(tab, ro, rd, t0, v)
+    drain = _check(tab, ro, rd, t0, v)
     if ro.device.type == "cpu":
         return run_plain(tab, ro, rd, t0, v)
     if ro.device.type != "cuda":
@@ -522,7 +554,7 @@ def run(tab, ro, rd, t0, variant):
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
         rc = lib.aten_kernel_lab(
-            KINDS.index(v.kind), v.tile_rows, int(v.leaf_cond), v.drain_slots,
+            KINDS.index(v.kind), v.tile_rows, int(v.leaf_cond), drain,
             *(tab[k].data_ptr() for k, _, _ in _TABLES), tab["recs"].shape[0],
             ro.data_ptr(), rd.data_ptr(), t0.data_ptr(), t.data_ptr(), prim.data_ptr(), n, stream)
     check(lib, rc, f"kernel_lab {v.kernel}")

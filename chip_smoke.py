@@ -47,14 +47,23 @@ LOD oracle walk on 4,194,304 camera and bounce rays each, timed in turns
 beside their non-LOD instantiations, and the three LOD scenes (the
 102,404-prim mesh at lod_depth 9 and 15, the 512,004-prim mesh at 18)
 rendered at 512x512 x 16 spp through them, each against the oracle
-walk's render.  Phase 15 holds the kStats instantiations of K1 and K3
+walk's render at 256x256, depth 3.  Phase 15 holds the kStats instantiations of K1 and K3
 (per-ray work counts) bitwise against their plain instantiations' hits
 and their plain versions' counts on 4,194,304 camera and bounce rays,
 timed in turns with them, runs the traversal-stats tool
 (python -m aten_tpu_torch.tools.trav_stats) on its scenes, and renders
 the alpha and stencil fixtures, the mesh scene through thin-lens and
 equirect cameras, and with the blue-noise sampler, through K1, each
-against the plain walk (the blue-noise render against the CPU).  Each
+against the plain walk (the blue-noise render against the CPU).  Phase
+16 runs K3 and K4 at drain windows 16, 32, 64 and 128 (ATEN_TRL_WINDOW's
+layouts, `with_plk_layout(window=)`, `with_trl_layout(window=)`), each
+bitwise its plain version and against the oracle walk (their lod
+variants in phase 14), timed in turns against window 64, and the
+512,004-prim mesh rendered through K3 at the fastest other window
+against the window-64 render; the lab's wide8_t32 on a window-32 layout; and the first-hit
+AOV G-buffer (render_sample_with_aovs) at 512x512 x 1 spp through K1,
+its radiance bitwise render_sample's, its AOVs bitwise the plain
+walk's at 128x128.  Each
 main-path render and step is profiled, with its ten costliest device
 ops and each traversal kernel's summed device time. It prints the
 measured times and each kernel's bound (the least time the card could
@@ -133,6 +142,13 @@ UV_TOL = 1e-5
 
 def log(*a):
     print(*a, flush=True)
+
+
+def phase_clock(phase, since):
+    """Log phase `phase`'s seconds since `since`; the next phase's start."""
+    now = time.time()
+    log(f"phase {phase} took {now - since:.1f} s")
+    return now
 
 
 def card_line():
@@ -337,6 +353,11 @@ def read_counts():
             **plk_cuda.launch_counts, **smt_cuda.launch_counts}
 
 
+def nonzero(counts):
+    """The launch counts that are not 0."""
+    return {k: v for k, v in counts.items() if v}
+
+
 def plk_plain(scene, ro, rd, t_max=None, any_hit=False, t_min=1e-4):
     """The Plücker kernel's plain version, with the u/v step of
     traverse(impl="plk_plain") and the work these rays need: (hits,
@@ -354,7 +375,7 @@ def plk_plain(scene, ro, rd, t_max=None, any_hit=False, t_min=1e-4):
     return {**h, "u": u, "v": v, "hit": h["prim"] >= 0}, st
 
 
-def compare_plk(name, scene, ro, rd, t_max):
+def compare_plk(name, scene, ro, rd, t_max, oracle=None):
     """The Plücker kernel against its plain version, which it must equal
     bit for bit (t, prim, u, v; any-hit t and prim), and against the
     oracle walk at the parity bounds, with t and verdicts held to the
@@ -369,18 +390,22 @@ def compare_plk(name, scene, ro, rd, t_max):
     where the exact t does not.  Returns the largest difference to the
     plain version, its work counts and the oracle walk's (the least work
     of the query), the plain version's device ms (one run) and the
-    oracle walk's hits, per kind."""
+    oracle walk's (hits, work), per kind.  `oracle`: those of an earlier
+    call on the same rays, which this call then takes."""
     import numpy as np
     import torch
 
     from aten_tpu_torch.accel.traverse import traverse
 
-    work, oracle_work, plain_ms, oracle, err = {}, {}, {}, {}, 0.0
+    work, oracle_work, plain_ms, err = {}, {}, {}, 0.0
+    oracle = {} if oracle is None else oracle
     for kind, kw in (("closest", {}),
                      ("any", {"t_max": t_max, "any_hit": True, "t_min": 1e-3})):
         hk = traverse(scene, ro, rd, impl="plk", **kw)
         (hp, work[kind]), plain_ms[kind] = timed_ms(lambda: plk_plain(scene, ro, rd, **kw))
-        ho, oracle_work[kind] = oracle[kind] = plain_walk(scene, ro, rd, **kw)
+        if kind not in oracle:
+            oracle[kind] = plain_walk(scene, ro, rd, **kw)
+        ho, oracle_work[kind] = oracle[kind]
         exact = all(torch.equal(hk[k], hp[k]) for k in ("t", "prim", "u", "v", "hit"))
         err = max(err, *(float((hk[k] - hp[k]).abs().max()) for k in ("t", "u", "v")))
         pk, po = hk["prim"].cpu().numpy(), ho["prim"].cpu().numpy()
@@ -417,13 +442,15 @@ def profile_render(fn):
     kernels' ms, the ten device ops with the most time as (name, ms),
     {traversal kernel: ms}), busy being the summed time of the events on
     the card (kernels, copies, fills; one stream, so they do not
-    overlap)."""
+    overlap).  Only the card's activity is recorded: recording the host's
+    ops too slowed the host-bound renders it profiles and took seconds to
+    summarise."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.time()
         fn()
         torch.cuda.synchronize()
@@ -483,12 +510,12 @@ def render_rays(scene, cam, **kw):
 
 
 def log_render_work(phase, scene, cam, walks, phase_work, n_phase):
-    """Work per ray of one 128x128, 2 spp, depth-5 render's rays under the
+    """Work per ray of one 128x128, 2 spp, depth-3 render's rays under the
     plain walks `walks` ({name: fn(scene, ro, rd, t0, any_hit, t_min,
     stats=True)}), per kind (closest, any), beside `phase_work` ({name:
     {kind: counts}}) of the phase's own n_phase rays."""
     small = dataclasses.replace(cam, width=128, height=128)
-    calls = render_rays(scene, small, spp=2, max_depth=5, rr_depth=3)
+    calls = render_rays(scene, small, spp=2, max_depth=3, rr_depth=2)
     for name, walk in walks.items():
         for kind in ("closest", "any"):
             tot, live = {}, 0
@@ -502,7 +529,7 @@ def log_render_work(phase, scene, cam, walks, phase_work, n_phase):
             per = ", ".join(f"{k} {v / max(live, 1):.2f}" for k, v in tot.items())
             ref = phase_work[name][kind]
             per_ph = ", ".join(f"{k} {v / n_phase:.2f}" for k, v in ref.items())
-            log(f"{phase} render rays ({kind}-hit, {live} live rays of 128x128 2spp depth 5), "
+            log(f"{phase} render rays ({kind}-hit, {live} live rays of 128x128 2spp depth 3), "
                 f"{name} walk per ray: {per}; on the phase's own rays: {per_ph}")
 
 
@@ -608,6 +635,14 @@ def compare_smt(name, scene, ro, rd, t_max, oracle):
     return err, work, oracle_work, plain_ms
 
 
+# phase 1's second process: the labs' library, built beside the traversal one
+LAB_BUILD = """
+import sys
+sys.path.insert(0, {root!r})
+from aten_tpu_torch.tools import lab_library
+lab_library.load_library(verbose=True)
+"""
+
 CHILD_SMT = """
 import json, sys
 sys.path.insert(0, {root!r})
@@ -652,14 +687,16 @@ def lab_phase(card, scene, cam, dev):
     from aten_tpu_torch.tools import kernel_lab as kl
 
     t11 = time.time()
+    tab = kl.tables(scene)
+    # `noext` is no variant; `wide16_t32` would skip slots of the layout's
+    # 64-slot leaves (phase 16b runs it on a window-32 layout)
     for bad in ("noext", "wide16_t32"):
         try:
-            kl.parse(bad)
+            kl.drain_of(tab, kl.parse(bad))
         except ValueError as e:
             log(f"phase 11 {bad!r} refused: {e}")
         else:
             raise AssertionError(f"kernel_lab accepted {bad!r}")
-    tab = kl.tables(scene)
     ro, rd, t0 = kl.lab_rays(dataclasses.replace(cam, width=1024, height=1024), 1024, dev)
     n = ro.shape[0]
     assert n == 1 << 20
@@ -803,13 +840,14 @@ def lod_kernel(label, scene, ro, rd, t0, any_hit, t_min, chains=None):
     return {"t": t, "prim": prim, "u": u, "v": v, "hit": prim >= 0}
 
 
-def compare_lod(name, label, scene, ro, rd, dist):
+def compare_lod(name, label, scene, ro, rd, dist, oracle=None):
     """LOD kernel `label` (K4 at every chain count) against one run of its
     plain version, which it must equal bit for bit (closest-hit: t, prim,
     u, v; any-hit: K1's verdicts, as the plain walk keeps testing a leaf
     after its first hit, K3's and K4's t and prim), and against the LOD
     oracle walk (_traverse_plain on the scene's own tree at its
-    lod_depth): prim agreement >= PRIM_AGREE, and of those with t off by
+    lod_depth; `oracle` caches its (hits, work) per kind across calls on
+    the same scene and rays): prim agreement >= PRIM_AGREE, and of those with t off by
     more than T_TOL counted against it (K3's truncated t); any-hit
     verdicts >= PRIM_AGREE.  Returns the largest difference to the plain
     version, the plain version's and the oracle's work and the plain
@@ -826,8 +864,11 @@ def compare_lod(name, label, scene, ro, rd, dist):
         t0 = _t0_of(tmax, ro.shape[0], ro.device)
         (hp, work[kind]), plain_ms[kind] = timed_ms(
             lambda: lod_plain(label, scene, ro, rd, t0, any_hit, t_min))
-        ho, oracle_work[kind] = plain_walk(scene, ro, rd, t_max=tmax, any_hit=any_hit,
-                                           t_min=t_min)
+        if oracle is None or kind not in oracle:
+            walked = plain_walk(scene, ro, rd, t_max=tmax, any_hit=any_hit, t_min=t_min)
+            if oracle is not None:
+                oracle[kind] = walked
+        ho, oracle_work[kind] = walked if oracle is None else oracle[kind]
         keys = (("hit",) if label == "K1-lod" else ("t", "prim")) if any_hit else \
             ("t", "prim", "u", "v")
         for c in (CHAIN_COUNTS if label == "K4-lod" else (None,)):
@@ -880,12 +921,14 @@ def lod_phase(card, dev):
     plain version and the LOD oracle walk on 4,194,304 rays (2,097,152
     jittered camera rays, the rest bounce rays off their first hits),
     timed beside its non-LOD instantiation on the same rays and beside
-    its bound; then the three 512x512 x 16 spp renders, depth 5, RR 3:
+    its bound, and on the 102k at 15 K3-lod and K4-lod (every C) at drain
+    windows 16, 32 and 128 the same way, untimed; then the three 512x512
+    x 16 spp renders, depth 5, RR 3:
     the 102k at 9 through K1-lod (the main path), the 512k at 18 through
     K3-lod, the 102k at 15 through K4-lod (the K4 layout attached and
     traverse's impl="smt", the kernel and layout of a build under
     ATEN_TPU_KERNEL=smt), each profiled and held to the oracle walk's
-    render.  Returns the kernels' JSON entries."""
+    render at 256x256, depth 3.  Returns the kernels' JSON entries."""
     import numpy as np
     import torch
 
@@ -893,7 +936,7 @@ def lod_phase(card, dev):
     from aten_tpu_torch.accel.voxel import enable_voxel_lod
     from aten_tpu_torch.integrator.pathtracer import render_image
     from aten_tpu_torch.ops import plk_cuda, plk_layout, smt_cuda, traverse_cuda
-    from aten_tpu_torch.scene.scene import with_trl_layout
+    from aten_tpu_torch.scene.scene import with_plk_layout, with_trl_layout
     from aten_tpu_torch.scene.scenedefs import large_mesh_scene, procedural_mesh_scene
 
     t14 = time.time()
@@ -933,7 +976,20 @@ def lod_phase(card, dev):
         ro, rd = torch.cat([cro, bro]), torch.cat([crd, brd])
         dist = torch.tensor(rng.uniform(0.0, 20.0, n_main), dtype=torch.float32, device=dev)
         del cro, crd, bro, brd
-        err, work, owork, plain_ms = compare_lod(f"phase 14 {name}", label, scene, ro, rd, dist)
+        oracle = {}
+        err, work, owork, plain_ms = compare_lod(f"phase 14 {name}", label, scene, ro, rd, dist,
+                                                 oracle)
+        if label == "K4-lod":
+            # the lod variants of K3 and K4 at the other drain windows, on
+            # the same rays and the same LOD oracle walk (phase 16 times the
+            # windows)
+            t = time.time()
+            for w in (16, 32, 128):
+                for wl, attach in (("K3-lod", with_plk_layout), ("K4-lod", with_trl_layout)):
+                    compare_lod(f"phase 14 {name} W={w}", wl, attach(scene, window=w), ro, rd,
+                                dist, oracle)
+            log(f"phase 14 {name}: the lod variants at windows 16, 32, 128 in "
+                f"{time.time() - t:.1f} s")
         times, bounds = {}, {}
         chains = trav_mod.CHAINS if label == "K4-lod" else None
         for kind, t0k, any_hit, t_min in (
@@ -978,12 +1034,18 @@ def lod_phase(card, dev):
             f"{img.mean():.5f} std {img.std():.5f} wall {wall * 1e3:.1f} ms, "
             f"{n_main / wall / 1e6:.3f} Mpaths/s [{card}]")
         log_profile(f"phase 14 {name}", card, profile_render(lambda: render_image(scene, c, **kw)))
+        # against the oracle walk at 256x256, depth 3: its host-bound walk
+        # takes a time set by its steps, not its rays (16-24 s a scene at
+        # 512x512, depth 5)
         t = time.time()
-        plain = render_image(scene, c, **{**kw, "impl": "plain"}).cpu().numpy()
-        log(f"phase 14 {name}: the LOD oracle walk's render took {time.time() - t:.1f} s")
-        check_image_bounds(f"phase 14 {name} {c.width}x{c.height} 16spp {label} vs the LOD "
-                           "oracle walk",
-                           img, plain)
+        half = dataclasses.replace(c, width=c.width // 2, height=c.height // 2)
+        kw3 = {**kw, "max_depth": 3}
+        ik = render_image(scene, half, **kw3).cpu().numpy()
+        plain = render_image(scene, half, **{**kw3, "impl": "plain"}).cpu().numpy()
+        log(f"phase 14 {name}: the kernels' and the LOD oracle walk's {half.width}x"
+            f"{half.height} depth-3 renders took {time.time() - t:.1f} s")
+        check_image_bounds(f"phase 14 {name} {half.width}x{half.height} 16spp depth 3 {label} "
+                           "vs the LOD oracle walk", ik, plain)
         entries += [
             {"name": k, "route": "cuda", "source": {"K1-lod": KERNEL_SOURCE,
                                                    "K3-lod": PLK_SOURCE,
@@ -1058,22 +1120,22 @@ def kernel_render(phase, card, scene, cam, names, **kw):
     return img
 
 
-def against_plain(phase, scene, cam, spp=4):
+def against_plain(phase, scene, cam, spp=2):
     """The scene through the kernels against the plain walk's render 128
-    pixels wide (the camera's aspect), spp samples, depth 3, RR 2 (the
-    plain walk is host-bound: depth 3 keeps phase 15 in its budget),
-    within the full-image bounds."""
+    pixels wide (the camera's aspect), spp samples, depth 2, RR 1 (the
+    plain walk is host-bound, its time set by its walks: depth 2 keeps
+    phase 15 in its budget), within the full-image bounds."""
     from aten_tpu_torch.integrator.pathtracer import render_image
 
     small = dataclasses.replace(cam, width=128, height=128 * cam.height // cam.width)
-    kw = {"spp": spp, "max_depth": 3, "rr_depth": 2}
+    kw = {"spp": spp, "max_depth": 2, "rr_depth": 1}
     t = time.time()
     ik = render_image(scene, small, **kw).cpu().numpy()
     ip = render_image(scene, small, impl="plain", **kw).cpu().numpy()
     size = f"{small.width}x{small.height} {spp}spp"
     log(f"{phase}: the kernels' and the plain walk's {size} renders took "
         f"{time.time() - t:.1f} s")
-    check_image_bounds(f"{phase} {size} depth 3, kernels vs the plain walk", ik, ip)
+    check_image_bounds(f"{phase} {size} depth 2, kernels vs the plain walk", ik, ip)
 
 
 def stats_phase(card, dev):
@@ -1090,10 +1152,10 @@ def stats_phase(card, dev):
     timed in turns on mesh@15's baked tree; 15c: alpha_mesh_scene
     and 15d: stencil_mesh_scene at 512x512 x 16 spp, depth 5, RR 3,
     through K1, timed with peak memory and profiled, each against the
-    plain walk's render at 128x128 x 4 spp, depth 3; 15e: the mesh scene
+    plain walk's render at 128x128 x 2 spp, depth 2; 15e: the mesh scene
     through a thin-lens camera focused on the knot (512x512 x 16 spp) and
     an equirect one (1024x512 x 8 spp), each against the plain walk at
-    128 pixels wide x 4 spp, depth 3, and render_sample(sampler="bluenoise",
+    128 pixels wide x 2 spp, depth 2, and render_sample(sampler="bluenoise",
     spp_chunk=16) at 512x512, with a 64x64 render on the card against
     the port on this machine's CPU.  Returns the kStats instantiations'
     JSON entries."""
@@ -1266,6 +1328,250 @@ def stats_phase(card, dev):
     return entries
 
 
+# Phase 16a's drain windows; 64, the default, is the yardstick
+WINDOWS16 = (16, 32, 64, 128)
+
+
+def window_phase(card, dev):
+    """Phase 16: drain windows other than 64 (ATEN_TRL_WINDOW), and the
+    first-hit AOV G-buffer.  16a: K3 at windows 16, 32, 64 and 128
+    (`with_plk_layout(window=)`) on 4,194,304 camera and bounce rays of
+    the 512,004-prim mesh, made as phase 15a makes them, and K4 at every
+    C on 2,097,152 camera and surface rays of the 102,404-prim mesh at the
+    same windows (`with_trl_layout(window=)`): each window but 64 (whose
+    instantiations phases 7, 9 and 14 hold) bitwise its plain version,
+    both kinds, and against the oracle walk
+    (prim agreement >= PRIM_AGREE, t within T_TOL); K3's kStats counts per
+    window; each timed in turns against window 64 on the same rays (the
+    lod variants at these windows: phase 14); then the large
+    mesh rendered at 512x512 x 16 spp through K3 at the fastest other
+    window, against the window-64 render within the full-image bounds.
+    16b: the L1 lab's wide8_t32 on a window-32 layout, bitwise its plain
+    version on 64 of its tiles.  16c: render_sample_with_aovs at
+    bench.py's shape (512x512, 1 spp, depth 5, RR 3) on the 102k mesh
+    through K1, its radiance bitwise render_sample's, its AOVs bitwise
+    the plain walk's at 128x128 (depth 1); wall, idle share and peak memory beside
+    render_sample's.  In the kernels line, a window instantiation's
+    `launches` is the best window's render's own count, and for the
+    windows no path runs, that of one pass of the rays with the counts
+    reset just before it.  Returns the kernels' JSON entries."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.accel.traverse import _t0_of
+    from aten_tpu_torch.integrator.pathtracer import (
+        render_image, render_sample, render_sample_with_aovs)
+    from aten_tpu_torch.ops import plk_cuda, smt_cuda, traverse_cuda
+    from aten_tpu_torch.scene.scene import with_plk_layout, with_trl_layout
+    from aten_tpu_torch.scene.scenedefs import large_mesh_scene, procedural_mesh_scene
+    from aten_tpu_torch.tools import kernel_lab as kl
+
+    t16 = time.time()
+    rng = np.random.default_rng(SEED + 16)
+    large, lcam = large_mesh_scene(512, 512, device=dev)
+    big, cam = procedural_mesh_scene(512, 512, device=dev)
+    n_main = lcam.width * lcam.height * 16
+    log(f"phase 16a: scenes built in {time.time() - t16:.1f} s")
+    entries, results = [], {}
+    # launches of one pass of the rays per (kernel, window, kind), the
+    # counts reset just before it (the best K3 window's: its render's)
+    one_pass = {}
+
+    def layout(fn, scene, w):
+        t = time.time()
+        out = scene if w == 64 else fn(scene, window=w)
+        torch.cuda.synchronize()
+        return out, time.time() - t
+
+    def turns_vs_64(fn64, fn):
+        """(window-64 ms, this window's ms), in turns 64, W, W, 64."""
+        tt = [cuda_ms(f, reps=10) for f in (fn64, fn, fn, fn64)]
+        return (tt[0] + tt[3]) / 2, (tt[1] + tt[2]) / 2
+
+    def kinds(dist):
+        return (("closest", _t0_of(None, dist.shape[0], dev), False, 1e-4),
+                ("any", dist, True, 1e-3))
+
+    # K3 on the 512k mesh
+    cro, crd = camera_rays(lcam, dev, jitter_rng=rng, subsamples=8)
+    bro, brd = bounce_rays(large, cro, crd, n_main - cro.shape[0], rng, "plk")
+    ro, rd = torch.cat([cro, bro]), torch.cat([crd, brd])
+    dist = torch.tensor(rng.uniform(0.0, 20.0, n_main), dtype=torch.float32, device=dev)
+    del cro, crd, bro, brd
+    oracle, pool = {}, array_bytes(large, BVH_ARRAYS)
+    k3 = {}
+    for w in WINDOWS16:
+        scene, secs = k3[w] = layout(with_plk_layout, large, w)
+        if w != 64:  # 64's instantiation: phases 7, 14 and 15a
+            err, work, owork, plain_ms, oracle = compare_plk(
+                f"phase 16a mesh512k K3 W={w}", scene, ro, rd, dist, oracle)
+        per = {}
+        for kind, t0k, any_hit, t_min in kinds(dist):
+            reset_counts()
+            hn = plk_cuda.plk_traverse(scene, ro, rd, t0k, any_hit=any_hit, t_min=t_min)
+            one_pass["K3", w, kind] = read_counts()[plk_cuda.kernel_names("", w)[int(any_hit)]]
+            out = plk_cuda.plk_traverse(scene, ro, rd, t0k, any_hit=any_hit, t_min=t_min,
+                                        stats=True)
+            assert all(torch.equal(a, b) for a, b in zip(out[:2], hn)), (w, kind)
+            per[kind] = ", ".join(f"{k} {float(v.double().mean()):.3f}" for k, v in
+                                  out[2].items())
+            if w == 64:
+                log(f"phase 16a {kind}-hit, {n_main} rays, mesh512k: K3 W=64 kStats per ray: "
+                    f"{per[kind]} (hits bitwise the plain instantiation's)")
+                continue
+            ms64, ms = turns_vs_64(
+                lambda: plk_cuda.plk_traverse(large, ro, rd, t0k, any_hit=any_hit, t_min=t_min),
+                lambda: plk_cuda.plk_traverse(scene, ro, rd, t0k, any_hit=any_hit, t_min=t_min))
+            b = bound(n_main, 8, pool, owork[kind])
+            results["K3", w, kind] = {"ms": ms, "ms64": ms64, "plain_ms": plain_ms[kind],
+                                      "bound": b, "err": err}
+            log(f"phase 16a timing {kind}-hit, {n_main} rays, mesh512k: K3 W={w} {ms:.3f} ms, "
+                f"W=64 {ms64:.3f} ms in turns ({ms / ms64:.3f}x); plain version "
+                f"{plain_ms[kind]:.1f} ms; bound (the oracle walk's work) {b[0]:.4f} ms by "
+                f"{b[1]}, {ms / b[0]:.1f}x; kStats per ray: {per[kind]} (hits bitwise the "
+                f"plain instantiation's) [{card}]")
+        log(f"phase 16a mesh512k W={w}: {scene['plk_nodes'].shape[0]} cut-tree nodes, "
+            f"{scene['plk_slot2prim'].shape[0]} slots, layout built in {secs:.2f} s")
+    del ro, rd, dist, oracle
+    torch.cuda.empty_cache()
+    log(f"phase 16a K3 windows: {time.time() - t16:.1f} s since the phase began")
+
+    # K4 on the 102k mesh, every C
+    n_k4 = n_main // 2
+    cro, crd = camera_rays(cam, dev, jitter_rng=rng, subsamples=4)
+    sro, srd = surface_rays(big, n_k4 - cro.shape[0], rng, dev)
+    ro, rd = torch.cat([cro, sro]), torch.cat([crd, srd])
+    dist = torch.tensor(rng.uniform(0.0, 20.0, n_k4), dtype=torch.float32, device=dev)
+    del cro, crd, sro, srd
+    oracle = {kind: plain_walk(big, ro, rd, t_max=tm, any_hit=a, t_min=tn)
+              for kind, tm, a, tn in (("closest", None, False, 1e-4), ("any", dist, True, 1e-3))}
+    pool = array_bytes(big, BVH_ARRAYS)
+    k4_64 = with_trl_layout(big)
+    c1 = smt_cuda.DEFAULT_CHAINS
+    for w in (w for w in WINDOWS16 if w != 64):  # 64's: phases 9 and 14
+        scene, secs = layout(with_trl_layout, big, w)
+        err, work, owork, plain_ms = compare_smt(f"phase 16a mesh102k K4 W={w}", scene, ro, rd,
+                                                 dist, oracle)
+        for kind, t0k, any_hit, t_min in kinds(dist):
+            reset_counts()
+            smt_cuda.smt_traverse(scene, ro, rd, t0k, any_hit=any_hit, t_min=t_min, chains=c1)
+            one_pass["K4", w, kind] = read_counts()[smt_cuda.kernel_name(any_hit, c1, window=w)]
+            ms64, ms = turns_vs_64(
+                lambda: smt_cuda.smt_traverse(k4_64, ro, rd, t0k, any_hit=any_hit, t_min=t_min,
+                                              chains=c1),
+                lambda: smt_cuda.smt_traverse(scene, ro, rd, t0k, any_hit=any_hit, t_min=t_min,
+                                              chains=c1))
+            b = bound(n_k4, 8, pool, owork[kind])
+            results["K4", w, kind] = {"ms": ms, "ms64": ms64, "plain_ms": plain_ms[kind],
+                                      "bound": b, "err": err}
+            log(f"phase 16a timing {kind}-hit, {n_k4} rays, mesh102k: K4 C={c1} W={w} "
+                f"{ms:.3f} ms, W=64 {ms64:.3f} ms in turns ({ms / ms64:.3f}x); plain version "
+                f"{plain_ms[kind]:.1f} ms; bound {b[0]:.4f} ms by {b[1]}, {ms / b[0]:.1f}x; "
+                f"K4's work {work[kind]} [{card}]")
+        log(f"phase 16a mesh102k W={w}: {scene['trl_nodes'].shape[0]} cut-tree nodes, "
+            f"{scene['trl_recs'].shape[0]} slots, layout built in {secs:.2f} s")
+        del scene
+    del ro, rd, dist, oracle, k4_64
+    torch.cuda.empty_cache()
+    log(f"phase 16a K4 windows: {time.time() - t16:.1f} s since the phase began")
+
+    # the large mesh rendered through K3 at the fastest other window
+    best = min((w for w in WINDOWS16 if w != 64),
+               key=lambda w: sum(results["K3", w, k]["ms"] for k in ("closest", "any")))
+    kw = {"spp": 16, "max_depth": 5, "rr_depth": 3}
+    s_best = k3[best][0]
+    render_image(s_best, lcam, **kw)  # warm-up
+    img, wall, launches, peak, held = timed_render(lambda: render_image(s_best, lcam, **kw))
+    names = plk_cuda.kernel_names("", best)
+    log(f"phase 16a render launches at W={best}: {nonzero(launches)}")
+    assert all(launches[k] > 0 for k in names), launches
+    assert all(v == 0 for k, v in launches.items() if k not in names), launches
+    for kind, name in zip(("closest", "any"), names):
+        one_pass["K3", best, kind] = launches[name]
+    log(f"phase 16a launches reported (the W={best} render's, else one pass of the rays): "
+        f"{ {f'{k} W={w} {kind}': v for (k, w, kind), v in one_pass.items()} }")
+    img = img.cpu().numpy()
+    ref = render_image(large, lcam, **kw).cpu().numpy()
+    log(f"phase 16a render 512x512 16spp depth 5 through K3 at W={best}: mean {img.mean():.5f} "
+        f"wall {wall * 1e3:.1f} ms, {n_main / wall / 1e6:.3f} Mpaths/s, "
+        f"{peak_text(peak, held)} [{card}]")
+    check_image_bounds(f"phase 16a K3 W={best} render vs the W=64 render", img, ref)
+    del k3, s_best, img, ref
+    torch.cuda.empty_cache()
+    # K4's windows 16 and 32 share one instantiation, entered at 32
+    for kernel, src, rep, kn, windows in (("K3", PLK_SOURCE, PLK_REPLACES, None, (16, 32, 128)),
+                                          ("K4", SMT_SOURCE, SMT_REPLACES, c1, (32, 128))):
+        for w in windows:
+            for kind in ("closest", "any"):
+                r = results[kernel, w, kind]
+                any_hit = kind == "any"
+                name = (plk_cuda.kernel_names("", w)[int(any_hit)] if kernel == "K3"
+                        else smt_cuda.kernel_name(any_hit, kn, window=w))
+                entries.append({
+                    "name": name, "route": "cuda", "source": src, "replaces": rep,
+                    "launches": one_pass[kernel, w, kind], "max_abs_err": r["err"],
+                    "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                    "bound_by": r["bound"][1], "library_ms": None})
+    assert all(e["launches"] > 0 for e in entries), entries
+    log(f"phase 16a took {time.time() - t16:.1f} s")
+
+    # 16b: the lab's _t32 drain on a window-32 layout
+    t = time.time()
+    tab32 = kl.tables(with_trl_layout(big, window=32))
+    lro, lrd, lt0 = kl.lab_rays(dataclasses.replace(cam, width=1024, height=1024), 1024, dev)
+    out = kl.run(tab32, lro, lrd, lt0, "wide8_t32")
+    tiles = torch.arange(0, lro.shape[0] // 1024, 16, device=dev)
+    tp, pp = kl.run_plain(tab32, lro, lrd, lt0, "wide8_t32", tiles=tiles)
+    sel = (tiles[:, None] * 1024 + torch.arange(1024, device=dev)).reshape(-1)
+    exact = bool(torch.equal(out[0][sel], tp) and torch.equal(out[1][sel], pp))
+    ms32 = kl.measure(tab32, lro, lrd, lt0, "wide8_t32")
+    tab64 = kl.tables(with_trl_layout(big))
+    ms64 = kl.measure(tab64, lro, lrd, lt0, "wide8")
+    log(f"phase 16b L1 wide8_t32 on a window-32 layout: bitwise equal to its plain version on "
+        f"{tiles.shape[0]} tiles {exact}; {ms32:.3f} ms, wide8 on the window-64 layout "
+        f"{ms64:.3f} ms, {lro.shape[0]} lab rays; {time.time() - t:.1f} s [{card}]")
+    assert exact
+    del tab32, tab64, lro, lrd, lt0, out
+
+    # 16c: the first-hit AOV G-buffer at bench.py's sponza_svgf shape
+    t = time.time()
+    ca = cam.arrays(dev)
+    args = (cam.width, cam.height, 0, 0, 1, 5, 3)
+    render_sample_with_aovs(big, ca, *args)  # warm-up
+    (img, aovs), wall, launches, peak, held = timed_render(
+        lambda: render_sample_with_aovs(big, ca, *args))
+    ref, wall_rs, _, peak_rs, held_rs = timed_render(lambda: render_sample(big, ca, *args))
+    log(f"phase 16c render_sample_with_aovs launches: {nonzero(launches)}")
+    assert all(launches[k] > 0 for k in traverse_cuda.KERNELS), launches
+    assert all(v == 0 for k, v in launches.items() if k not in traverse_cuda.KERNELS), launches
+    same = bool(torch.equal(img, ref))
+    hit = float((aovs["prim"] >= 0).float().mean())
+    log(f"phase 16c render_sample_with_aovs 512x512 1spp depth 5 RR 3 through K1: wall "
+        f"{wall * 1e3:.1f} ms, {peak_text(peak, held)}; render_sample {wall_rs * 1e3:.1f} ms, "
+        f"{peak_text(peak_rs, held_rs)}; radiance bitwise render_sample's {same}; first hits "
+        f"{hit:.4f} of pixels [{card}]")
+    assert same and 0.2 < hit < 1.0
+    log(f"phase 16c timed renders: {time.time() - t:.1f} s since 16c began")
+    prof = profile_render(lambda: render_sample_with_aovs(big, ca, *args))
+    log_profile("phase 16c render_sample_with_aovs", card, prof)
+    log_profile("phase 16c render_sample", card,
+                profile_render(lambda: render_sample(big, ca, *args)))
+    # at 128x128 and depth 1 (the AOVs are bounce 0's; the plain walk is
+    # host-bound)
+    log(f"phase 16c profiles: {time.time() - t:.1f} s since 16c began")
+    small = dataclasses.replace(cam, width=128, height=128)
+    sa = (128, 128, 0, 0, 1, 1, 1)
+    _, ak = render_sample_with_aovs(big, small.arrays(dev), *sa)
+    _, ap = render_sample_with_aovs(big, small.arrays(dev), *sa, impl="plain")
+    exact = {k: bool(torch.equal(ak[k], ap[k])) for k in ak}
+    log(f"phase 16c AOVs at 128x128 through K1 bitwise the plain walk's: {exact}; phase 16c "
+        f"took {time.time() - t:.1f} s; phase 16 took {time.time() - t16:.1f} s "
+        f"(budget 60 s)")
+    assert all(exact.values()), exact
+    return entries
+
+
 def golden_zoo_bounds(name, img, gold):
     """The zoo's golden gate: the full-image radiance bounds over the whole
     image, and the golden-test bounds (max < 5e-3, mean < 5e-4 absolute)
@@ -1352,11 +1658,13 @@ def zoo_phase(card, dev):
              64, 32),
             ("12d textured", lambda w, h, d: textured_scene(w, h, device=d), 32, 32)):
         imgs = []
+        t = time.time()
         for d in (dev, "cpu"):
             sc, c = make(w, h, d)
             imgs.append(pathtracer.render_image(sc, c, spp=4, max_depth=4).cpu().numpy())
         assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 1e-2, name
-        check_image_bounds(f"phase {name} {w}x{h} 4spp depth 4, card vs CPU", *imgs)
+        check_image_bounds(f"phase {name} {w}x{h} 4spp depth 4, card vs CPU ({time.time() - t:.1f} "
+                           "s)", *imgs)
     log(f"phase 12 took {time.time() - t12:.1f} s")
 
 
@@ -1669,12 +1977,22 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    # -- phase 1: build the kernels (one library) from the checkout's sources
+    # -- phase 1: build the kernels from the checkout's sources: the
+    # traversal library here and, at the same time, the labs' library in a
+    # second process (ninja starts one nvcc for each source of a library)
     t = time.time()
-    traverse_cuda.load_library(verbose=True)
-    log(f"phase 1: built {KERNEL_SOURCE}, {TLAS_SOURCE}, {PLK_SOURCE} and {SMT_SOURCE} "
-        f"in {time.time() - t:.1f} s")
+    labs = subprocess.Popen([sys.executable, "-c", LAB_BUILD.format(root=ROOT)], cwd=ROOT)
+    try:
+        traverse_cuda.load_library(verbose=True)
+    finally:
+        labs_rc = labs.wait(timeout=900)
+    log(f"phase 1: built {KERNEL_SOURCE}, {TLAS_SOURCE}, {PLK_SOURCE} and {SMT_SOURCE}, and "
+        f"beside them {CHASE_SOURCE}, {LAUNCH_SOURCE} and {LAB_SOURCE}, in "
+        f"{time.time() - t:.1f} s")
+    if labs_rc != 0:
+        raise RuntimeError(f"phase 1: the labs' build exited {labs_rc}")
 
+    t_phase = time.time()
     # -- phase 2: kernel vs plain walk on the card
     rng = np.random.default_rng(SEED)
     t = time.time()
@@ -1736,6 +2054,7 @@ def main():
         if scene is mid:
             del rs
 
+    t_phase = phase_clock(2, t_phase)
     # -- phase 3: Cornell box (dense path, no kernel) against the golden
     scene, ccam = cornell_box(64, 64, device=dev)
     img = render_image(scene, ccam, spp=16, max_depth=5).cpu().numpy()
@@ -1747,6 +2066,7 @@ def main():
     assert np.isfinite(img).all()
     check_image_bounds("phase 3 cornell", img, gold)
 
+    t_phase = phase_clock(3, t_phase)
     # -- phase 4: the mesh path, 512x512 x 16 spp, depth 5, RR depth 3
     render_image(big, cam, spp=16, max_depth=5, rr_depth=3)  # warm-up
     img, wall, launches, peak, held = timed_render(
@@ -1795,6 +2115,7 @@ def main():
     rays2 = (ro, rd, dist, {k: (walks2[k], work2[k]) for k in walks2})
     del mid, cro, crd, sro, srd
 
+    t_phase = phase_clock(4, t_phase)
     # -- phase 5: the two-level kernel vs its plain walk on the card
     t = time.time()
     inst, icam = instanced_mesh_scene(512, 512, device=dev)
@@ -1832,6 +2153,7 @@ def main():
             f"records the bound is {b_k5[0]:.4f} ms by {b_k5[1]} ({b_k5[2]} B) [{card}]")
     del ro, rd, cro, crd, sro, srd, dist
 
+    t_phase = phase_clock(5, t_phase)
     # -- phase 6: the instanced path, 512x512 x 16 spp, depth 5, RR depth 3
     render_image(inst, icam, spp=16, max_depth=5, rr_depth=3)  # warm-up
     img, wall, launches6, peak, held = timed_render(
@@ -1862,6 +2184,7 @@ def main():
 
     del inst
 
+    t_phase = phase_clock(6, t_phase)
     # -- phase 7: the Plücker kernel vs its plain version and the oracle
     t = time.time()
     large, lcam = large_mesh_scene(512, 512, device=dev)
@@ -1910,6 +2233,7 @@ def main():
     del t0
     torch.cuda.empty_cache()
 
+    t_phase = phase_clock(7, t_phase)
     # -- phase 8: the large mesh path, 512x512 x 16 spp, depth 5, RR depth 3
     render_image(large, lcam, spp=16, max_depth=5, rr_depth=3)  # warm-up
     img, wall, launches8, peak, held = timed_render(
@@ -1941,6 +2265,7 @@ def main():
         for name, kind in zip(plk_cuda.KERNELS, ("closest", "any"))
     ]
 
+    t_phase = phase_clock(8, t_phase)
     # -- phase 9: K4, the multi-chain treelet walk, on both scenes' rays
     from aten_tpu_torch.accel import traverse as trav_mod
     from aten_tpu_torch.accel.traverse import _traverse_trl_plain
@@ -2067,8 +2392,8 @@ def main():
 
     t10 = time.time()
     t = time.time()
-    lab_library.load_library(verbose=True)
-    log(f"phase 10: built {CHASE_SOURCE} and {LAUNCH_SOURCE} in {time.time() - t:.1f} s")
+    lab_library.load_library()
+    log(f"phase 10: loaded the labs' library (built in phase 1) in {time.time() - t:.1f} s")
     rows = torch.from_numpy(chase_lab.build_chain(0)).to(dev)
     x = torch.ones((8, 128), dtype=torch.float32, device=dev)
     steps = chase_lab.STEPS
@@ -2143,6 +2468,7 @@ def main():
     train_phase(card, dev)
     kernels += lod_phase(card, dev)
     kernels += stats_phase(card, dev)
+    kernels += window_phase(card, dev)
 
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -8,7 +8,10 @@
   tests/test_torch_plk.py.
 * The packer raises on a tree that breaks the preorder link facts the
   records rely on (an inner node's hit link is i + 1, a leaf's equals its
-  miss link) and on a leaf range that does not pack.
+  miss link) and on a leaf range that does not pack.  K1's and K5's leaf
+  word keeps its 7-bit count and starts up to 2^24 - 1; only K3's (and
+  K4's, packed in its kernel) takes 8 bits for windows of 128 slots, and
+  so starts below 2^23.
 * The scene builder and the bridge attach the records exactly where the
   kernel policy runs K1 (`bvh_*`) or K3 (`plk_nodes`); `with_bvh_layout`
   attaches K1's to a scene built for K3 or K4, as the lab's tables do.
@@ -129,6 +132,31 @@ def test_packer_raises_on_broken_links(fault, match):
         start[3] = bvh_layout.MAX_START
     with pytest.raises(ValueError, match=match):
         bvh_layout.pack_nodes(bmin, bmax, hit, miss, start, count, is_leaf)
+
+
+@pytest.mark.parametrize("shift,max_start,max_count", [
+    (bvh_layout.LEAF_SHIFT, 1 << 24, 127),          # K1, K5: prim ranges
+    (bvh_layout.TREELET_LEAF_SHIFT, 1 << 23, 255),  # K3, K4: up to 128 slots
+])
+def test_packer_start_and_count_limits(shift, max_start, max_count):
+    """A leaf at the last start and count that pack round-trips bit for
+    bit; one start or one count past them raises."""
+    assert (1 << (31 - shift), (1 << shift) - 1) == (max_start, max_count)
+    bmin, bmax, hit, miss, start, count, is_leaf = _chain()
+    start[3], count[3] = max_start - 1, max_count
+    rec = bvh_layout.pack_nodes(bmin, bmax, hit, miss, start, count, is_leaf, shift=shift)
+    _, _, _, _, leaf, got_start, got_count = bvh_layout.unpack_nodes(rec, shift=shift)
+    assert (leaf[3], got_start[3], got_count[3]) == (
+        ((max_start - 1) << shift) | max_count, max_start - 1, max_count)
+    for field, value in (("start", max_start), ("count", max_count + 1)):
+        s, c = start.copy(), count.copy()
+        (s if field == "start" else c)[3] = value
+        with pytest.raises(ValueError, match="does not pack"):
+            bvh_layout.pack_nodes(bmin, bmax, hit, miss, s, c, is_leaf, shift=shift)
+    if shift == bvh_layout.LEAF_SHIFT:
+        assert bvh_layout.MAX_START == max_start  # K1's and K5's capacity
+    else:
+        assert bvh_layout.TREELET_MAX_START == max_start
 
 
 def test_builder_checks_every_tree_it_packs():

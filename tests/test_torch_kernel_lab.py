@@ -214,7 +214,7 @@ def test_plk_products_and_its_den_term(reference_native):
     product, relative to the sum of the terms' magnitudes; and the
     lab's den (n.rd - (n.v0) m_x) costs it hits the oracle walk finds."""
     js, _, tab, ro, rd, t0 = _setup()
-    e3 = tab["emat"].view(-1, 8, 4 * kl.WINDOW)[:6]
+    e3 = tab["emat"].view(-1, 8, 4 * kl.PLK_SLOTS)[:6]
     o = torch.from_numpy(ro[:2048]).view(1, -1, 3).expand(6, -1, -1)
     d = torch.from_numpy(rd[:2048]).view(1, -1, 3).expand(6, -1, -1)
     S, NUM = kl.plk_products(e3, o, d)
@@ -224,7 +224,7 @@ def test_plk_products_and_its_den_term(reference_native):
     scale = torch.einsum("gkc,gtk->gct", e64[:, :6].abs(), r6.abs())
     assert bool(((S.double() - want).abs() <= 1e-5 * scale + 1e-30).all())
     r4 = torch.cat([o64, torch.ones_like(o64[..., :1])], -1)
-    q = e64[:, :4, 3 * kl.WINDOW:]
+    q = e64[:, :4, 3 * kl.PLK_SLOTS:]
     want = torch.einsum("gkc,gtk->gct", q, r4)
     scale = torch.einsum("gkc,gtk->gct", q.abs(), r4.abs())
     assert bool(((NUM.double() - want).abs() <= 1e-5 * scale + 1e-30).all())
@@ -253,14 +253,47 @@ def test_plain_tile_subset_and_run_on_cpu(reference_native):
     assert all(v == 0 for v in kl.launch_counts.values())
 
 
+@pytest.mark.parametrize("window", [32, 128])
+def test_tables_follow_the_layout_window(reference_native, window):
+    """`tables` carry the layout's window; the MT variants drain it (a
+    `_t<N>` at the window is the same walk, and every variant still finds
+    the oracle's hits); plk's 64-slot blocks take layouts up to 64."""
+    js, _, tab, ro, rd, t0 = _setup()
+    tw = kl.tables(with_trl_layout(tab["scene"], window=window))
+    assert tw["window"] == window and tw["recs"].shape[0] != tab["recs"].shape[0]
+    args = (tw, torch.from_numpy(ro), torch.from_numpy(rd), torch.from_numpy(t0))
+    t, p = kl.run(*args, "wide8")
+    tt, pt = kl.run(*args, f"wide8_t{window}")
+    assert torch.equal(t, tt) and torch.equal(p, pt)
+    t64, p64 = kl.run(tab, *args[1:], "wide8")
+    assert float((p == p64).float().mean()) >= 0.999
+    if window > kl.PLK_SLOTS:
+        assert tw["emat"].shape[0] == 0 and tw["pids"].shape == (0, kl.PLK_SLOTS)
+        with pytest.raises(ValueError, match="does not fit"):
+            kl.run(*args, "plk")
+    else:
+        assert tw["emat"].shape[1:] == (4 * kl.PLK_SLOTS,) and tw["pids"].shape[0] > 0
+        assert bool((kl.run(*args, "plk")[1] >= 0).any())
+    assert all(v == 0 for v in kl.launch_counts.values())
+
+
 def test_kernel_lab_rejects_bad_arguments(reference_native):
     _, _, tab, ro, rd, t0 = _setup()
     args = (tab, torch.from_numpy(ro), torch.from_numpy(rd), torch.from_numpy(t0))
     for bad in ("noext", "wide12", "wide16_x", "spec4", "v4"):
         with pytest.raises(ValueError, match="unknown kernel_lab variant"):
             kl.run(*args, bad)
+    # a drain under the layout's window skips slots: refused on the
+    # window-64 layout, taken on a layout cut at 32, where it drains all
     with pytest.raises(ValueError, match="ATEN_TRL_WINDOW"):
         kl.run(*args, "wide16_t32")
+    tab32 = kl.tables(with_trl_layout(tab["scene"], window=32))
+    assert tab32["window"] == 32 and kl.drain_of(tab32, kl.parse("wide16_t32")) == 32
+    t32, p32 = kl.run(tab32, *args[1:], "wide16_t32")
+    tw, pw = kl.run(tab32, *args[1:], "wide16")
+    assert torch.equal(t32, tw) and torch.equal(p32, pw) and bool((p32 >= 0).any())
+    with pytest.raises(ValueError, match="skips slots"):
+        kl.run(tab32, *args[1:], "wide16_t24")
     with pytest.raises(ValueError, match="on meta"):
         kl.run({**tab, "nodes": tab["nodes"].to("meta")}, *args[1:], "wide8")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -274,5 +307,7 @@ def test_kernel_lab_rejects_bad_arguments(reference_native):
     if not torch.cuda.is_available():  # the CLI measures on a card only
         with pytest.raises(SystemExit, match="no CUDA card"):
             kl.main(["kernel_lab", "wide16"])
-    assert kl.parse("spec") == kl.parse("spec8") and kl.parse("wide16_t64") == kl.parse("wide16")
+    # on the window-64 layout, wide16 drains the 64 slots wide16_t64 names
+    assert kl.parse("spec") == kl.parse("spec8")
+    assert kl.drain_of(tab, kl.parse("wide16_t64")) == kl.drain_of(tab, kl.parse("wide16")) == 64
     assert kl.parse("wide16_nc").kernel == "kernel_lab_wide16_nc"

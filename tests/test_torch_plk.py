@@ -195,7 +195,8 @@ def test_packed_cut_tree_unpacks_bit_for_bit():
     """K3's packed node records (`plk_nodes`) give back the cut tree's
     boxes, links, slot starts and counts bit for bit."""
     _, _, ps, _ = _setup()
-    bmin, bmax, hit, miss, _, start, count = bvh_layout.unpack_nodes(ps["plk_nodes"].numpy())
+    bmin, bmax, hit, miss, _, start, count = bvh_layout.unpack_nodes(
+        ps["plk_nodes"].numpy(), shift=bvh_layout.TREELET_LEAF_SHIFT)
     for got, k in ((bmin, "plk_bmin"), (bmax, "plk_bmax")):
         np.testing.assert_array_equal(got.view(np.int32), ps[k].numpy().view(np.int32))
     for got, k in ((hit, "plk_hit"), (miss, "plk_miss"), (start, "plk_slot_start"),
@@ -208,14 +209,16 @@ def test_packed_cut_tree_unpacks_bit_for_bit():
 
 def test_large_mesh_scene_packs_its_cut_tree():
     """The 512,004-prim scene's fat leaves pack into the leaf word (slot
-    start < 2^24, count <= 64), and it carries K3's records, not K1's."""
+    start < 2^23, count <= 64), and it carries K3's records, not K1's."""
     s, _ = tdefs.large_mesh_scene(8, 8, device="cpu")
     assert s["traversal"] == "plk" and not any(k in s for k in bvh_layout.ARRAY_KEYS)
-    _, _, hit, _, _, start, count = bvh_layout.unpack_nodes(s["plk_nodes"].numpy())
+    _, _, hit, _, _, start, count = bvh_layout.unpack_nodes(
+        s["plk_nodes"].numpy(), shift=bvh_layout.TREELET_LEAF_SHIFT)
     np.testing.assert_array_equal(hit, s["plk_hit"].numpy())
     np.testing.assert_array_equal(start, s["plk_slot_start"].numpy())
     np.testing.assert_array_equal(count, s["plk_count"].numpy())
-    assert start.max() + plk_layout.WINDOW <= s["plk_slot2prim"].shape[0] < bvh_layout.MAX_START
+    assert (start.max() + plk_layout.WINDOW <= s["plk_slot2prim"].shape[0]
+            < bvh_layout.TREELET_MAX_START)
 
 
 @pytest.mark.parametrize("n_u,n_v,picks", [(400, 128, False), (1000, 256, True)])
@@ -415,7 +418,7 @@ def test_wrapper_rejects_bad_arguments(reference_native):
                 ps.static, ps.device)
     with pytest.raises(ValueError, match="plk_consts"):
         plk_cuda.plk_traverse(bad, ro, rd, t0)
-    bad = Scene(ps.arrays, {**ps.static, "plk_window": 128}, ps.device)
+    bad = Scene(ps.arrays, {**ps.static, "plk_window": 256}, ps.device)
     with pytest.raises(ValueError, match="window"):
         plk_cuda.plk_traverse(bad, ro, rd, t0)
 

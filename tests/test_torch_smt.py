@@ -560,7 +560,7 @@ def test_wrapper_rejects_bad_arguments(reference_native):
                 ps.static, ps.device)
     with pytest.raises(ValueError, match="trl_recs"):
         smt_cuda.smt_traverse(bad, ro, rd, t0)
-    bad = Scene(ps.arrays, {**ps.static, "trl_window": 128}, ps.device)
+    bad = Scene(ps.arrays, {**ps.static, "trl_window": 256}, ps.device)
     with pytest.raises(ValueError, match="window"):
         smt_cuda.smt_traverse(bad, ro, rd, t0)
 

@@ -254,7 +254,8 @@ def test_layouts_carry_the_reference_voxel_ids(reference_native, name):
         s3 = with_plk_layout(tl)
         ss = s3["plk_slot_start"].numpy()
         np.testing.assert_array_equal(np.where(ss <= word, word - ss, -1), ints[:Kt, 14])
-        _, _, hit, miss, leaf, _, count = bvh_layout.unpack_nodes(s3["plk_nodes"].numpy())
+        _, _, hit, miss, leaf, _, count = bvh_layout.unpack_nodes(
+            s3["plk_nodes"].numpy(), shift=bvh_layout.TREELET_LEAF_SHIFT)
         np.testing.assert_array_equal(np.where(leaf <= word, word - leaf, -1), ints[:Kt, 14])
         np.testing.assert_array_equal(hit, s3["plk_hit"].numpy())
         np.testing.assert_array_equal(count, s3["plk_count"].numpy())
