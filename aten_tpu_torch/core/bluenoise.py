@@ -122,9 +122,10 @@ class BlueNoiseSampler:
     sample(px, py, frame, dim) returns [N] floats in [0,1): the mask value
     at the pixel, toroidally shifted per (frame, dim) along the R2
     sequence and Cranley-Patterson rotated, as the reference's mask-stack
-    lookup by (x, y, frame/dim)."""
+    lookup by (x, y, frame/dim).  The masks live on `device`, the card
+    unless the caller names the CPU."""
 
-    def __init__(self, size=64, layers=4, device="cpu"):
+    def __init__(self, size=64, layers=4, device="cuda"):
         self.size = size
         self.layers = layers
         self.masks = torch.as_tensor(get_masks(size, layers), device=device)

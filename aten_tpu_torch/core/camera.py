@@ -198,10 +198,11 @@ class CameraOperator:
         )
 
 
-def camera_matrices(cam, device="cpu"):
+def camera_matrices(cam, device="cuda"):
     """World-to-view and view-to-clip matrices [4, 4] of a pinhole camera
     (ComputeCameraMatrices, renderer/pathtracing/pt_params.h:177), built
-    on the host in float32 and returned as tensors on `device`."""
+    on the host in float32 and returned as tensors on `device`, the card
+    unless the caller names the CPU."""
     r, u, f = cam.basis()
     eye = np.asarray(cam.origin, np.float32)
     w2v = np.eye(4, dtype=np.float32)

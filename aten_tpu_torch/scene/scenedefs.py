@@ -356,6 +356,38 @@ def large_mesh_scene(width=512, height=512, n_u=1000, n_v=256, *, device="cuda")
     return procedural_mesh_scene(width, height, n_u, n_v, device=device)
 
 
+def populate_many_light_scene(b, width, height, num_lights=126, seed=0):
+    """The reference's ManyLightScene (scenedefs.py:359-379), the ReSTIR
+    fixture: a diffuse floor, 25 GGX spheres on a 5x5 grid and
+    `num_lights` point lights, their positions and colours drawn from
+    np.random.default_rng(seed) in the reference's order."""
+    rng = np.random.default_rng(seed)
+    floor = b.add_material(MaterialType.DIFFUSE, base_color=(0.55, 0.55, 0.55))
+    ball = b.add_material(MaterialType.GGX, base_color=(0.8, 0.8, 0.85), roughness=0.3,
+                          ior=2.0)
+    ext = 20.0
+    b.add_quad([-ext, 0, ext], [ext, 0, ext], [ext, 0, -ext], [-ext, 0, -ext], floor)
+    for i in range(5):
+        for j in range(5):
+            b.add_sphere(((i - 2) * 3.0, 1.0, (j - 2) * 3.0), 1.0, ball)
+    for _ in range(num_lights):
+        p = rng.uniform([-12, 0.5, -12], [12, 6.0, 12])
+        c = rng.uniform(0.2, 1.0, 3) * 4.0
+        b.add_point_light(tuple(p), tuple(c))
+    return PinholeCamera(
+        origin=(0.0, 8.0, 22.0), lookat=(0.0, 1.0, 0.0), vfov_deg=45.0,
+        width=width, height=height,
+    )
+
+
+def many_light_scene(width=512, height=512, num_lights=126, seed=0, *, device="cuda"):
+    """The ReSTIR fixture: 27 prims (the dense test) and num_lights point
+    lights."""
+    b = SceneBuilder()
+    cam = populate_many_light_scene(b, width, height, num_lights, seed)
+    return b.build(device), cam
+
+
 def _l2w(translate, rot_y=0.0, scale=(1.0, 1.0, 1.0)):
     """4x4 local-to-world T * R_y * S as float32."""
     c, s = np.cos(rot_y), np.sin(rot_y)

@@ -63,7 +63,17 @@ variants in phase 14), timed in turns against window 64, and the
 against the window-64 render; the lab's wide8_t32 on a window-32 layout; and the first-hit
 AOV G-buffer (render_sample_with_aovs) at 512x512 x 1 spp through K1,
 its radiance bitwise render_sample's, its AOVs bitwise the plain
-walk's at 128x128.  Each
+walk's at 128x128.  Phase 17 runs the real-time path: SVGF with TAA and
+gt_tonemap on render_sample_with_aovs at bench.py's sponza_svgf shape
+(512x512 x 1 spp, depth 5, RR 3) on the 102,404-prim mesh through K1,
+8 frames of an orbiting camera and 3 static ones, each frame's render
+and denoiser timed apart, the history's acceptance gated, a frame on the
+card against the port on this machine's CPU, the denoised frame against
+a 64 spp render; object motion through K5 on the instanced fixture
+rebuilt each frame with one knot moving; AO through K1's any-hit walk
+against the oracle walk; ReSTIR direct and GI at bench.py's
+restir_126lights shape (the dense test) and against the ReSTIR goldens;
+and ReSTIR GI on the mesh through K1 against the oracle walk.  Each
 main-path render and step is profiled, with its ten costliest device
 ops and each traversal kernel's summed device time. It prints the
 measured times and each kernel's bound (the least time the card could
@@ -440,7 +450,7 @@ def compare_plk(name, scene, ro, rd, t_max, oracle=None):
 def profile_render(fn):
     """One profiled call of fn(): (wall ms, device busy ms, traversal
     kernels' ms, the ten device ops with the most time as (name, ms),
-    {traversal kernel: ms}), busy being the summed time of the events on
+    {traversal kernel: ms}, device ops), busy being the summed time of the events on
     the card (kernels, copies, fills; one stream, so they do not
     overlap).  Only the card's activity is recorded: recording the host's
     ops too slowed the host-bound renders it profiles and took seconds to
@@ -456,12 +466,13 @@ def profile_render(fn):
         torch.cuda.synchronize()
         wall = (time.time() - t) * 1e3
     busy = trav = 0.0
-    ops, per_kernel = [], {}
+    ops, per_kernel, n_ops = [], {}, 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue  # host ops: their device time repeats their kernels'
         us = e.self_device_time_total
         busy += us
+        n_ops += e.count
         ops.append((e.key, us / 1e3))
         if "traverse_kernel" in e.key:
             trav += us
@@ -469,13 +480,13 @@ def profile_render(fn):
             short = m.group(0) if m else e.key
             per_kernel[short] = per_kernel.get(short, 0.0) + us / 1e3
     top = sorted(ops, key=lambda kv: -kv[1])[:10]
-    return wall, busy / 1e3, trav / 1e3, top, per_kernel
+    return wall, busy / 1e3, trav / 1e3, top, per_kernel, n_ops
 
 
 def log_profile(phase, card, prof, what="render"):
-    wall, busy, trav, top, per_kernel = prof
+    wall, busy, trav, top, per_kernel, n_ops = prof
     log(f"{phase} profiled {what}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
-        f"(idle share {1.0 - busy / wall:.3f}), traversal kernels {trav:.2f} ms "
+        f"(idle share {1.0 - busy / wall:.3f}), {n_ops} device ops, traversal kernels {trav:.2f} ms "
         f"({trav / busy if busy else 0.0:.4f} of busy) [{card}]")
     for name, ms in top:
         short = name.replace("void ", "").replace("at::native::", "")
@@ -1572,6 +1583,363 @@ def window_phase(card, dev):
     return entries
 
 
+# the real-time path's gates (phase 17)
+RT_FRAC = 0.999          # pixels within the card-against-CPU tolerance
+RT_RTOL, RT_ATOL = 1e-3, 1e-5
+ORBIT_YAW = 0.01         # radians a frame (0.57 degrees)
+MOVED_INST = 13          # instanced_mesh_scene's knot near the front row
+MOVE_DX = 0.5            # its translation a frame (about 13 pixels at 512x512)
+AOV_KW = {"spp": 1, "max_depth": 5, "rr_depth": 3}  # bench.py's sponza_svgf frame
+
+
+def close_frac(got, ref):
+    """Fraction of pixels of got [H, W, ...] whose every value is within
+    RT_RTOL, RT_ATOL of ref's (numpy)."""
+    ok = abs(got - ref) <= RT_ATOL + RT_RTOL * abs(ref)
+    return float(ok.reshape(ok.shape[0], ok.shape[1], -1).all(-1).mean())
+
+
+def to_cpu(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_cpu(v) for v in tree)
+    return tree.cpu() if torch.is_tensor(tree) else tree
+
+
+def phase17(card, dev):
+    """Phase 17: the real-time path through K1 and K5.  17a: SVGF at
+    bench.py's sponza_svgf shape on the 102,404-prim mesh (no Sponza: the
+    asset-free stand-in), render_sample_with_aovs at 512x512 x 1 spp,
+    depth 5, RR 3 through K1, then the denoiser, for 8 frames of a camera
+    orbiting 0.01 rad a frame and 3 static ones; each frame's render and
+    SVGF timed apart (CUDA events) with K1's launches, the history's
+    acceptance gated, one step profiled (its device ops, idle share) with
+    its peak memory, TAA and gt_tonemap on the output; the last orbit
+    frame's SVGF, TAA and tonemap on the card against the port on this
+    machine's CPU fed the same inputs and state; the denoised frame's
+    median error against a 64 spp render_image under 0.75x the raw
+    sample's.  17b: object motion through K5 on instanced_mesh_scene,
+    rebuilt each frame with knot instance MOVED_INST moved MOVE_DX, 3
+    frames, the denoiser fed the scene and not.  17c: render_ao on the
+    102k mesh at 512x512, spp 2, 4 rays, radius 1 (2 closest-hit and 8
+    any-hit launches of K1), and at 128x128, spp 1, against the oracle
+    walk's.  17d: ReSTIR direct and GI (depth 5, RR 3) at bench.py's
+    restir_126lights shape (many_light_scene, 512x512, 126 lights; 27
+    prims, the dense test: no kernel), 3 frames each; at 64x64 with 32
+    lights, 2 frames, against tests/golden/restir_{lights,gi}.npz and
+    against the port on this machine's CPU.  17e: ReSTIR GI on the 102k
+    mesh at 512x512, depth 5, 2 frames through K1, and a frame at
+    128x128, depth 2, against the oracle walk's."""
+    from aten_tpu_torch.scene.scenedefs import procedural_mesh_scene
+
+    t17 = time.time()
+    big, cam = procedural_mesh_scene(512, 512, device=dev)
+    svgf_frames(card, dev, big, cam)
+    log(f"phase 17a took {time.time() - t17:.1f} s")
+    object_motion(card, dev, cam.width, cam.height)
+    ao_check(card, big, cam)
+    restir_shapes(card, dev)
+    restir_mesh(card, dev, big, cam)
+    log(f"phase 17 took {time.time() - t17:.1f} s (aim 90 s)")
+
+
+def only_kernels(launches, names, what):
+    """A run's launches: each kernel of `names` launched, no other one."""
+    got = nonzero(launches)
+    log(f"{what} launches: {got}")
+    assert all(got.get(k, 0) > 0 for k in names) and set(got) <= set(names), (what, got)
+    return got
+
+
+def svgf_frames(card, dev, big, cam):
+    """Phase 17a (see phase17)."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.core.camera import CameraOperator, camera_matrices
+    from aten_tpu_torch.denoise import svgf
+    from aten_tpu_torch.display import taa, tonemap
+    from aten_tpu_torch.integrator.pathtracer import render_image, render_sample_with_aovs
+    from aten_tpu_torch.ops import traverse_cuda
+
+    W, H = cam.width, cam.height
+    closest, any_hit = traverse_cuda.KERNELS
+    t = time.time()
+    img, aovs = render_sample_with_aovs(big, cam.arrays(dev), W, H, 0, 0, **AOV_KW)  # warm-up
+    svgf.SVGFDenoiser(W, H, device=dev).step(img, aovs, cam)
+    den = svgf.SVGFDenoiser(W, H, device=dev)
+    hist = taa.init_history(H, W, dev)
+    prev_cam = c = cam
+    rows, cpu_check = [], None
+    for f in range(11):
+        if 0 < f < 8:
+            c = CameraOperator.orbit(c, ORBIT_YAW, 0.0)
+        ca = c.arrays(dev)
+        reset_counts()
+        (img, aovs), r_ms = timed_ms(lambda: render_sample_with_aovs(big, ca, W, H, f, 0,
+                                                                      **AOV_KW))
+        launches = only_kernels(read_counts(), traverse_cuda.KERNELS, f"phase 17a frame {f} render")
+        assert launches[closest] == 5 and launches[any_hit] == 5, launches
+        snap = to_cpu((den.state, hist)) if f == 7 else None
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out, s_ms = timed_ms(lambda: den.step(img, aovs, c))
+        peak = torch.cuda.max_memory_allocated()
+        pw2v, pv2c = camera_matrices(prev_cam, device=dev)
+        (shown, hist), d_ms = timed_ms(lambda: taa.taa_step(out, aovs["pos"], aovs["depth"],
+                                                            hist, pw2v, pv2c))
+        mapped = tonemap.gt_tonemap(shown)
+        hit = aovs["depth"] > 0
+        hv = den.state["history"][hit]
+        rows.append((f, r_ms, s_ms, d_ms, float((hv > 1).float().mean()),
+                     float((hv >= 3).float().mean())))
+        log(f"phase 17a frame {f} ({'orbit' if f < 8 else 'static'}): render {r_ms:.1f} ms, "
+            f"SVGF {s_ms:.1f} ms ({peak_text(peak, held)}), TAA + tonemap {d_ms:.1f} ms; "
+            f"history > 1 on {rows[-1][4]:.4f}, >= 3 on {rows[-1][5]:.4f} of "
+            f"{int(hit.sum())} hit pixels [{card}]")
+        assert bool(torch.isfinite(out).all() and torch.isfinite(mapped).all()), f
+        if f == 7:
+            cpu_check = (snap, img.cpu(), to_cpu(aovs), c, prev_cam, out.cpu(), to_cpu(den.state),
+                         shown.cpu(), mapped.cpu())
+        prev_cam = c
+    assert all(r[4] >= 0.5 for r in rows[1:8]), rows
+    assert rows[-1][5] >= 0.9, rows[-1]
+    log(f"phase 17a: 11 frames in {time.time() - t:.1f} s; render mean "
+        f"{np.mean([r[1] for r in rows[1:]]):.1f} ms, SVGF mean "
+        f"{np.mean([r[2] for r in rows[1:]]):.1f} ms a frame (frames 1-10) [{card}]")
+    log_profile("phase 17a", card, profile_render(lambda: den.step(img, aovs, c)),
+                what="SVGF step")
+    ca = c.arrays(dev)
+    log_profile("phase 17a", card, profile_render(lambda: den.step(
+        *render_sample_with_aovs(big, ca, W, H, 11, 0, **AOV_KW), c)),
+        what="frame (render + SVGF)")
+    # the last orbit frame on this machine's CPU, fed the card's inputs
+    t = time.time()
+    (st, th), cimg, caovs, cc, pc, out_k, st_k, shown_k, mapped_k = cpu_check
+    out_c, st_c = svgf.svgf_step(cimg, caovs, st, den.params, cc, W, H)
+    pw2v, pv2c = camera_matrices(pc, device="cpu")
+    shown_c, _ = taa.taa_step(out_k, caovs["pos"], caovs["depth"], th, pw2v, pv2c)
+    mapped_c = tonemap.gt_tonemap(shown_k)
+    fr = {"SVGF out": close_frac(out_k.numpy(), out_c.numpy())}
+    for k in ("color", "moments", "history"):
+        fr[f"state {k}"] = close_frac(st_k[k].numpy(), st_c[k].numpy())
+    fr["state valid"] = float((st_k["valid"] == st_c["valid"]).float().mean())
+    fr["TAA"] = close_frac(shown_k.numpy(), shown_c.numpy())
+    fr["gt_tonemap"] = close_frac(mapped_k.numpy(), mapped_c.numpy())
+    log(f"phase 17a frame 7 on the card against this machine's CPU (rtol {RT_RTOL}, atol "
+        f"{RT_ATOL}), fraction of pixels within: {fr}; SVGF out max abs "
+        f"{float((out_k - out_c).abs().max()):.3e}; {time.time() - t:.1f} s")
+    assert all(v >= RT_FRAC for v in fr.values()), fr
+    # the denoised static frame against a converged render of its view
+    ref = render_image(big, c, spp=64, max_depth=5, rr_depth=3, frame=100).cpu().numpy()
+    hit = aovs["depth"].cpu().numpy() > 0
+    raw, den_img = img.cpu().numpy(), out.cpu().numpy()
+    err_raw = float(np.median(np.abs(raw - ref)[hit]))
+    err_den = float(np.median(np.abs(den_img - ref)[hit]))
+    log(f"phase 17a last static frame against a 64 spp render_image, median abs error over hit "
+        f"pixels: raw {err_raw:.5f}, denoised {err_den:.5f} (ratio {err_den / err_raw:.3f}, "
+        f"< 0.75)")
+    assert err_den < 0.75 * err_raw, (err_den, err_raw)
+
+
+def object_motion(card, dev, W, H):
+    """Phase 17b (see phase17)."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.denoise import svgf
+    from aten_tpu_torch.integrator.pathtracer import render_sample_with_aovs
+    from aten_tpu_torch.ops import tlas_cuda
+    from aten_tpu_torch.scene.scene import SceneBuilder
+    from aten_tpu_torch.scene.scenedefs import populate_instanced_mesh_scene
+
+    closest, any_hit = tlas_cuda.KERNELS
+    t = time.time()
+
+    class MovedBuilder(SceneBuilder):
+        """A builder that moves instance `MOVED_INST` by dx along x."""
+
+        def __init__(self, dx):
+            super().__init__()
+            self.dx, self.n = dx, 0
+
+        def add_instance(self, obj_id, l2w):
+            m = np.array(l2w, np.float32)
+            if self.n == MOVED_INST:
+                m[0, 3] += self.dx
+            self.n += 1
+            return super().add_instance(obj_id, m)
+
+    frames = []
+    for f in range(3):
+        tb = time.time()
+        b = MovedBuilder(MOVE_DX * f)
+        icam = populate_instanced_mesh_scene(b, W, H)
+        scene = b.build(dev)
+        torch.cuda.synchronize()
+        build_s = time.time() - tb
+        ica = icam.arrays(dev)
+        if f == 0:
+            render_sample_with_aovs(scene, ica, W, H, 0, 0, **AOV_KW)  # warm-up
+        reset_counts()
+        (img, aovs), r_ms = timed_ms(lambda: render_sample_with_aovs(scene, ica, W, H, f, 0,
+                                                                      **AOV_KW))
+        launches = only_kernels(read_counts(), tlas_cuda.KERNELS, f"phase 17b frame {f} render")
+        assert launches[closest] == 5 and launches[any_hit] == 5, launches
+        frames.append((img, aovs, {"inst_w2l": scene["inst_w2l"]}))
+        log(f"phase 17b frame {f}: rebuild {build_s:.2f} s, render {r_ms:.1f} ms, instance "
+            f"{MOVED_INST} on {int((aovs['inst'] == MOVED_INST).sum())} pixels [{card}]")
+        del scene
+    for fed in (True, False):
+        den = svgf.SVGFDenoiser(W, H, device=dev)
+        for f, (img, aovs, sc) in enumerate(frames):
+            _, s_ms = timed_ms(lambda: den.step(img, aovs, icam, scene=sc if fed else None))
+            on = aovs["inst"] == MOVED_INST
+            hv = den.state["history"][on & (aovs["depth"] > 0)]
+            above, one = float((hv > 1).float().mean()), float((hv == 1).float().mean())
+            log(f"phase 17b frame {f}, denoiser {'fed' if fed else 'not fed'} the scene: SVGF "
+                f"{s_ms:.1f} ms; on the moving instance's {hv.numel()} hit pixels history > 1 "
+                f"on {above:.4f}, == 1 on {one:.4f}")
+            if f:
+                assert (above >= 0.8) if fed else (one >= 0.8), (fed, f, above, one)
+    log(f"phase 17b took {time.time() - t:.1f} s")
+
+
+def ao_check(card, big, cam):
+    """Phase 17c (see phase17)."""
+    import numpy as np
+
+    from aten_tpu_torch.integrator.ao import render_ao
+    from aten_tpu_torch.ops import traverse_cuda
+
+    closest, any_hit = traverse_cuda.KERNELS
+    t = time.time()
+    ao_kw = {"spp": 2, "num_rays": 4, "ao_radius": 1.0}
+    render_ao(big, cam, **ao_kw)  # warm-up
+    reset_counts()
+    ao, ao_ms = timed_ms(lambda: render_ao(big, cam, **ao_kw))
+    launches = only_kernels(read_counts(), traverse_cuda.KERNELS, "phase 17c render_ao")
+    assert launches[closest] == 2 and launches[any_hit] == 8, launches
+    ao = ao.cpu().numpy()
+    assert np.isfinite(ao).all() and 0.0 <= ao.min() and ao.max() <= 1.0 and ao.min() < 1.0
+    # at 128x128 and one sample (the oracle walk's time is set by its
+    # walks, one closest-hit and four any-hit here, not by its rays)
+    small = dataclasses.replace(cam, width=128, height=128)
+    ao_kw["spp"] = 1
+    ak = render_ao(big, small, **ao_kw).cpu().numpy()
+    ap = render_ao(big, small, impl="plain", **ao_kw).cpu().numpy()
+    same = (ak == ap).all(-1)
+    log(f"phase 17c render_ao {cam.width}x{cam.height} spp 2, 4 rays, radius 1 through K1: "
+        f"{ao_ms:.1f} ms, mean "
+        f"{ao.mean():.4f}; at 128x128 spp 1 equal to the oracle walk's on {same.mean():.6f} of "
+        f"pixels, "
+        f"differing at {np.argwhere(~same).tolist()[:20]}; {time.time() - t:.1f} s [{card}]")
+    assert same.mean() >= RT_FRAC
+
+
+def restir_shapes(card, dev):
+    """Phase 17d (see phase17)."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.integrator import restir
+    from aten_tpu_torch.scene.scenedefs import many_light_scene
+
+    t = time.time()
+    ml, mcam = many_light_scene(512, 512, num_lights=126, device=dev)
+    for gi in (False, True):
+        r = restir.ReSTIRRenderer(ml, mcam, gi=gi)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ms = []
+        for _ in range(3):
+            img, m = timed_ms(r.render_frame)
+            ms.append(m)
+        peak = torch.cuda.max_memory_allocated()
+        assert not nonzero(read_counts()), read_counts()
+        img = img.cpu().numpy()
+        assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 1e-3
+        log(f"phase 17d ReSTIR {'GI depth 5 RR 3' if gi else 'direct'} "
+            f"{mcam.width}x{mcam.height}, 126 lights: "
+            f"{', '.join(f'{v:.1f}' for v in ms)} ms a frame, mean {img.mean():.5f}, "
+            f"{peak_text(peak, held)}, 0 kernel launches (27 prims: the dense test) [{card}]")
+    log_profile("phase 17d", card, profile_render(r.render_frame), what="ReSTIR GI frame")
+    del ml, r
+    gscene, gcam = many_light_scene(64, 64, num_lights=32, device=dev)
+    cscene, _ = many_light_scene(64, 64, num_lights=32, device="cpu")
+    for name, fn, kw in (("restir_lights", restir.restir_direct_sample, {}),
+                         ("restir_gi", restir.restir_gi_sample, {"max_depth": 3, "rr_depth": 2})):
+        imgs = []
+        for sc, d in ((gscene, dev), (cscene, "cpu")):
+            st = restir.init_state(64, 64, d)
+            for f in range(2):
+                img, st = fn(sc, gcam.arrays(d), 64, 64, f, st, **kw)
+            imgs.append(img.cpu().numpy())
+        with np.load(os.path.join(ROOT, "tests", "golden", f"{name}.npz")) as z:
+            gold = z["img"]
+        err = np.abs(imgs[0] - gold).max(-1)
+        # the max bound at every pixel where the port on this machine's CPU
+        # meets it (tests/test_torch_restir.py holds the CPU to the same)
+        cpu_ok = np.abs(imgs[1] - gold).max(-1) < 5e-3
+        over = np.argwhere(err >= 5e-3)
+        log(f"phase 17d {name} 64x64 on the card against the golden: max {err.max():.4e} "
+            f"(bound 5e-3), mean {np.abs(imgs[0] - gold).mean():.4e} (bound 5e-4); {len(over)} "
+            f"pixels over the max bound {[(p.tolist(), float(err[tuple(p)])) for p in over]}, "
+            f"the CPU's over it at {np.argwhere(~cpu_ok).tolist()}; max over the pixels where "
+            f"the CPU meets it {err[cpu_ok].max():.4e}")
+        assert np.abs(imgs[0] - gold).mean() < 5e-4
+        assert err[cpu_ok].max() < 5e-3, err[cpu_ok].max()
+        check_image_bounds(f"phase 17d {name} 64x64, the card against this machine's CPU",
+                           imgs[0], imgs[1])
+    log(f"phase 17d took {time.time() - t:.1f} s")
+
+
+def restir_mesh(card, dev, big, cam):
+    """Phase 17e (see phase17)."""
+    import numpy as np
+
+    from aten_tpu_torch.integrator import restir
+    from aten_tpu_torch.ops import traverse_cuda
+
+    W, H = cam.width, cam.height
+    t = time.time()
+    closest, any_hit = traverse_cuda.KERNELS
+    st = restir.init_state(H, W, dev)
+    ca = cam.arrays(dev)
+    for f in range(2):
+        reset_counts()
+        (img, st), ms = timed_ms(lambda: restir.restir_gi_sample(big, ca, W, H, f, st))
+        # a primary walk, 4 bounce walks; the reservoir's two shadow rays
+        # and one NEE shadow ray a bounce
+        launches = only_kernels(read_counts(), traverse_cuda.KERNELS,
+                                f"phase 17e ReSTIR GI frame {f}")
+        assert launches[closest] == 5 and launches[any_hit] == 6, launches
+        log(f"phase 17e ReSTIR GI {W}x{H} depth 5 RR 3 on the 102k mesh, frame {f}: {ms:.1f} ms "
+            f"[{card}]")
+    img = img.cpu().numpy()
+    assert np.isfinite(img).all() and img.mean() > 1e-3
+    sca = dataclasses.replace(cam, width=128, height=128).arrays(dev)
+    got = {}
+    for impl in ("auto", "plain"):
+        reset_counts()
+        im, _ = restir.restir_gi_sample(big, sca, 128, 128, 0, restir.init_state(128, 128, dev),
+                                        max_depth=2, rr_depth=1, impl=impl)
+        if impl == "auto":
+            launches = only_kernels(read_counts(), traverse_cuda.KERNELS,
+                                    "phase 17e ReSTIR GI 128x128 depth 2")
+            assert launches[closest] == 2 and launches[any_hit] == 3, launches
+        else:
+            assert not nonzero(read_counts()), read_counts()
+        got[impl] = im.cpu().numpy()
+    check_image_bounds("phase 17e ReSTIR GI 128x128 depth 2, K1 vs the plain walk",
+                       got["auto"], got["plain"])
+    log(f"phase 17e took {time.time() - t:.1f} s")
+
+
 def golden_zoo_bounds(name, img, gold):
     """The zoo's golden gate: the full-image radiance bounds over the whole
     image, and the golden-test bounds (max < 5e-3, mean < 5e-4 absolute)
@@ -2469,6 +2837,7 @@ def main():
     kernels += lod_phase(card, dev)
     kernels += stats_phase(card, dev)
     kernels += window_phase(card, dev)
+    phase17(card, dev)
 
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
