@@ -15,9 +15,12 @@ are those of its tree baked at that depth (ops/lod_layout.py), built
 here: the reference's own LOD layout (`trl_*`) is never taken.
 An envmap comes with its tables (scene/envmap.py) and textures with
 their stack, sizes and mip chain (scene/textures.py), taken as they are.
+Participating media come with their rows (`med_*`) and, with a density
+grid, its stack, box and majorants (`grid_*`; volume/medium.py).
 The reference's TPU layouts (its kernel layouts, the packed `tri_attr`
-gather table and the staged `env_quad` rows) are dropped; participating
-media, which the port has not ported yet, raise NotImplementedError.
+gather table, the staged `env_quad` rows and the grid's staged corner
+rows `grid_corners`) are dropped.  Any other array the port does not
+know raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from aten_tpu_torch.device import resolve_device
 from aten_tpu_torch.ops import bvh_layout, lod_layout, tlas_layout
 from aten_tpu_torch.scene.envmap import TABLE_KEYS as ENV_KEYS
 from aten_tpu_torch.scene.scene import Scene, check_leaf_sizes, to_tensors
+from aten_tpu_torch.volume.medium import ARRAY_KEYS as MEDIUM_KEYS
+from aten_tpu_torch.volume.medium import GRID_KEYS
 
 # arrays the port uses
 PORT_KEYS = (
@@ -49,8 +54,8 @@ TWO_LEVEL_KEYS = (
 TEX_KEYS = ("tex_stack", "tex_size")
 TEX_MIP_PREFIX = "tex_mip"
 # TPU layouts (Pallas node/prim rows, the instanced tt_ rows, the packed
-# tri_attr gather table, the staged envmap quad rows)
-TPU_LAYOUT_PREFIXES = ("pl_", "trl_", "tt_", "tri_attr", "env_quad")
+# tri_attr gather table, the staged envmap quad rows, the grid's corner rows)
+TPU_LAYOUT_PREFIXES = ("pl_", "trl_", "tt_", "tri_attr", "env_quad", "grid_corners")
 STATIC_KEYS = (
     "num_tris", "num_spheres", "num_lights", "num_instances", "has_alpha",
     "has_stencil", "has_albedo_maps", "has_roughness_maps",
@@ -65,6 +70,10 @@ def from_numpy(arrays: dict, static: dict, device) -> Scene:
         keys += ENV_KEYS
     if "tex_stack" in arrays:
         keys += TEX_KEYS + tuple(k for k in arrays if k.startswith(TEX_MIP_PREFIX))
+    if "med_sigma_a" in arrays:
+        keys += MEDIUM_KEYS
+    if "grid_density" in arrays:
+        keys += GRID_KEYS
     lod = bool(static.get("has_voxel_lod"))
     if lod:
         keys += LOD_KEYS

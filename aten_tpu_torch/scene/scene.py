@@ -42,7 +42,10 @@ an image-based light; `add_texture` registers a texture, and the build
 adds the texture stack and its mip chain (scene/textures.py) with the
 statics `has_albedo_maps`, `has_roughness_maps` and `has_normal_maps`.
 
-Not ported yet (it raises NotImplementedError): participating media.
+`add_medium` registers a participating medium (volume/medium.py), which
+a transmissive material carries by its `medium` id; the build adds the
+medium rows (`med_*`) and, with a density grid, its stack, box and
+majorants (`grid_*`).
 Materials with alpha below 1 or a stencil tag set the statics
 `has_alpha` and `has_stencil`, which the path tracer reads.
 """
@@ -60,6 +63,7 @@ from aten_tpu_torch.scene.envmap import build_env_tables
 from aten_tpu_torch.scene.lights import LightTable, LightType
 from aten_tpu_torch.scene.materials import MaterialTable, MaterialType
 from aten_tpu_torch.scene.textures import TextureTable
+from aten_tpu_torch.volume.medium import MediumTable
 
 
 class Scene:
@@ -219,6 +223,7 @@ class SceneBuilder:
         self.materials = MaterialTable()
         self.lights = LightTable()
         self.textures = TextureTable()
+        self.media = MediumTable()
         self._vpos = []  # per-mesh [V,3] float32 chunks
         self._vnml = []
         self._vuv = []
@@ -247,7 +252,9 @@ class SceneBuilder:
         return self.textures.add(img)
 
     def add_medium(self, **kw) -> int:
-        raise NotImplementedError("participating media are not ported yet")
+        """Register a participating medium (MediumTable.add); a transmissive
+        material carries it with add_material(..., medium=id)."""
+        return self.media.add(**kw)
 
     # -- objects / instances (two-level TLAS/BLAS) -------------------------
     def create_object(self) -> int:
@@ -489,9 +496,9 @@ class SceneBuilder:
             arrays.update(build_env_tables(self._envmap))
         if self.textures.images:
             arrays.update(self.textures.numpy_arrays())
+        if self.media.rows:
+            arrays.update(self.media.numpy_arrays())
         rows = self.materials.rows
-        if any(r["medium"] >= 0 for r in rows):
-            raise NotImplementedError("participating media are not ported yet")
         static = {
             "num_tris": num_tris,
             "num_spheres": num_sph,

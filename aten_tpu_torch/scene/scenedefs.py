@@ -451,3 +451,116 @@ def instanced_mesh_scene(width=512, height=512, n_u=400, n_v=128, *,
     b = SceneBuilder()
     cam = populate_instanced_mesh_scene(b, width, height, n_u, n_v)
     return b.build(device), cam
+
+
+def _add_box(b, lo, hi, mtl):
+    """Axis-aligned box as 12 triangles, outward normals (reference
+    scenedefs.py:246-255)."""
+    x0, y0, z0 = lo
+    x1, y1, z1 = hi
+    b.add_quad([x0, y0, z1], [x1, y0, z1], [x1, y1, z1], [x0, y1, z1], mtl)  # +z
+    b.add_quad([x1, y0, z0], [x0, y0, z0], [x0, y1, z0], [x1, y1, z0], mtl)  # -z
+    b.add_quad([x1, y0, z1], [x1, y0, z0], [x1, y1, z0], [x1, y1, z1], mtl)  # +x
+    b.add_quad([x0, y0, z0], [x0, y0, z1], [x0, y1, z1], [x0, y1, z0], mtl)  # -x
+    b.add_quad([x0, y1, z1], [x1, y1, z1], [x1, y1, z0], [x0, y1, z0], mtl)  # +y
+    b.add_quad([x0, y0, z0], [x1, y0, z0], [x1, y0, z1], [x0, y0, z1], mtl)  # -y
+
+
+def populate_homogeneous_volume_scene(b, width, height, sigma_s=0.8, sigma_a=0.05, g=0.4):
+    """Fog in a box (reference scenedefs.py:258-283): a null-boundary
+    cube filled with a scattering medium, an area light above, a diffuse
+    floor; 16 prims."""
+    floor = b.add_material(MaterialType.DIFFUSE, base_color=(0.6, 0.6, 0.6))
+    emit = b.add_material(MaterialType.EMISSIVE, base_color=(24.0, 23.0, 21.0))
+    med = b.add_medium(sigma_a=(sigma_a,) * 3, sigma_s=(sigma_s,) * 3, g=g)
+    boundary = b.add_material(
+        MaterialType.REFRACTION, base_color=(1.0, 1.0, 1.0), ior=1.0, medium=med)
+    ext = 12.0
+    b.add_quad([-ext, 0, ext], [ext, 0, ext], [ext, 0, -ext], [-ext, 0, -ext], floor)
+    _add_box(b, (-3, 0.02, -3), (3, 6, 3), boundary)
+    ls, lc = b.add_quad([-2, 9, 2], [-2, 9, -2], [2, 9, -2], [2, 9, 2], emit)
+    b.add_area_light_tris(ls, lc, le=(24.0, 23.0, 21.0))
+    b.set_background((0.05, 0.06, 0.08))
+    return PinholeCamera(
+        origin=(0.0, 4.0, 14.0), lookat=(0.0, 2.5, 0.0), vfov_deg=42.0,
+        width=width, height=height,
+    )
+
+
+def homogeneous_volume_scene(width=256, height=256, sigma_s=0.8, sigma_a=0.05, g=0.4, *,
+                             device="cuda"):
+    b = SceneBuilder()
+    cam = populate_homogeneous_volume_scene(b, width, height, sigma_s, sigma_a, g)
+    return b.build(device), cam
+
+
+def populate_hetero_volume_scene(b, width, height, res=48):
+    """The procedural smoke ball (reference scenedefs.py:286-315), delta
+    tracked through a res^3 grid in a null-boundary box; 16 prims: the
+    density is a soft sphere falloff times a low-frequency ripple."""
+    z, y, x = np.meshgrid(
+        np.linspace(-1, 1, res), np.linspace(-1, 1, res), np.linspace(-1, 1, res),
+        indexing="ij",
+    )
+    r = np.sqrt(x * x + y * y + z * z)
+    dens = np.clip(1.0 - r, 0.0, 1.0) ** 1.5
+    dens *= 0.75 + 0.25 * np.sin(6.0 * x) * np.sin(5.0 * y + 1.0) * np.sin(7.0 * z)
+    dens = np.clip(dens * 2.0, 0.0, 1.0).astype(np.float32)
+
+    floor = b.add_material(MaterialType.DIFFUSE, base_color=(0.55, 0.55, 0.55))
+    emit = b.add_material(MaterialType.EMISSIVE, base_color=(20.0, 19.0, 18.0))
+    lo, hi = (-2.0, 0.2, -2.0), (2.0, 4.2, 2.0)
+    med = b.add_medium(
+        sigma_a=(0.2, 0.2, 0.2), sigma_s=(3.0, 3.0, 3.0), g=0.2,
+        grid=dens, grid_bmin=lo, grid_bmax=hi,
+    )
+    boundary = b.add_material(
+        MaterialType.REFRACTION, base_color=(1.0, 1.0, 1.0), ior=1.0, medium=med)
+    ext = 12.0
+    b.add_quad([-ext, 0, ext], [ext, 0, ext], [ext, 0, -ext], [-ext, 0, -ext], floor)
+    _add_box(b, lo, hi, boundary)
+    ls, lc = b.add_quad([-2, 8, 2], [-2, 8, -2], [2, 8, -2], [2, 8, 2], emit)
+    b.add_area_light_tris(ls, lc, le=(20.0, 19.0, 18.0))
+    b.set_background((0.06, 0.07, 0.09))
+    return PinholeCamera(
+        origin=(0.0, 3.0, 11.0), lookat=(0.0, 2.0, 0.0), vfov_deg=42.0,
+        width=width, height=height,
+    )
+
+
+def hetero_volume_scene(width=256, height=256, res=48, *, device="cuda"):
+    b = SceneBuilder()
+    cam = populate_hetero_volume_scene(b, width, height, res)
+    return b.build(device), cam
+
+
+# the fog box around the mesh fixture's knot (it spans x, y, z within
+# +-2.2, -0.5..3.9, +-0.9; the floor lies at y = -0.6)
+FOG_BOX = ((-3.0, -0.58, -2.0), (3.0, 4.5, 2.0))
+
+
+def populate_fog_knot_scene(b, width, height, n_u=400, n_v=128, grid_res=None):
+    """The mesh fixture (`populate_procedural_mesh_scene`) inside a
+    null-boundary box of fog, 2*n_u*n_v + 16 prims: a homogeneous medium
+    (sigma_s 0.15, sigma_a 0.02, g 0.3) or, with grid_res, the
+    `smoke_plume(grid_res)` grid through `add_grid_medium` (sigma_s 2,
+    sigma_a 0.1, g 0.3)."""
+    from aten_tpu_torch.volume.grids import add_grid_medium, smoke_plume
+
+    cam = populate_procedural_mesh_scene(b, width, height, n_u, n_v)
+    lo, hi = FOG_BOX
+    if grid_res is None:
+        med = b.add_medium(sigma_a=(0.02,) * 3, sigma_s=(0.15,) * 3, g=0.3)
+        boundary = b.add_material(
+            MaterialType.REFRACTION, base_color=(1.0, 1.0, 1.0), ior=1.0, medium=med)
+        _add_box(b, lo, hi, boundary)
+    else:
+        add_grid_medium(b, smoke_plume(grid_res), lo, hi, sigma_s=(2.0,) * 3,
+                        sigma_a=(0.1,) * 3, g=0.3)
+    return cam
+
+
+def fog_knot_scene(width=512, height=512, n_u=400, n_v=128, grid_res=None, *, device="cuda"):
+    b = SceneBuilder()
+    cam = populate_fog_knot_scene(b, width, height, n_u, n_v, grid_res)
+    return b.build(device), cam

@@ -47,7 +47,7 @@ LOD oracle walk on 4,194,304 camera and bounce rays each, timed in turns
 beside their non-LOD instantiations, and the three LOD scenes (the
 102,404-prim mesh at lod_depth 9 and 15, the 512,004-prim mesh at 18)
 rendered at 512x512 x 16 spp through them, each against the oracle
-walk's render at 256x256, depth 3.  Phase 15 holds the kStats instantiations of K1 and K3
+walk's render at 256x256, depth 2.  Phase 15 holds the kStats instantiations of K1 and K3
 (per-ray work counts) bitwise against their plain instantiations' hits
 and their plain versions' counts on 4,194,304 camera and bounce rays,
 timed in turns with them, runs the traversal-stats tool
@@ -73,7 +73,17 @@ a 64 spp render; object motion through K5 on the instanced fixture
 rebuilt each frame with one knot moving; AO through K1's any-hit walk
 against the oracle walk; ReSTIR direct and GI at bench.py's
 restir_126lights shape (the dense test) and against the ReSTIR goldens;
-and ReSTIR GI on the mesh through K1 against the oracle walk.  Each
+and ReSTIR GI on the mesh through K1 against the oracle walk.  Phase
+18 runs participating media and NPR: bench.py's hetero_volume_ms call
+(render_volpt_sample, 256x256, a sample of 4, depth 8) on the smoke
+ball and the same on the homogeneous fog box, each timed by CUDA events
+with its host syncs and profiled, and at 32x32 against the port on this
+machine's CPU (the smoke ball also against tests/golden/volume.npz),
+within statistical bounds; the 102,404-prim knot in a homogeneous fog
+box and in a smoke_plume grid through K1 at 256x256 x 2 spp, each
+bitwise the render through K1's plain version at 64x64; render_npr and
+the sample-ray feature lines on the knot at 512x512 through K1, and at
+128x128 against the oracle walk.  Each
 main-path render and step is profiled, with its ten costliest device
 ops and each traversal kernel's summed device time. It prints the
 measured times and each kernel's bound (the least time the card could
@@ -454,7 +464,9 @@ def profile_render(fn):
     the card (kernels, copies, fills; one stream, so they do not
     overlap).  Only the card's activity is recorded: recording the host's
     ops too slowed the host-bound renders it profiles and took seconds to
-    summarise."""
+    summarise.  The sums are taken over the profiler's raw events: its
+    per-name averages (`key_averages`) take about 0.2 ms an event to
+    build, half a minute for a volume frame's 160,000 device ops."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -465,22 +477,21 @@ def profile_render(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.time() - t) * 1e3
-    busy = trav = 0.0
-    ops, per_kernel, n_ops = [], {}, 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+    per_name, n_ops = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue  # host ops: their device time repeats their kernels'
-        us = e.self_device_time_total
-        busy += us
-        n_ops += e.count
-        ops.append((e.key, us / 1e3))
-        if "traverse_kernel" in e.key:
-            trav += us
-            m = re.search(r"\w+_traverse_kernel(<[^>]*>)?", e.key)
-            short = m.group(0) if m else e.key
-            per_kernel[short] = per_kernel.get(short, 0.0) + us / 1e3
-    top = sorted(ops, key=lambda kv: -kv[1])[:10]
-    return wall, busy / 1e3, trav / 1e3, top, per_kernel, n_ops
+        per_name[e.name()] = per_name.get(e.name(), 0.0) + e.duration_ns() / 1e6
+        n_ops += 1
+    trav, per_kernel = 0.0, {}
+    for name, ms in per_name.items():
+        if "traverse_kernel" in name:
+            trav += ms
+            m = re.search(r"\w+_traverse_kernel(<[^>]*>)?", name)
+            short = m.group(0) if m else name
+            per_kernel[short] = per_kernel.get(short, 0.0) + ms
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+    return wall, sum(per_name.values()), trav, top, per_kernel, n_ops
 
 
 def log_profile(phase, card, prof, what="render"):
@@ -809,6 +820,11 @@ def bounce_rays(scene, ro, rd, n, rng, impl):
 
 # Phase 14's kernels: the traverse() impl of each LOD kernel
 LOD_IMPL = {"K1-lod": "cuda", "K3-lod": "plk", "K4-lod": "smt"}
+# the depth of phase 14's renders against the LOD oracle walk and of
+# phase 15's against the plain walk (host-bound walks: each bounce is
+# seconds of host time)
+LOD_PLAIN_DEPTH = 2
+PLAIN_DEPTH = 1
 
 
 def lod_plain(label, scene, ro, rd, t0, any_hit, t_min):
@@ -939,7 +955,7 @@ def lod_phase(card, dev):
     K3-lod, the 102k at 15 through K4-lod (the K4 layout attached and
     traverse's impl="smt", the kernel and layout of a build under
     ATEN_TPU_KERNEL=smt), each profiled and held to the oracle walk's
-    render at 256x256, depth 3.  Returns the kernels' JSON entries."""
+    render at 256x256, depth 2.  Returns the kernels' JSON entries."""
     import numpy as np
     import torch
 
@@ -1045,18 +1061,18 @@ def lod_phase(card, dev):
             f"{img.mean():.5f} std {img.std():.5f} wall {wall * 1e3:.1f} ms, "
             f"{n_main / wall / 1e6:.3f} Mpaths/s [{card}]")
         log_profile(f"phase 14 {name}", card, profile_render(lambda: render_image(scene, c, **kw)))
-        # against the oracle walk at 256x256, depth 3: its host-bound walk
+        # against the oracle walk at 256x256, depth 2: its host-bound walk
         # takes a time set by its steps, not its rays (16-24 s a scene at
         # 512x512, depth 5)
         t = time.time()
         half = dataclasses.replace(c, width=c.width // 2, height=c.height // 2)
-        kw3 = {**kw, "max_depth": 3}
-        ik = render_image(scene, half, **kw3).cpu().numpy()
-        plain = render_image(scene, half, **{**kw3, "impl": "plain"}).cpu().numpy()
+        kw2 = {**kw, "max_depth": LOD_PLAIN_DEPTH}
+        ik = render_image(scene, half, **kw2).cpu().numpy()
+        plain = render_image(scene, half, **{**kw2, "impl": "plain"}).cpu().numpy()
         log(f"phase 14 {name}: the kernels' and the LOD oracle walk's {half.width}x"
-            f"{half.height} depth-3 renders took {time.time() - t:.1f} s")
-        check_image_bounds(f"phase 14 {name} {half.width}x{half.height} 16spp depth 3 {label} "
-                           "vs the LOD oracle walk", ik, plain)
+            f"{half.height} depth-{LOD_PLAIN_DEPTH} renders took {time.time() - t:.1f} s")
+        check_image_bounds(f"phase 14 {name} {half.width}x{half.height} 16spp depth "
+                           f"{LOD_PLAIN_DEPTH} {label} vs the LOD oracle walk", ik, plain)
         entries += [
             {"name": k, "route": "cuda", "source": {"K1-lod": KERNEL_SOURCE,
                                                    "K3-lod": PLK_SOURCE,
@@ -1133,20 +1149,21 @@ def kernel_render(phase, card, scene, cam, names, **kw):
 
 def against_plain(phase, scene, cam, spp=2):
     """The scene through the kernels against the plain walk's render 128
-    pixels wide (the camera's aspect), spp samples, depth 2, RR 1 (the
-    plain walk is host-bound, its time set by its walks: depth 2 keeps
-    phase 15 in its budget), within the full-image bounds."""
+    pixels wide (the camera's aspect), spp samples, depth PLAIN_DEPTH
+    (the plain walk is host-bound, its time set by its walks: depth 1,
+    the primary walk and its shadow rays, keeps the script in its
+    budget), within the full-image bounds."""
     from aten_tpu_torch.integrator.pathtracer import render_image
 
     small = dataclasses.replace(cam, width=128, height=128 * cam.height // cam.width)
-    kw = {"spp": spp, "max_depth": 2, "rr_depth": 1}
+    kw = {"spp": spp, "max_depth": PLAIN_DEPTH, "rr_depth": 1}
     t = time.time()
     ik = render_image(scene, small, **kw).cpu().numpy()
     ip = render_image(scene, small, impl="plain", **kw).cpu().numpy()
     size = f"{small.width}x{small.height} {spp}spp"
     log(f"{phase}: the kernels' and the plain walk's {size} renders took "
         f"{time.time() - t:.1f} s")
-    check_image_bounds(f"{phase} {size} depth 2, kernels vs the plain walk", ik, ip)
+    check_image_bounds(f"{phase} {size} depth {PLAIN_DEPTH}, kernels vs the plain walk", ik, ip)
 
 
 def stats_phase(card, dev):
@@ -1163,10 +1180,10 @@ def stats_phase(card, dev):
     timed in turns on mesh@15's baked tree; 15c: alpha_mesh_scene
     and 15d: stencil_mesh_scene at 512x512 x 16 spp, depth 5, RR 3,
     through K1, timed with peak memory and profiled, each against the
-    plain walk's render at 128x128 x 2 spp, depth 2; 15e: the mesh scene
+    plain walk's render at 128x128 x 2 spp, depth 1; 15e: the mesh scene
     through a thin-lens camera focused on the knot (512x512 x 16 spp) and
     an equirect one (1024x512 x 8 spp), each against the plain walk at
-    128 pixels wide x 2 spp, depth 2, and render_sample(sampler="bluenoise",
+    128 pixels wide x 2 spp, depth 1, and render_sample(sampler="bluenoise",
     spp_chunk=16) at 512x512, with a 64x64 render on the card against
     the port on this machine's CPU.  Returns the kStats instantiations'
     JSON entries."""
@@ -1938,6 +1955,243 @@ def restir_mesh(card, dev, big, cam):
     check_image_bounds("phase 17e ReSTIR GI 128x128 depth 2, K1 vs the plain walk",
                        got["auto"], got["plain"])
     log(f"phase 17e took {time.time() - t:.1f} s")
+
+
+# Phase 18's renders.  18a: bench.py's hetero_volume_ms call
+# (bench.py:332-348): render_volpt_sample, sample i of 4, depth 8, RR 4,
+# frame 1, at 256x256; 18b the same on the homogeneous fog box.
+VOL_BENCH = {"spp": 4, "max_depth": 8, "rr_depth": 4}
+VOL_FRAME = 1
+VOL_CHECK = {"spp": 4, "max_depth": 6}  # tests/golden/volume.npz's config, at 32x32
+# the statistical bounds of tests/test_torch_volume.py: tracking decisions
+# flip on an ulp of log or exp, and the path then takes another walk
+VOL_PIXEL_FRAC, VOL_MEAN_REL, VOL_BLOCK_REL = 0.90, 0.02, 0.10
+FOG_KW = {"spp": 2, "max_depth": 5, "rr_depth": 3}  # 18c, through K1
+# 18c's renders against K1's plain version: 64x64, 2 spp, depth 2, RR 1
+# (the plain walk is host-bound, its time set by its walks, ~0.8 s each)
+FOG_SMALL = 64
+FOG_SMALL_KW = {"spp": 2, "max_depth": 2, "rr_depth": 1}
+NPR_SMALL = 128  # 18d's renders against the oracle walk
+LINE_SAMPLES = 8
+LINE_AGREE = 0.999
+
+
+def reset_syncs():
+    from aten_tpu_torch.integrator import volpt
+    from aten_tpu_torch.volume import medium
+
+    medium.HOST_SYNCS["tracking"] = 0
+    volpt.HOST_SYNCS["shadow"] = 0
+
+
+def read_syncs():
+    """The volume tracer's host syncs since reset_syncs: the tracking
+    loops' and the shadow walks' live counts."""
+    from aten_tpu_torch.integrator import volpt
+    from aten_tpu_torch.volume import medium
+
+    return {"tracking": medium.HOST_SYNCS["tracking"], "shadow": volpt.HOST_SYNCS["shadow"]}
+
+
+def volume_image_stats(img, ref):
+    """(fraction of pixels within 1e-4 in every channel, |mean - ref mean|
+    / ref mean, largest rel difference of 4x4-block means), as
+    tests/test_torch_volume.py holds the port to the reference."""
+    import numpy as np
+
+    within = float((np.abs(img - ref) <= 1e-4).all(-1).mean())
+    mean_rel = float(abs(img.mean() - ref.mean()) / ref.mean())
+    h, w = img.shape[0] // 4, img.shape[1] // 4
+    bi = img[:h * 4, :w * 4].reshape(h, 4, w, 4, 3).mean((1, 3, 4))
+    br = ref[:h * 4, :w * 4].reshape(h, 4, w, 4, 3).mean((1, 3, 4))
+    return within, mean_rel, float((np.abs(bi - br) / np.maximum(np.abs(br), 1e-2)).max())
+
+
+def check_volume_bounds(name, img, ref):
+    import numpy as np
+
+    within, mean_rel, block_rel = volume_image_stats(img, ref)
+    log(f"{name}: {within:.4f} of pixels within 1e-4 (>= {VOL_PIXEL_FRAC}), mean rel "
+        f"{mean_rel:.5f} (<= {VOL_MEAN_REL}), 4x4-block means rel <= {block_rel:.4f} "
+        f"(<= {VOL_BLOCK_REL})")
+    assert np.isfinite(img).all() and (img >= 0).all(), name
+    assert (within >= VOL_PIXEL_FRAC and mean_rel <= VOL_MEAN_REL
+            and block_rel <= VOL_BLOCK_REL), name
+
+
+def phase18(card, dev):
+    """Phase 18: participating media and NPR.  18a: bench.py's
+    hetero_volume_ms call on hetero_volume_scene(256, 256) (res 48; 16
+    prims, the dense test: no kernel), render_volpt_sample, sample i of
+    4, depth 8, RR 4, frame 1: a warm-up, 3 frames by CUDA events with
+    the host syncs a frame (the tracking loops' and shadow walks' live
+    counts) and the peak added, one profiled frame; at 32x32 (res 24, 4
+    spp, depth 6) the card against the port on this machine's CPU and
+    against tests/golden/volume.npz, within the statistical bounds of
+    tests/test_torch_volume.py.  18b: the same on
+    homogeneous_volume_scene(256, 256).  18c: the 102,404-prim knot in a
+    homogeneous null-boundary fog box and in a smoke_plume(48) grid
+    medium (fog_knot_scene), each render_volpt at 256x256, 2 spp, depth 5,
+    RR 3 through K1 (closest-hit launches only), and at 64x64 bitwise
+    the render through K1's plain version.  18d: render_npr on the 102k
+    mesh at 512x512 through K1 (2 closest-hit, 3 any-hit launches) and
+    feature_lines_sample_rays at 512x512 with 8 samples (9 closest-hit),
+    and both at 128x128 against the oracle walk."""
+    from aten_tpu_torch.scene.scenedefs import hetero_volume_scene, homogeneous_volume_scene
+
+    t18 = time.time()
+    for part, make, small_kw in (("a", hetero_volume_scene, {"res": 24}),
+                                 ("b", homogeneous_volume_scene, {})):
+        volume_frames(card, dev, part, make, small_kw)
+    fog_knot(card, dev)
+    npr_check(card, dev)
+    log(f"phase 18 took {time.time() - t18:.1f} s (aim 90 s) [{card}]")
+
+
+def volume_frames(card, dev, part, make, small_kw):
+    """Phase 18a or 18b (see phase18); small_kw: the 32x32 scene's
+    arguments (the hetero grid at res 24, the golden's)."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.integrator.volpt import render_volpt, render_volpt_sample
+
+    t = time.time()
+    scene, cam = make(256, 256, device=dev)
+    W, H, ca = cam.width, cam.height, cam.arrays(dev)
+    name = f"phase 18{part} {make.__name__}"
+
+    def frame(i):
+        return render_volpt_sample(scene, ca, W, H, VOL_FRAME, i, **VOL_BENCH)
+
+    frame(3)  # warm-up
+    log(f"{name}: built and warmed up in {time.time() - t:.1f} s")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    rows = []
+    for i in range(3):
+        reset_syncs()
+        img, ms = timed_ms(lambda: frame(i))
+        rows.append((ms, read_syncs()))
+    peak = torch.cuda.max_memory_allocated()
+    assert not nonzero(read_counts()), read_counts()
+    img = img.cpu().numpy()
+    assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 1e-3, img.mean()
+    log(f"{name} {W}x{H}, bench.py's call (a sample of 4, depth 8, RR 4, frame 1; 16 prims, the "
+        f"dense test: 0 kernel launches): "
+        f"{', '.join(f'{ms:.1f} ms ({s})' for ms, s in rows)} a frame (host syncs), mean "
+        f"{img.mean():.5f}, {peak_text(peak, held)} [{card}]")
+    log_profile(name, card, profile_render(lambda: frame(0)), what="frame")
+    # at 32x32: the card against this machine's CPU and the golden
+    imgs = []
+    for d in (dev, "cpu"):
+        tc = time.time()
+        s, c = make(32, 32, device=d, **small_kw)
+        imgs.append(render_volpt(s, c, **VOL_CHECK).cpu().numpy())
+        log(f"{name} 32x32 render on {d}: {time.time() - tc:.1f} s [{card}]")
+    check_volume_bounds(f"{name} 32x32 4 spp depth 6, the card against this machine's CPU",
+                        *imgs)
+    if small_kw:
+        with np.load(os.path.join(ROOT, "tests", "golden", "volume.npz")) as z:
+            check_volume_bounds(f"{name} 32x32, the card against tests/golden/volume.npz",
+                                imgs[0], z["img"])
+    log(f"{name} took {time.time() - t:.1f} s [{card}]")
+
+
+def fog_knot(card, dev):
+    """Phase 18c (see phase18)."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.integrator.volpt import render_volpt
+    from aten_tpu_torch.ops import traverse_cuda
+    from aten_tpu_torch.scene.scenedefs import fog_knot_scene
+
+    closest = traverse_cuda.KERNELS[0]
+    for grid in (None, 48):
+        t = time.time()
+        scene, cam = fog_knot_scene(256, 256, grid_res=grid, device=dev)
+        name = f"phase 18c fog_knot_scene ({'smoke_plume(48) grid' if grid else 'homogeneous'})"
+        assert "traversal" not in scene, scene.static  # K1's
+        log(f"{name}: {scene['num_tris']} prims, built in {time.time() - t:.1f} s")
+        render_volpt(scene, cam, **FOG_KW)  # warm-up
+        reset_counts()
+        reset_syncs()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        img, ms = timed_ms(lambda: render_volpt(scene, cam, **FOG_KW))
+        peak = torch.cuda.max_memory_allocated()
+        launches = only_kernels(read_counts(), (closest,), f"{name} render")
+        img = img.cpu().numpy()
+        assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 1e-3, img.mean()
+        log(f"{name} render_volpt {cam.width}x{cam.height} 2 spp depth 5 RR 3 through K1: "
+            f"{ms:.1f} ms, mean {img.mean():.5f}, {launches[closest]} closest-hit launches, "
+            f"host syncs {read_syncs()}, {peak_text(peak, held)} [{card}]")
+        log_profile(name, card, profile_render(lambda: render_volpt(scene, cam, **FOG_KW)))
+        t = time.time()
+        small = dataclasses.replace(cam, width=FOG_SMALL, height=FOG_SMALL)
+        ik = render_volpt(scene, small, **FOG_SMALL_KW).cpu().numpy()
+        reset_counts()
+        ip = render_volpt(scene, small, impl="plain", **FOG_SMALL_KW).cpu().numpy()
+        assert not nonzero(read_counts()), read_counts()
+        same = bool(np.array_equal(ik, ip))
+        log(f"{name} {FOG_SMALL}x{FOG_SMALL} 2 spp depth 2: K1 against its plain version "
+            f"bitwise {same}, mean {ik.mean():.5f}; {time.time() - t:.1f} s [{card}]")
+        assert same, name
+        del scene
+        torch.cuda.empty_cache()
+
+
+def npr_check(card, dev):
+    """Phase 18d (see phase18)."""
+    import numpy as np
+
+    from aten_tpu_torch.integrator.npr import ToonParams, feature_lines_sample_rays, render_npr
+    from aten_tpu_torch.ops import traverse_cuda
+    from aten_tpu_torch.scene.scenedefs import procedural_mesh_scene
+
+    t = time.time()
+    closest, any_hit = traverse_cuda.KERNELS
+    big, cam = procedural_mesh_scene(512, 512, device=dev)
+    W, H, ca = cam.width, cam.height, cam.arrays(dev)
+    params = ToonParams()
+
+    def lines(sc, a, w, h, **kw):
+        return feature_lines_sample_rays(sc, a, w, h, 0, params, num_samples=LINE_SAMPLES, **kw)
+
+    render_npr(big, cam)  # warm-up
+    lines(big, ca, W, H)
+    reset_counts()
+    img, npr_ms = timed_ms(lambda: render_npr(big, cam))
+    got = only_kernels(read_counts(), traverse_cuda.KERNELS, "phase 18d render_npr")
+    # the G-buffer pass's two bounces and their NEE rays, the key light's shadow ray
+    assert got == {closest: 2, any_hit: 3}, got
+    reset_counts()
+    mask, line_ms = timed_ms(lambda: lines(big, ca, W, H))
+    got_l = only_kernels(read_counts(), (closest,), "phase 18d feature_lines_sample_rays")
+    assert got_l == {closest: 1 + LINE_SAMPLES}, got_l
+    img, mask = img.cpu().numpy(), mask.cpu().numpy()
+    assert np.isfinite(img).all() and 0.0 < mask.mean() < 0.5, mask.mean()
+    log(f"phase 18d render_npr {W}x{H} through K1: {npr_ms:.1f} ms, launches {got}; "
+        f"feature_lines_sample_rays {W}x{H}, {LINE_SAMPLES} samples: {line_ms:.1f} ms, launches "
+        f"{got_l}, lines on {mask.mean():.4f} of pixels [{card}]")
+    log_profile("phase 18d", card, profile_render(lambda: render_npr(big, cam)),
+                what="render_npr")
+    small = dataclasses.replace(cam, width=NPR_SMALL, height=NPR_SMALL)
+    sa = small.arrays(dev)
+    t2 = time.time()
+    ik = render_npr(big, small).cpu().numpy()
+    ip = render_npr(big, small, impl="plain").cpu().numpy()
+    lk = lines(big, sa, NPR_SMALL, NPR_SMALL).cpu().numpy()
+    lp = lines(big, sa, NPR_SMALL, NPR_SMALL, impl="plain").cpu().numpy()
+    agree = float((lk == lp).mean())
+    log(f"phase 18d {NPR_SMALL}x{NPR_SMALL} against the oracle walk: line masks agree on "
+        f"{agree:.6f} of pixels (>= {LINE_AGREE}); {time.time() - t2:.1f} s [{card}]")
+    assert agree >= LINE_AGREE, agree
+    check_image_bounds(f"phase 18d render_npr {NPR_SMALL}x{NPR_SMALL}, K1 vs the oracle walk",
+                       ik, ip)
+    log(f"phase 18d took {time.time() - t:.1f} s [{card}]")
 
 
 def golden_zoo_bounds(name, img, gold):
@@ -2838,6 +3092,7 @@ def main():
     kernels += stats_phase(card, dev)
     kernels += window_phase(card, dev)
     phase17(card, dev)
+    phase18(card, dev)
 
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -142,9 +142,17 @@ def test_bridge_matches_reference_and_builder(name):
 def test_bridge_rejects_unported_features():
     ref = jdefs.cornell_box(16, 16)[0]
     arrays = jax.tree_util.tree_map(np.asarray, ref.arrays)
-    with pytest.raises(NotImplementedError, match="med_sigma_a"):
-        bridge.from_numpy({**arrays, "med_sigma_a": np.zeros((1, 3), np.float32)},
+    # an array the port does not know is refused
+    with pytest.raises(NotImplementedError, match="not_a_scene_array"):
+        bridge.from_numpy({**arrays, "not_a_scene_array": np.zeros((1, 3), np.float32)},
                           ref.static, "cpu")
+    # media are ported (PR 14): their rows come across
+    med = {"med_sigma_a": np.zeros((1, 3), np.float32), "med_sigma_s": np.ones((1, 3), np.float32),
+           "med_g": np.zeros(1, np.float32), "med_le": np.zeros((1, 3), np.float32),
+           "med_grid": np.full(1, -1, np.int32)}
+    via = bridge.from_numpy({**arrays, **med}, ref.static, "cpu")
+    for k, v in med.items():
+        np.testing.assert_array_equal(via[k].numpy(), v)
     # voxel LOD is ported: the annotation and lod_depth come across, with
     # K1's records of the tree the port bakes from them
     jb = JaxSceneBuilder()
@@ -165,12 +173,15 @@ def test_bridge_rejects_unported_features():
 
 def test_builder_rejects_unported_features():
     b = SceneBuilder()
-    with pytest.raises(NotImplementedError):
-        b.add_medium(sigma_a=1.0)
+    with pytest.raises(TypeError, match="not_a_field"):
+        b.add_material(MaterialType.DIFFUSE, not_a_field=1.0)
+    # media are ported (PR 14): a material carrying one builds
+    assert b.add_medium(sigma_a=(1.0, 1.0, 1.0)) == 0
     b.add_material(MaterialType.DIFFUSE, medium=0)
     b.add_quad([0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], 0)
-    with pytest.raises(NotImplementedError, match="media"):
-        b.build("cpu")
+    scene = b.build("cpu")
+    assert int(scene["materials"]["medium"][0]) == 0
+    np.testing.assert_array_equal(scene["med_sigma_a"].numpy(), [[1.0, 1.0, 1.0]])
     # envmaps and textures are ported: they build
     b = SceneBuilder()
     tex = b.add_texture(np.ones((4, 4, 4), np.float32))

@@ -128,11 +128,13 @@ def test_progressive_pathtracer_accumulates_samples():
 
 
 def test_unported_scene_features_raise():
-    """Participating media are still unported and raise.  The alpha quad
-    this test once saw refused now renders as aten_tpu renders it: a
+    """Nothing of the reference's scene features raises any more.  The
+    alpha quad this test once saw refused now renders as aten_tpu renders it: a
     black veil at alpha 0.5 before the blue-grey background, at 16x16,
     4 spp, within the full-image bounds.  Voxel LOD is ported: a scene
-    after enable_voxel_lod renders."""
+    after enable_voxel_lod renders.  Media are ported (PR 14): a scene
+    with a medium builds, and the path tracer, as the reference's,
+    renders it without reading the medium."""
     from aten_tpu.scene.materials import MaterialType as JMT
 
     def populate(b, mt):
@@ -153,17 +155,17 @@ def test_unported_scene_features_raise():
     frac, mean_rel = _image_bounds(img, ref)
     assert frac < 5e-3 and mean_rel < 3e-3, (frac, mean_rel)
     assert 0.2 < img[8, 8].mean() / 0.3166 < 0.8  # about half the background comes through
-    # media are still unported (every material family is)
     b = SceneBuilder()
-    with pytest.raises(NotImplementedError, match="media"):
-        b.add_medium(sigma_a=(0.1, 0.1, 0.1))
+    assert b.add_medium(sigma_a=(0.1, 0.1, 0.1)) == 0
     m = b.add_material(MaterialType.DIFFUSE)
     for i in range(8):
         for j in range(8):
             x, y = i / 8, j / 8
             b.add_quad([x, y, 0], [x + 0.125, y, 0], [x + 0.125, y + 0.125, 0],
                        [x, y + 0.125, 0], m)
-    lod = enable_voxel_lod(b.build("cpu"), lod_depth=3)
+    built = b.build("cpu")
+    assert "med_sigma_a" in built
+    lod = enable_voxel_lod(built, lod_depth=3)
     assert lod["has_voxel_lod"] and (lod["nodes_voxel_mtl"] >= 0).any()
     small = dataclasses.replace(cam, width=8, height=8)
     img = render_image(lod, small, spp=1)

@@ -289,18 +289,31 @@ def test_set_params_keeps_layouts_and_the_callers_tensors():
 
 
 def test_train_step_refuses_unported_features():
-    """Participating media are still unported and raise.  A scene with
-    alpha, which the step once refused, steps as the reference's: the
-    Cornell box with an alpha veil, toward black, the loss and the new
-    fields within rtol 1e-4."""
+    """Nothing of the reference's scene features is refused any more.  A
+    scene with alpha, which the step once refused, steps as the
+    reference's: the Cornell box with an alpha veil, toward black, the
+    loss and the new fields within rtol 1e-4.  A scene whose material
+    carries a medium, which the build once refused, builds (media are
+    ported, PR 14) and steps, the path tracer not reading the medium:
+    its loss is that of the same scene without one."""
     out, live = _steps("cornell_alpha", 1, None, "black", 0.05)
     assert live == ["base_color", "lights.le"]
     (jl, jf), (tl, tf) = out["jax"][0], out["torch"][0]
     np.testing.assert_allclose(tl, jl, rtol=RTOL)
     for k in live:
         np.testing.assert_allclose(tf[k], jf[k], rtol=RTOL, atol=ATOL, err_msg=k)
-    b = SceneBuilder()
-    m = b.add_material(MaterialType.REFRACTION, medium=0)
-    b.add_quad((-1, -1, 0), (1, -1, 0), (1, 1, 0), (-1, 1, 0), m)
-    with pytest.raises(NotImplementedError, match="media"):
-        b.build("cpu")
+    losses = []
+    for with_medium in (True, False):
+        b = SceneBuilder()
+        if with_medium:
+            b.add_medium(sigma_s=(0.5, 0.5, 0.5))
+        m = b.add_material(MaterialType.DIFFUSE, medium=0 if with_medium else -1)
+        b.add_quad((-1, -1, 0), (1, -1, 0), (1, 1, 0), (-1, 1, 0), m)
+        b.add_point_light((0.0, 0.0, 2.0), (4.0, 4.0, 4.0))
+        scene = b.build("cpu")
+        assert ("med_sigma_a" in scene) == with_medium
+        cam = PinholeCamera(origin=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0), width=8, height=8)
+        step = mesh.make_train_step(8, 8, spp=1, max_depth=2, rr_depth=1)
+        loss, _ = step(scene, cam.arrays("cpu"), torch.zeros(8, 8, 3), 0)
+        losses.append(float(loss))
+    assert losses[0] == losses[1] and losses[0] > 0.0, losses
