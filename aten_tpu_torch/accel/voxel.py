@@ -117,7 +117,7 @@ def enable_voxel_lod(scene, lod_depth=VOXEL_DEPTH, voxel_depth=VOXEL_DEPTH, log=
     and the bake's seconds."""
     from aten_tpu_torch.ops.lod_layout import baked_tree
     from aten_tpu_torch.scene.scene import (
-        KERNEL_PREFIXES, KERNEL_STATICS, Scene, host_bvh, kernel_layouts, to_tensors)
+        Scene, host_bvh, kernel_layouts, to_tensors, without_kernel_layouts)
 
     t0 = time.perf_counter()
     host = host_bvh(scene, "voxel LOD")
@@ -132,10 +132,10 @@ def enable_voxel_lod(scene, lod_depth=VOXEL_DEPTH, voxel_depth=VOXEL_DEPTH, log=
             f"{depth.shape[0]} nodes ({int((vox_mtl >= 0).sum())} voxels); bake and "
             f"{lay_static.get('traversal', 'K1')} layout {t2 - t1:.2f} s: "
             f"{int((vox >= 0).sum())} voxel leaves in {vox.shape[0]} baked nodes")
-    arrays = {k: v for k, v in scene.arrays.items() if not k.startswith(KERNEL_PREFIXES)}
-    arrays.update(to_tensors({"nodes_voxel_mtl": vox_mtl, "nodes_depth": depth,
-                              "lod_depth": np.asarray(int(lod_depth), np.int32), **lay},
-                             scene.device))
-    static = {k: v for k, v in scene.static.items() if k not in KERNEL_STATICS}
-    static.update(lay_static, has_voxel_lod=True, lod_bake_depth=int(lod_depth))
+    scene = without_kernel_layouts(scene)
+    arrays = {**scene.arrays, **to_tensors(
+        {"nodes_voxel_mtl": vox_mtl, "nodes_depth": depth,
+         "lod_depth": np.asarray(int(lod_depth), np.int32), **lay}, scene.device)}
+    static = {**scene.static, **lay_static, "has_voxel_lod": True,
+              "lod_bake_depth": int(lod_depth)}
     return Scene(arrays, static, scene.device)

@@ -31,10 +31,21 @@ through `prim_order`:
 spheres); the floats are the bits of tri_v0, tri_e1, tri_e2, sph_center
 and sph_radius.  The original arrays stay in the scene: the plain walks,
 `eval_hit` and the two-level kernel read them.
+
+An LBVH (accel/lbvh.py) numbers its internal nodes [0, P-1) and its
+leaves [P-1, 2P-1), not in preorder.  `lbvh_preorder` renumbers such a
+tree into preorder on its device with fixed-count loops (subtree sizes
+bottom-up, positions top-down, a node's miss link its position plus its
+size), and `lbvh_layout` packs K1's records of the renumbered tree with
+torch ops, gathering the prim records from the current triangle and
+sphere arrays.  The threaded walk visits the nodes in preorder in both
+numberings, so K1 on these records walks the LBVH's own arrays' node
+sequence.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from aten_tpu_torch.ops.lod_layout import voxel_words
 
@@ -133,3 +144,68 @@ def build_bvh_layout(bvh, tri_v0, tri_e1, tri_e2, sph_center, sph_radius, num_tr
     prims = prim_records(bvh["prim_order"], tri_v0, tri_e1, tri_e2, sph_center,
                          sph_radius, num_tris)
     return {"bvh_nodes": nodes, "bvh_prims": prims}
+
+
+def lbvh_preorder(tree, iters):
+    """The LBVH `tree` (torch, accel/lbvh.py's layout) renumbered into
+    preorder: the same schema, node n of the LBVH at position pre[n].
+    iters: at least the tree's height (lbvh.depth_bound)."""
+    hit = tree["nodes_hit"].long()
+    miss = tree["nodes_miss"].long()
+    P = tree["prim_order"].shape[0]
+    n_int, K = P - 1, 2 * P - 1
+    dev = hit.device
+    left = hit[:n_int]
+    right = miss[left]  # a left child's miss link is its sibling
+    size = torch.ones(K, dtype=torch.int64, device=dev)
+    for _ in range(iters):
+        size = torch.cat([1 + size[left] + size[right], size[n_int:]])
+    pre = torch.zeros(K, dtype=torch.int64, device=dev)
+    for _ in range(iters):
+        base = pre[:n_int] + 1
+        pre = pre.index_put((left,), base).index_put((right,), base + size[left])
+    node = torch.arange(K, dtype=torch.int64, device=dev)
+    inv = torch.empty_like(pre).index_put_((pre,), node)  # position -> LBVH node
+    end = (pre + size)[inv]
+    new_miss = torch.where(end < K, end, -1)
+    is_leaf = inv >= n_int
+    return {
+        "nodes_bmin": tree["nodes_bmin"][inv],
+        "nodes_bmax": tree["nodes_bmax"][inv],
+        "nodes_hit": torch.where(is_leaf, new_miss, node + 1).to(torch.int32),
+        "nodes_miss": new_miss.to(torch.int32),
+        "nodes_prim_start": tree["nodes_prim_start"][inv],
+        "nodes_prim_count": tree["nodes_prim_count"][inv],
+        "prim_order": tree["prim_order"],
+    }
+
+
+def lbvh_layout(tree, iters, tri_v0, tri_e1, tri_e2, sph_center, sph_radius, num_tris):
+    """K1's layout of the LBVH `tree`, renumbered into preorder, as
+    tensors on its device: {"bvh_nodes" [2P-1, NODE_WORDS], "bvh_prims"
+    [P, PRIM_WORDS]}, bitwise what build_bvh_layout packs from the
+    renumbered tree's arrays."""
+    P = tree["prim_order"].shape[0]
+    if P > MAX_START:
+        raise ValueError(f"{P} leaves do not pack into start << {LEAF_SHIFT} | count")
+    pre = lbvh_preorder(tree, iters)
+    K = 2 * P - 1
+    ps = pre["nodes_prim_start"]
+    leaf = torch.where(ps >= 0, (ps << LEAF_SHIFT) | pre["nodes_prim_count"], -1)
+    nodes = torch.zeros((K, NODE_WORDS), dtype=torch.int32, device=ps.device)
+    nodes[:, 0:3] = pre["nodes_bmin"].contiguous().view(torch.int32)
+    nodes[:, 3] = pre["nodes_miss"]
+    nodes[:, 4:7] = pre["nodes_bmax"].contiguous().view(torch.int32)
+    nodes[:, 7] = leaf.to(torch.int32)
+    order = tree["prim_order"].long()
+    tri = (order < num_tris)[:, None]
+    t = torch.clamp(order, max=tri_v0.shape[0] - 1)
+    s = torch.clamp(order - num_tris, 0, sph_center.shape[0] - 1)
+    zero = torch.zeros((P, 3), dtype=torch.float32, device=ps.device)
+    radius = torch.cat([sph_radius[s][:, None], zero[:, :2]], 1)
+    prims = torch.zeros((P, PRIM_WORDS), dtype=torch.float32, device=ps.device)
+    prims[:, 0:3] = torch.where(tri, tri_v0[t], sph_center[s])
+    prims[:, 4:7] = torch.where(tri, tri_e1[t], radius)
+    prims[:, 8:11] = torch.where(tri, tri_e2[t], zero)
+    prims.view(torch.int32)[:, 3] = order.to(torch.int32)
+    return {"bvh_nodes": nodes.view(torch.float32), "bvh_prims": prims}

@@ -30,7 +30,7 @@ from aten_tpu_torch.accel.voxel import ARRAY_KEYS as LOD_KEYS
 from aten_tpu_torch.device import resolve_device
 from aten_tpu_torch.ops import bvh_layout, lod_layout, tlas_layout
 from aten_tpu_torch.scene.envmap import TABLE_KEYS as ENV_KEYS
-from aten_tpu_torch.scene.scene import Scene, check_leaf_sizes, to_tensors
+from aten_tpu_torch.scene.scene import BVH_KEYS, Scene, check_leaf_sizes, to_tensors
 from aten_tpu_torch.volume.medium import ARRAY_KEYS as MEDIUM_KEYS
 from aten_tpu_torch.volume.medium import GRID_KEYS
 
@@ -41,11 +41,7 @@ PORT_KEYS = (
     "tri_area", "sph_center", "sph_radius", "sph_mtl", "sph_light",
     "materials", "lights", "bg",
 )
-# the single-level BVH, or the two-level pool of an instanced scene
-BVH_KEYS = (
-    "nodes_bmin", "nodes_bmax", "nodes_hit", "nodes_miss",
-    "nodes_prim_start", "nodes_prim_count", "prim_order",
-)
+# the two-level pool of an instanced scene (a single-level one has BVH_KEYS)
 TWO_LEVEL_KEYS = (
     "tl_bmin", "tl_bmax", "tl_hit", "tl_miss", "tl_ps", "tl_pc", "tl_inst",
     "tl_prim_order", "inst_obj", "inst_w2l", "inst_nmtx", "inst_l2w",

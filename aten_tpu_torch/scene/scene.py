@@ -42,6 +42,15 @@ an image-based light; `add_texture` registers a texture, and the build
 adds the texture stack and its mip chain (scene/textures.py) with the
 statics `has_albedo_maps`, `has_roughness_maps` and `has_normal_maps`.
 
+`build(bvh_cache=path)` takes the single-level tree from an .npz
+(`save_bvh_cache` writes one) when its `prim_order` covers the scene's
+prims, and builds it otherwise; the kernel policy then picks and builds
+the layout from that tree as from a built one.
+
+A tree rebuilt on the device for a posed mesh (accel/lbvh.py) is not in
+preorder; it carries K1's records from the rebuild, and
+`with_plk_layout`, `with_trl_layout` and `with_bvh_layout` refuse it.
+
 `add_medium` registers a participating medium (volume/medium.py), which
 a transmissive material carries by its `medium` id; the build adds the
 medium rows (`med_*`) and, with a density grid, its stack, box and
@@ -50,6 +59,8 @@ Materials with alpha below 1 or a stencil tag set the statics
 `has_alpha` and `has_stencil`, which the path tracer reads.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -108,17 +119,30 @@ def to_tensors(arrays: dict, device):
     return out
 
 
+# the single-level BVH's arrays (accel/build.py)
+BVH_KEYS = (
+    "nodes_bmin", "nodes_bmax", "nodes_hit", "nodes_miss",
+    "nodes_prim_start", "nodes_prim_count", "prim_order",
+)
+_BVH_DTYPES = {"nodes_bmin": np.float32, "nodes_bmax": np.float32}
+
 # the kernels' layouts, which a scene carries one of (besides K1's
 # records where `with_bvh_layout` attached them), and their statics
 KERNEL_PREFIXES = ("bvh_", "plk_", "trl_")
 KERNEL_STATICS = ("traversal", "plk_window", "trl_window")
 
 
+def without_kernel_layouts(scene: Scene) -> Scene:
+    """`scene` with no kernel layout (KERNEL_PREFIXES) and none of their
+    statics: the layouts of a geometry that changed."""
+    return Scene({k: v for k, v in scene.arrays.items() if not k.startswith(KERNEL_PREFIXES)},
+                 {k: v for k, v in scene.static.items() if k not in KERNEL_STATICS},
+                 scene.device)
+
+
 def host_bvh(scene: Scene, what: str) -> dict:
     """The BVH and geometry arrays of `scene`, a built single-level scene,
     as numpy, to build `what` from."""
-    from aten_tpu_torch.scene.bridge import BVH_KEYS
-
     if scene["num_instances"]:
         raise ValueError(f"{what}: only single-level scenes have one; this one has instances")
     return {k: scene[k].cpu().numpy()
@@ -130,6 +154,11 @@ def _layout_tree(scene: Scene, what: str):
     from: its own BVH, or for a voxel-LOD scene the tree baked at its
     `lod_bake_depth` (ops/lod_layout.py) with its voxel leaves' ids."""
     host = host_bvh(scene, what)
+    inner = host["nodes_prim_start"] < 0
+    if (host["nodes_hit"][inner] != np.nonzero(inner)[0] + 1).any():
+        raise ValueError(f"{what}: the scene's tree is not in preorder (an LBVH rebuilt for "
+                         "a pose, which carries K1's records from its rebuild); K3's and "
+                         "K4's layouts of such a tree are not built")
     if not scene.get("has_voxel_lod"):
         return host, host, None
     from aten_tpu_torch.ops.lod_layout import baked_tree
@@ -209,6 +238,24 @@ def with_bvh_layout(scene: Scene) -> Scene:
                                       g["sph_center"], g["sph_radius"], scene["num_tris"],
                                       vox=vox)
     return Scene({**scene.arrays, **to_tensors(lay, scene.device)}, scene.static, scene.device)
+
+
+def read_bvh_cache(path, n_prims):
+    """The BVH arrays (BVH_KEYS) of the .npz at `path` if it exists and its
+    prim_order covers n_prims prims, else None."""
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as z:
+        if z["prim_order"].shape[0] != n_prims:
+            return None
+        return {k: np.asarray(z[k], _BVH_DTYPES.get(k, np.int32)) for k in BVH_KEYS}
+
+
+def save_bvh_cache(scene: Scene, path):
+    """Write the BVH of `scene`, a built single-level scene, to the .npz
+    `path` that `SceneBuilder.build(bvh_cache=path)` reads."""
+    np.savez(path, **{k: v for k, v in host_bvh(scene, "a BVH cache").items()
+                      if k in BVH_KEYS})
 
 
 def check_leaf_sizes(prim_count):
@@ -389,9 +436,10 @@ class SceneBuilder:
         self._bg = tuple(float(c) for c in color)
 
     # -- freeze ------------------------------------------------------------
-    def numpy_arrays(self):
+    def numpy_arrays(self, bvh_cache=None):
         """(arrays, static): the scene as numpy arrays (nested dicts for
-        the material and light tables) and static host values."""
+        the material and light tables) and static host values; a
+        single-level tree from the .npz `bvh_cache` where it fits."""
         vpos = self._positions()
         vnml = (np.concatenate(self._vnml) if self._vnml
                 else np.zeros((0, 3), np.float32))
@@ -458,7 +506,9 @@ class SceneBuilder:
             num_instances = bvh["inst_obj"].shape[0]
             k5 = tlas_layout.build_tlas_layout(bvh, tv0, te1, te2, sc, sr, num_tris)
         else:
-            bvh = build_bvh(all_bmin, all_bmax)
+            bvh = read_bvh_cache(bvh_cache, all_bmin.shape[0]) if bvh_cache else None
+            if bvh is None:
+                bvh = build_bvh(all_bmin, all_bmax)
             check_leaf_sizes(bvh["nodes_prim_count"])
             num_instances = 0
         # each layout only where the kernel policy can run its kernel
@@ -541,9 +591,11 @@ class SceneBuilder:
             obj_prim_boxes, np.asarray([i[0] for i in instances], np.int32),
             np.stack([i[1] for i in instances]))
 
-    def build(self, device="cuda") -> Scene:
+    def build(self, device="cuda", bvh_cache=None) -> Scene:
         """Freeze into a Scene on `device` (the card unless the caller
-        names the CPU; without a card, "cuda" raises)."""
+        names the CPU; without a card, "cuda" raises).  bvh_cache: an .npz
+        of a single-level BVH (`save_bvh_cache`), used when its prim
+        count matches the scene's, else the BVH is built."""
         dev = resolve_device(device)
-        arrays, static = self.numpy_arrays()
+        arrays, static = self.numpy_arrays(bvh_cache)
         return Scene(to_tensors(arrays, dev), static, dev)

@@ -6,14 +6,20 @@ function that fills any builder with the reference builder's interface
 set_background, set_envmap) and returns the camera, plus a wrapper that builds the
 port's Scene on a device, the card unless the caller names the CPU.  The tests hand the same populate
 functions the reference `aten_tpu` builder, so both packages hold the
-identical scene.
+identical scene.  The asset scenes at the end (`obj_cornell_box`,
+`dragon_scene`, `sponza_scene`, `crytek_class_scene`) read the
+reference's asset tree `REF_ASSET_DIR` through scene/objloader.py.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from aten_tpu_torch.core.camera import PinholeCamera
+from aten_tpu_torch.io.image import load_image
 from aten_tpu_torch.scene.materials import MaterialType
+from aten_tpu_torch.scene.objloader import _mtl_to_material, load_obj
 from aten_tpu_torch.scene.scene import SceneBuilder
 
 
@@ -563,4 +569,97 @@ def populate_fog_knot_scene(b, width, height, n_u=400, n_v=128, grid_res=None):
 def fog_knot_scene(width=512, height=512, n_u=400, n_v=128, grid_res=None, *, device="cuda"):
     b = SceneBuilder()
     cam = populate_fog_knot_scene(b, width, height, n_u, n_v, grid_res)
+    return b.build(device), cam
+
+
+# The reference's asset tree (read-only).  The scenes below read it, as
+# the reference's do (scenedefs.py:114-245); where it is absent they
+# raise when they open their first file.
+REF_ASSET_DIR = "/root/reference/asset"
+
+
+def obj_cornell_box(width=512, height=512, le=(36.0, 33.0, 26.0), *, device="cuda"):
+    """The reference's ObjCornellBoxScene: asset/cornellbox/orig.obj with
+    its 'light' material overridden to an emissive area light."""
+    path = os.path.join(REF_ASSET_DIR, "cornellbox", "orig.obj")
+    b = SceneBuilder()
+
+    def override(name, mtl):
+        if name == "light":
+            return b.add_material(MaterialType.EMISSIVE, base_color=le)
+        return _mtl_to_material(b, mtl) if mtl else b.add_material(
+            MaterialType.DIFFUSE, base_color=(0.6, 0.6, 0.6))
+
+    groups = load_obj(b, path, mtl_override=override)
+    ls, lc = groups["light"]
+    b.add_area_light_tris(ls, lc, le=le)
+    cam = PinholeCamera(
+        origin=(0.0, 1.0, 3.0), lookat=(0.0, 1.0, 0.0), vfov_deg=45.0,
+        width=width, height=height,
+    )
+    return b.build(device), cam
+
+
+def dragon_scene(width=512, height=512, *, device="cuda"):
+    """The 100k-triangle dragon (asset/dragon/dragon.obj) on a floor."""
+    b = SceneBuilder()
+    gold = b.add_material(
+        MaterialType.GGX, base_color=(0.95, 0.75, 0.35), roughness=0.25, ior=2.5)
+    floor = b.add_material(MaterialType.DIFFUSE, base_color=(0.55, 0.55, 0.55))
+    emit = b.add_material(MaterialType.EMISSIVE, base_color=(26.0, 25.0, 23.0))
+    load_obj(b, os.path.join(REF_ASSET_DIR, "dragon", "dragon.obj"),
+             mtl_override=lambda n, m: gold)
+    ext = 30.0
+    b.add_quad([-ext, -0.6, ext], [ext, -0.6, ext], [ext, -0.6, -ext], [-ext, -0.6, -ext], floor)
+    ls, lc = b.add_quad([-4, 14, 4], [-4, 14, -4], [4, 14, -4], [4, 14, 4], emit)
+    b.add_area_light_tris(ls, lc, le=(26.0, 25.0, 23.0))
+    b.set_background((0.12, 0.14, 0.18))
+    cam = PinholeCamera(
+        origin=(0.0, 4.0, 14.0), lookat=(0.0, 1.5, 0.0), vfov_deg=40.0,
+        width=width, height=height,
+    )
+    return b.build(device), cam
+
+
+def sponza_scene(width=512, height=512, *, device="cuda"):
+    """asset/sponza/sponza_lod.obj (12.8k triangles) under a sun and sky."""
+    b = SceneBuilder()
+    load_obj(b, os.path.join(REF_ASSET_DIR, "sponza", "sponza_lod.obj"))
+    b.add_directional_light((-0.35, -1.0, 0.2), le=(6.0, 5.8, 5.2))
+    b.set_background((0.6, 0.75, 0.95))
+    cam = PinholeCamera(
+        origin=(-7.0, 2.0, 0.0), lookat=(10.0, 2.5, 0.0), vfov_deg=55.0,
+        width=width, height=height,
+    )
+    return b.build(device), cam
+
+
+def crytek_class_scene(width=512, height=512, dragons=3, *, device="cuda"):
+    """The reference's stand-in for its Crytek Sponza config: the
+    sponza_lod interior, `dragons` scaled dragons (~12.8k + dragons x 100k
+    triangles) and two banners textured with the Crytek fabric texture
+    where it is present, under a sun and sky."""
+    b = SceneBuilder()
+    load_obj(b, os.path.join(REF_ASSET_DIR, "sponza", "sponza_lod.obj"))
+    gold = b.add_material(
+        MaterialType.GGX, base_color=(0.9, 0.72, 0.38), roughness=0.3, ior=2.3)
+    for i in range(dragons):
+        load_obj(b, os.path.join(REF_ASSET_DIR, "dragon", "dragon.obj"),
+                 mtl_override=lambda n, m: gold,
+                 scale=0.45, offset=(4.0 * i - 1.0, 0.45, -1.6))
+    banner_tex = os.path.join(REF_ASSET_DIR, "crytek_sponza", "sponza_fabric_blue_diff.png")
+    if os.path.exists(banner_tex):
+        tid = b.add_texture(load_image(banner_tex))
+        bm = b.add_material(MaterialType.DIFFUSE, base_color=(1, 1, 1), albedo_map=tid)
+        uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+        for x0 in (-4.0, 2.0):
+            pos = np.array([[x0, 5.0, -2.2], [x0 + 2.5, 5.0, -2.2],
+                            [x0 + 2.5, 8.0, -2.2], [x0, 8.0, -2.2]], np.float32)
+            b.add_mesh(pos, [[0, 1, 2], [0, 2, 3]], bm, uv=uv)
+    b.add_directional_light((-0.35, -1.0, 0.2), le=(6.0, 5.8, 5.2))
+    b.set_background((0.6, 0.75, 0.95))
+    cam = PinholeCamera(
+        origin=(-7.0, 2.0, 0.0), lookat=(10.0, 2.5, 0.0), vfov_deg=55.0,
+        width=width, height=height,
+    )
     return b.build(device), cam

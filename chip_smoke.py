@@ -83,7 +83,19 @@ within statistical bounds; the 102,404-prim knot in a homogeneous fog
 box and in a smoke_plume grid through K1 at 256x256 x 2 spp, each
 bitwise the render through K1's plain version at 64x64; render_npr and
 the sample-ray feature lines on the knot at 512x512 through K1, and at
-128x128 against the oracle walk.  Each
+128x128 against the oracle walk.  Phase 19 runs scene files and
+skinned animation: the 102,404-prim knot skinned to a chain of 8 joints,
+8 frames of its clip, each the pose step (palette, skinning, the LBVH and
+K1's preorder records built on the card, with 0 host syncs) and a
+512x512 x 1 spp render through K1; one frame's LBVH bitwise the port's
+build on this machine's CPU, K1 on its 4,194,304 camera and bounce rays
+bitwise the oracle walk over the LBVH's arrays, its 64x64 render bitwise
+the plain walk's, the frame at 512x512 x 16 spp, and K1 on the bind
+pose's LBVH against its SAH tree; the knot scene as OBJ + MTL, a sky as
+.hdr and 4 knot instances as .glb, each loaded and built on the card and
+on this machine's CPU, the OBJ scene rendered through K1 and the .glb
+through K5 (bitwise its plain version at 64x64); and the 512,004-prim
+scene built with and without a BVH cache.  Each
 main-path render and step is profiled, with its ten costliest device
 ops and each traversal kernel's summed device time. It prints the
 measured times and each kernel's bound (the least time the card could
@@ -98,6 +110,7 @@ import dataclasses
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -2574,6 +2587,555 @@ def train_phase(card, dev):
     log(f"phase 13 took {time.time() - t13:.1f} s")
 
 
+# Phase 19's skinned knot: procedural_mesh_scene's knot bound to a chain
+# of KNOT_JOINTS joints along its parameter u, at most 4 joints a vertex,
+# and a clip of KNOT_KEYS keys that bends the chain, sampled at
+# KNOT_FRAMES frames
+KNOT_JOINTS = 8
+KNOT_KEYS = 8
+KNOT_FRAMES = 8
+KNOT_BEND = 0.12  # radians a joint at the clip's peak
+
+
+def knot_rig(n_u=400, n_v=128, n_joints=KNOT_JOINTS, n_keys=KNOT_KEYS):
+    """The skinned knot's data as numpy (no torch): the knot's pos, nml,
+    faces (scenedefs.torus_knot_mesh), LBS weights and joints [V, 4] from
+    the vertices' ring index, the chain's parents and local bind TRS
+    (joint k at the knot curve's point at u = (k + 0.5) / n_joints), and
+    the clip's tracks (each joint turning about its own seeded axis)."""
+    import numpy as np
+
+    from aten_tpu_torch.scene.scenedefs import torus_knot_mesh
+
+    pos, nml, _, faces = torus_knot_mesh(n_u, n_v)
+    u = (np.arange(pos.shape[0]) // n_v) / n_u
+    centre = (np.arange(n_joints) + 0.5) / n_joints
+    w = np.clip(1.0 - np.abs(u[:, None] - centre[None, :]) * n_joints / 2.0, 0.0, None) ** 2
+    joints = np.argsort(-w, axis=1, kind="stable")[:, :4]
+    weights = np.take_along_axis(w, joints, axis=1)
+    weights = (weights / weights.sum(1, keepdims=True)).astype(np.float32)
+    ring = pos.reshape(n_u, n_v, 3).mean(1)  # the tube's centre line
+    anchor = ring[np.minimum((centre * n_u).astype(np.int64), n_u - 1)]
+    bind_t = np.diff(anchor, axis=0, prepend=np.zeros((1, 3), np.float32)).astype(np.float32)
+    idq = np.tile(np.array([0.0, 0.0, 0.0, 1.0], np.float32), (n_joints, 1))
+    rng = np.random.default_rng(SEED)
+    axes = rng.standard_normal((n_joints, 3))
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    times = np.linspace(0.0, 1.0, n_keys, dtype=np.float32)
+    tracks = []
+    for k in range(n_joints):
+        a = KNOT_BEND * np.sin(2.0 * np.pi * times + 0.7 * k)
+        rot = np.concatenate([axes[k][None] * np.sin(a / 2)[:, None], np.cos(a / 2)[:, None]], 1)
+        tracks.append({"times": times, "trans": np.tile(bind_t[k], (n_keys, 1)),
+                       "rot": rot.astype(np.float32), "scale": np.ones((n_keys, 3), np.float32)})
+    return {"pos": pos, "nml": nml, "faces": faces, "weights": weights,
+            "joints": joints.astype(np.int32), "parents": tuple(range(-1, n_joints - 1)),
+            "bind_t": bind_t, "bind_q": idq, "bind_s": np.ones((n_joints, 3), np.float32),
+            "tracks": tracks}
+
+
+def populate_skinned_knot(b, attach, rig, width, height):
+    """procedural_mesh_scene's scene with its knot attached as the
+    deformable mesh of `rig` (knot_rig) by `attach` (a package's
+    DeformableMesh.attach; b is that package's builder), so the prims are
+    those of populate_procedural_mesh_scene.  Returns (the mesh handle,
+    the camera)."""
+    from aten_tpu_torch.core.camera import PinholeCamera
+    from aten_tpu_torch.scene.materials import MaterialType
+
+    gold = b.add_material(MaterialType.GGX, base_color=(0.95, 0.75, 0.35), roughness=0.25,
+                          ior=2.5)
+    floor = b.add_material(MaterialType.DIFFUSE, base_color=(0.55, 0.55, 0.55))
+    emit = b.add_material(MaterialType.EMISSIVE, base_color=(26.0, 25.0, 23.0))
+    dm = attach(b, rig["pos"], rig["faces"], gold, rig["weights"], rig["joints"], nml=rig["nml"])
+    ext = 30.0
+    b.add_quad([-ext, -0.6, ext], [ext, -0.6, ext], [ext, -0.6, -ext], [-ext, -0.6, -ext], floor)
+    ls, lc = b.add_quad([-4, 14, 4], [-4, 14, -4], [4, 14, -4], [4, 14, 4], emit)
+    b.add_area_light_tris(ls, lc, le=(26.0, 25.0, 23.0))
+    b.set_background((0.12, 0.14, 0.18))
+    return dm, PinholeCamera(origin=(0.0, 4.0, 14.0), lookat=(0.0, 1.5, 0.0), vfov_deg=40.0,
+                             width=width, height=height)
+
+
+# Phase 19's sizes: the knot's rings and ring vertices (102,400 triangles,
+# 51,200 vertices), large_mesh_scene's knot (512,000 triangles) and the
+# image side of the 19a and 19b renders
+KNOT_UV = (400, 128)
+LARGE_UV = (1000, 256)
+RES19 = 512
+# Phase 19's renders: bench.py's real-time frame (512x512, 1 spp, depth 5,
+# RR 3) for the posed frames, the main path's (16 spp) for one frame and
+# the OBJ scene; the instanced .glb at 256x256 x 4 spp; the renders held
+# bitwise against the plain walks at 64x64
+RT_FRAME = {"spp": 1, "max_depth": 5, "rr_depth": 3}
+MAIN_KW = {"spp": 16, "max_depth": 5, "rr_depth": 3}
+GLB_KW = {"spp": 4, "max_depth": 5, "rr_depth": 3}
+SMALL19 = 64
+SMALL19_KW = {"spp": 2, "max_depth": 3, "rr_depth": 2}
+# the .glb's four nodes: (translation, rotation about y, uniform scale)
+GLB_NODES = (((-3.2, 1.0, -1.0), 0.3, 0.55), ((3.2, 1.0, -1.0), -0.5, 0.55),
+             ((-1.6, 0.4, 3.0), 1.1, 0.4), ((1.6, 0.4, 3.0), 2.0, 0.4))
+
+
+def count_syncs(fn):
+    """(fn(), the host syncs it made): torch's sync debug mode warns at
+    every synchronizing CUDA call it detects (a device-to-host copy,
+    .item(), a boolean mask, nonzero, a pageable host-to-device copy),
+    and those warnings are counted (not the mode's own notice that it is
+    a prototype)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    if where:
+        log(f"host syncs at {where}")
+    return out, len(where)
+
+
+def bits_equal(a, b):
+    """Two tensors equal bit for bit (K1's records hold int words)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    a, b = (x.contiguous().reshape(-1).view(torch.uint8).cpu() for x in (a, b))
+    return bool(torch.equal(a, b))
+
+
+def scene_arrays_equal(name, a, b):
+    """Every tensor (nested tables too) and static of two scenes equal
+    bit for bit; raises naming the first that differs."""
+    import torch
+
+    def flat(arrays, prefix=""):
+        for k, v in arrays.items():
+            if isinstance(v, dict):
+                yield from flat(v, prefix + k + ".")
+            else:
+                yield prefix + k, v
+
+    fa, fb = dict(flat(a.arrays)), dict(flat(b.arrays))
+    assert sorted(fa) == sorted(fb), (name, sorted(set(fa) ^ set(fb)))
+    bad = [k for k in fa if not (torch.is_tensor(fa[k]) and bits_equal(fa[k], fb[k]))]
+    assert not bad and a.static == b.static, (name, bad[:5])
+    return len(fa)
+
+
+def phase19(card, dev):
+    """Phase 19: scene files and skinned animation.  19a: the skinned
+    knot (knot_rig on procedural_mesh_scene's 102,404 prims: 51,200
+    vertices and 102,400 triangles on a chain of 8 joints), 8 frames of
+    its 8-key clip, each the pose step (skinning_palette, apply_pose:
+    skin, normals, the LBVH and K1's preorder records on the card; CUDA
+    events, host syncs counted: 0 allowed) and render_sample at bench.py's
+    real-time shape through K1; one frame's LBVH arrays and K1 records
+    bitwise the port's build on this machine's CPU from the card's skinned
+    vertices (Morton codes compared first); K1 on 4,194,304 camera and
+    bounce rays of that frame bitwise the oracle walk over the LBVH's own
+    arrays; its 64x64 render through K1 bitwise the plain walk's; the
+    frame at the main path's shape (512x512 x 16 spp) timed, with its
+    peak and a profile (K1 5 + 5); and K1 on the bind pose's LBVH against
+    K1 on its SAH tree on the same rays, in turns, with bound().  19b: the
+    knot scene written as OBJ + MTL, a sky as .hdr and one knot under 4
+    instancing nodes as .glb; each loaded and built on the card and on
+    this machine's CPU, arrays equal; the OBJ scene under the .hdr at
+    512x512 x 16 spp through K1; the .glb at 256x256 x 4 spp through K5
+    and at 64x64 bitwise K5's plain version.  19c: large_mesh_scene's
+    512,004 prims built, then built from a bvh_cache .npz of that build:
+    both set-up times, every array equal."""
+    import shutil
+
+    t19 = time.time()
+    out_dir = os.path.join(ROOT, "build", "phase19")
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        skinned_frames(card, dev)
+        t = phase_clock("19a", t19)
+        scene_files(card, dev, out_dir)
+        t = phase_clock("19b", t)
+        bvh_cache_builds(card, dev, out_dir)
+        phase_clock("19c", t)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"phase 19 took {time.time() - t19:.1f} s (budget 45 s) [{card}]")
+
+
+def skinned_knot(dev, width, height, n_u, n_v):
+    """(scene on dev, camera, the mesh, skeleton, clip and inverse bind on
+    dev) of the skinned knot."""
+    import torch
+
+    from aten_tpu_torch.anim.animation import AnimationClip
+    from aten_tpu_torch.anim.skeleton import Skeleton
+    from aten_tpu_torch.anim.skinning import DeformableMesh
+    from aten_tpu_torch.scene.scene import SceneBuilder
+
+    rig = knot_rig(n_u, n_v)
+    b = SceneBuilder()
+    dm, cam = populate_skinned_knot(b, DeformableMesh.attach, rig, width, height)
+    skel = Skeleton(rig["parents"], rig["bind_t"], rig["bind_q"], rig["bind_s"])
+    clip = AnimationClip.from_tracks(rig["tracks"])
+    inv = torch.from_numpy(skel.inverse_bind()).to(dev)
+    return b.build(dev), cam, dm.to(dev), skel, clip.to(dev), inv
+
+
+def pose_step(scene, dm, skel, clip, inv, t):
+    """The per-frame chain: the clip at t, the palette, the skinned and
+    rebuilt scene."""
+    from aten_tpu_torch.anim.skeleton import skinning_palette
+    from aten_tpu_torch.anim.skinning import apply_pose
+
+    return apply_pose(scene, dm, skinning_palette(skel, *clip.sample(t), inv))
+
+
+def skinned_frames(card, dev):
+    """Phase 19a (see phase19)."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.accel import lbvh
+    from aten_tpu_torch.accel.traverse import traverse
+    from aten_tpu_torch.integrator.pathtracer import render_image, render_sample
+    from aten_tpu_torch.ops import bvh_layout, traverse_cuda
+    from aten_tpu_torch.scene.scene import BVH_KEYS, Scene
+
+    t = t19a = time.time()
+    scene, cam, dm, skel, clip, inv = skinned_knot(dev, RES19, RES19, *KNOT_UV)
+    W, H, ca = cam.width, cam.height, cam.arrays(dev)
+    n_prims = scene["num_tris"] + scene["num_spheres"]
+    n_knot = 2 * KNOT_UV[0] * KNOT_UV[1]
+    assert n_prims == n_knot + 4 and dm.faces.shape[0] == n_knot
+    assert dm.bind_pos.shape[0] == n_knot // 2
+    log(f"phase 19a skinned knot: {n_prims} prims, {dm.bind_pos.shape[0]} skinned vertices, "
+        f"{skel.num_joints} joints, {clip.times.shape[1]} keys; built in {time.time() - t:.1f} s")
+    closest, any_hit = traverse_cuda.KERNELS
+
+    duration = clip.duration  # a host read of the clip's keys, outside the pose step
+
+    def frame_t(i):
+        return duration * i / KNOT_FRAMES
+
+    posed = pose_step(scene, dm, skel, clip, inv, 0.0)  # warm-up: the level index, the sort
+    render_sample(posed, ca, W, H, 0, 0, **RT_FRAME)
+    rows, start, stop = [], torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    for i in range(KNOT_FRAMES):
+        torch.cuda.synchronize()
+        start.record()
+        posed, syncs = count_syncs(lambda: pose_step(scene, dm, skel, clip, inv, frame_t(i)))
+        stop.record()
+        torch.cuda.synchronize()
+        pose_ms = start.elapsed_time(stop)
+        reset_counts()
+        img, render_ms = timed_ms(lambda: render_sample(posed, ca, W, H, i, 0, **RT_FRAME))
+        got = only_kernels(read_counts(), traverse_cuda.KERNELS, f"phase 19a frame {i} render")
+        assert syncs == 0, (i, syncs)
+        assert bool(torch.isfinite(img).all()) and float(img.mean()) > 1e-3, i
+        rows.append((pose_ms, render_ms, got[closest], got[any_hit]))
+    pose_ms, render_ms = [r[0] for r in rows], [r[1] for r in rows]
+    log(f"phase 19a {KNOT_FRAMES} frames, pose step (clip, palette, skin, normals, LBVH, K1 "
+        f"records; 0 host syncs each) {', '.join(f'{x:.2f}' for x in pose_ms)} ms, mean "
+        f"{np.mean(pose_ms):.2f}; render_sample {W}x{H} 1 spp depth 5 RR 3 through K1 "
+        f"{', '.join(f'{x:.1f}' for x in render_ms)} ms, mean {np.mean(render_ms):.1f}; K1 "
+        f"launches a frame {sorted({(r[2], r[3]) for r in rows})} [{card}]")
+    last_t = frame_t(KNOT_FRAMES - 1)
+    moved = float((posed["tri_v0"][:n_knot] - scene["tri_v0"][:n_knot]).abs().max())
+    log(f"phase 19a the knot's vertices move up to {moved:.3f} from the bind pose (t={last_t:.3f})")
+    assert moved > 0.05, moved
+
+    # the card's LBVH and records against the port's build on this
+    # machine's CPU from the same skinned triangles: codes first
+    t = time.time()
+    cpu = Scene(to_cpu(posed.arrays), posed.static, torch.device("cpu"))
+    nt = scene["num_tris"]
+    boxes = [lbvh.tri_boxes(s["tri_v0"][:nt], s["tri_e1"][:nt], s["tri_e2"][:nt])
+             for s in (posed, cpu)]
+    codes = [lbvh.morton3d((bmin + bmax) * 0.5, torch.amin(bmin, 0), torch.amax(bmax, 0))
+             for bmin, bmax in boxes]
+    n_codes = int((codes[0].cpu() != codes[1]).sum())
+    ref = lbvh.rebuild_scene_bvh(cpu)
+    same = {k: bits_equal(posed[k], ref[k]) for k in BVH_KEYS + bvh_layout.ARRAY_KEYS}
+    log(f"phase 19a LBVH on the card against the port on this machine's CPU (the same "
+        f"{nt} skinned triangles): {n_codes} of {nt} Morton codes differ; arrays bitwise "
+        f"equal {same}; the CPU build took {time.time() - t:.1f} s")
+    assert n_codes == 0 and all(same.values()), (n_codes, same)
+    del cpu, ref
+    t_part = phase_clock("19a's frames and the CPU build", t19a)
+
+    # K1 on the rebuilt tree against the oracle walk over the LBVH's arrays
+    rng = np.random.default_rng(SEED + 19)
+    n_main = W * H * 16
+    cro, crd = camera_rays(cam, dev, jitter_rng=rng, subsamples=8)
+    sro, srd = first_hit_rays(posed, cro, crd, n_main - cro.shape[0], rng)
+    ro, rd = torch.cat([cro, sro]), torch.cat([crd, srd])
+    dist = torch.tensor(rng.uniform(0.0, 20.0, n_main), dtype=torch.float32, device=dev)
+    del cro, crd, sro, srd
+    reset_counts()
+    _, _, work_lbvh, _, _ = compare_traversal("phase 19a posed frame, K1 on the LBVH records",
+                                              posed, ro, rd, dist, exact=True)
+    assert nonzero(read_counts()) == {closest: 1, any_hit: 1}, read_counts()
+    del ro, rd, dist
+    t_part = phase_clock("19a's K1 against the oracle walk", t_part)
+    # the render through K1 against the same render through the plain walk
+    small = dataclasses.replace(cam, width=SMALL19, height=SMALL19)
+    reset_counts()
+    ik = render_image(posed, small, **SMALL19_KW)
+    assert read_counts()[closest] > 0, read_counts()
+    ip = render_image(posed, small, impl="plain", **SMALL19_KW)
+    same = bool(torch.equal(ik, ip))
+    log(f"phase 19a {SMALL19}x{SMALL19} {SMALL19_KW['spp']} spp depth {SMALL19_KW['max_depth']} "
+        f"render of the posed frame: K1 bitwise the plain walk's {same}")
+    assert same
+    # the frame at the main path's shape
+    render_image(posed, cam, **MAIN_KW)  # warm-up
+    img, wall, launches, peak, held = timed_render(lambda: render_image(posed, cam, **MAIN_KW))
+    got = only_kernels(launches, traverse_cuda.KERNELS, "phase 19a 16 spp render")
+    img = img.cpu().numpy()
+    assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 1e-3, img.mean()
+    log(f"phase 19a posed frame {W}x{H} 16 spp depth 5 RR 3 through K1: wall {wall * 1e3:.1f} "
+        f"ms, {W * H * 16 / wall / 1e6:.3f} Mpaths/s, mean {img.mean():.5f}, launches {got}, "
+        f"{peak_text(peak, held)} [{card}]")
+    reset_counts()
+    log_profile("phase 19a", card, profile_render(lambda: render_image(posed, cam, **MAIN_KW)))
+    prof = nonzero(read_counts())
+    log(f"phase 19a profiled render's K1 launches {prof} (expected 5 + 5)")
+    assert prof == {closest: 5, any_hit: 5}, prof
+    del posed
+    t_part = phase_clock("19a's renders", t_part)
+
+    # K1 on the bind pose's LBVH against K1 on its SAH tree, same rays
+    bind_lbvh = lbvh.rebuild_scene_bvh(scene)
+    cro, crd = camera_rays(cam, dev, jitter_rng=rng, subsamples=8)
+    sro, srd = first_hit_rays(scene, cro, crd, n_main - cro.shape[0], rng)
+    ro, rd = torch.cat([cro, sro]), torch.cat([crd, srd])
+    del cro, crd, sro, srd
+    t0 = torch.full((n_main,), 3.4e38, dtype=torch.float32, device=dev)
+    trees = {"SAH": scene, "LBVH": bind_lbvh}
+    ms = {k: [] for k in trees}
+    for name in ("SAH", "LBVH", "LBVH", "SAH"):
+        ms[name].append(cuda_ms(lambda: traverse_cuda.bvh_traverse(trees[name], ro, rd, t0),
+                                reps=10))
+    hits = {k: traverse(v, ro, rd, impl="cuda")["prim"] for k, v in trees.items()}
+    agree = float((hits["SAH"] == hits["LBVH"]).float().mean())
+    line = []
+    for name, sc in trees.items():
+        _, work = plain_walk(sc, ro, rd)
+        b = bound(n_main, 16, array_bytes(sc, BVH_ARRAYS), work)
+        line.append(f"{name} {ms[name][0]:.3f}, {ms[name][1]:.3f} ms (work {work}; bound "
+                    f"{b[0]:.4f} ms by {b[1]}, {np.mean(ms[name]) / b[0]:.1f}x)")
+    ratio = np.mean(ms["LBVH"]) / np.mean(ms["SAH"])
+    log(f"phase 19a K1 closest-hit on {n_main} camera and bounce rays of the bind pose, in "
+        f"turns: {'; '.join(line)}; LBVH / SAH {ratio:.3f}; prims agree on {agree:.6f} [{card}]")
+    assert agree >= PRIM_AGREE, agree
+    del bind_lbvh, trees, ro, rd, t0, scene
+    torch.cuda.empty_cache()
+    phase_clock("19a's LBVH against SAH", t_part)
+
+
+def write_glb(path, pos, nml, faces, nodes):
+    """A .glb of one mesh (float32 positions and normals, uint32 indices,
+    a gold material) under one node per (translation, rotation about y,
+    scale) of `nodes`."""
+    import numpy as np
+
+    idx = np.ascontiguousarray(faces, np.uint32).reshape(-1)
+    parts = [np.ascontiguousarray(pos, np.float32), np.ascontiguousarray(nml, np.float32), idx]
+    offs = np.cumsum([0] + [a.nbytes for a in parts])
+    buf = b"".join(a.tobytes() for a in parts)
+    doc = {
+        "asset": {"version": "2.0"},
+        "scene": 0,
+        "scenes": [{"nodes": list(range(len(nodes)))}],
+        "nodes": [{"mesh": 0, "translation": list(tr), "scale": [s, s, s],
+                   "rotation": [0.0, float(np.sin(a / 2)), 0.0, float(np.cos(a / 2))]}
+                  for tr, a, s in nodes],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0, "NORMAL": 1}, "indices": 2,
+                                    "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {"baseColorFactor": [0.95, 0.75, 0.35, 1.0],
+                                                "metallicFactor": 1.0, "roughnessFactor": 0.3}}],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": len(pos), "type": "VEC3"},
+            {"bufferView": 1, "componentType": 5126, "count": len(nml), "type": "VEC3"},
+            {"bufferView": 2, "componentType": 5125, "count": len(idx), "type": "SCALAR"},
+        ],
+        "bufferViews": [{"buffer": 0, "byteOffset": int(offs[i]), "byteLength": int(a.nbytes)}
+                        for i, a in enumerate(parts)],
+        "buffers": [{"byteLength": len(buf)}],
+    }
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    buf += b"\0" * (-len(buf) % 4)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 12 + 8 + len(js) + 8 + len(buf)))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        f.write(struct.pack("<II", len(buf), 0x004E4942) + buf)
+
+
+def add_floor_and_light(b):
+    """procedural_mesh_scene's grey floor and quad area light, as world
+    geometry."""
+    from aten_tpu_torch.scene.materials import MaterialType
+
+    floor = b.add_material(MaterialType.DIFFUSE, base_color=(0.55, 0.55, 0.55))
+    emit = b.add_material(MaterialType.EMISSIVE, base_color=(26.0, 25.0, 23.0))
+    ext = 30.0
+    b.add_quad([-ext, -0.6, ext], [ext, -0.6, ext], [ext, -0.6, -ext], [-ext, -0.6, -ext], floor)
+    ls, lc = b.add_quad([-4, 14, 4], [-4, 14, -4], [4, 14, -4], [4, 14, 4], emit)
+    b.add_area_light_tris(ls, lc, le=(26.0, 25.0, 23.0))
+
+
+def scene_files(card, dev, out_dir):
+    """Phase 19b (see phase19)."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.integrator.pathtracer import render_image
+    from aten_tpu_torch.io.gltf import load_gltf
+    from aten_tpu_torch.io.hdr import read_hdr, write_hdr
+    from aten_tpu_torch.io.image import load_image
+    from aten_tpu_torch.io.obj_writer import write_mtl, write_obj
+    from aten_tpu_torch.ops import tlas_cuda, traverse_cuda
+    from aten_tpu_torch.scene.materials import MaterialType
+    from aten_tpu_torch.scene.objloader import _mtl_to_material, load_obj
+    from aten_tpu_torch.scene.scene import SceneBuilder
+    from aten_tpu_torch.scene.scenedefs import (
+        populate_procedural_mesh_scene, sky_envmap, torus_knot_mesh)
+
+    t = time.time()
+    # the knot scene's geometry and materials as OBJ + MTL
+    src = SceneBuilder()
+    cam = populate_procedural_mesh_scene(src, RES19, RES19, *KNOT_UV)
+    arrays, _ = src.numpy_arrays()
+    n_knot = 2 * KNOT_UV[0] * KNOT_UV[1]
+    nt = n_knot + 4
+    corners = np.stack([arrays["tri_v0"], arrays["tri_v0"] + arrays["tri_e1"],
+                        arrays["tri_v0"] + arrays["tri_e2"]], 1)[:nt]
+    names = ["gold", "floor", "light"]
+    obj_path, mtl_path = (os.path.join(out_dir, f"knot.{e}") for e in ("obj", "mtl"))
+    pos, nml, _, faces = torus_knot_mesh(*KNOT_UV)
+    # the knot indexed, the floor's and the light's quads as corner triangles
+    quad = corners[n_knot:].reshape(-1, 3)
+    all_pos = np.concatenate([pos, quad])
+    all_faces = np.concatenate([faces, len(pos) + np.arange(quad.shape[0]).reshape(-1, 3)])
+    write_mtl(mtl_path, src.materials, names=names)
+    write_obj(obj_path, all_pos, all_faces, face_mtl=arrays["tri_mtl"][:nt], mtl_names=names,
+              mtl_path=mtl_path)
+    hdr_path = os.path.join(out_dir, "sky.hdr")
+    write_hdr(hdr_path, sky_envmap(64, 128))
+    glb_path = os.path.join(out_dir, "knots.glb")
+    write_glb(glb_path, pos - np.asarray([0.0, 1.7, 0.0], np.float32), nml, faces, GLB_NODES)
+    log(f"phase 19b wrote {obj_path} ({os.path.getsize(obj_path)} B), its .mtl, "
+        f"{hdr_path} ({os.path.getsize(hdr_path)} B) and {glb_path} "
+        f"({os.path.getsize(glb_path)} B) in {time.time() - t:.1f} s")
+
+    # the OBJ scene under the .hdr sky, built on the card and on the CPU
+    t = time.time()
+    b = SceneBuilder()
+    le = (26.0, 25.0, 23.0)
+
+    def override(name, mtl):
+        if name == "light":
+            return b.add_material(MaterialType.EMISSIVE, base_color=le)
+        if name == "gold":
+            return b.add_material(MaterialType.GGX, base_color=mtl["kd"], roughness=0.25,
+                                  ior=mtl["ni"])
+        return _mtl_to_material(b, mtl)
+
+    groups = load_obj(b, obj_path, mtl_override=override)
+    b.add_area_light_tris(*groups["light"], le=le)
+    b.set_envmap(load_image(hdr_path))
+    t_load = time.time() - t
+    obj_scene, obj_cpu = b.build(dev), b.build("cpu")
+    n = scene_arrays_equal("phase 19b OBJ scene", obj_scene, obj_cpu)
+    assert obj_scene["num_tris"] == nt, obj_scene.static
+    assert np.array_equal(obj_cpu["envmap"].numpy(), read_hdr(hdr_path))
+    log(f"phase 19b OBJ scene: {obj_scene['num_tris']} triangles in groups "
+        f"{ {k: v[1] for k, v in groups.items()} }, loaded in {t_load:.1f} s; built on the card "
+        f"and on this machine's CPU: {n} arrays bitwise equal")
+    del obj_cpu
+    render_image(obj_scene, cam, **MAIN_KW)  # warm-up
+    img, wall, launches, peak, held = timed_render(lambda: render_image(obj_scene, cam, **MAIN_KW))
+    got = only_kernels(launches, traverse_cuda.KERNELS, "phase 19b OBJ render")
+    img = img.cpu().numpy()
+    assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 1e-3, img.mean()
+    log(f"phase 19b OBJ scene under the .hdr sky {cam.width}x{cam.height} 16 spp depth 5 RR 3 "
+        f"through K1: wall {wall * 1e3:.1f} ms, {cam.width * cam.height * 16 / wall / 1e6:.3f} "
+        f"Mpaths/s, mean {img.mean():.5f}, "
+        f"launches {got}, {peak_text(peak, held)} [{card}]")
+    del obj_scene
+
+    # the instanced .glb: one knot object under 4 nodes, floor and light
+    t = time.time()
+    b = SceneBuilder()
+    prims = load_gltf(b, glb_path, instanced=True)
+    add_floor_and_light(b)
+    b.set_background((0.12, 0.14, 0.18))
+    glb_scene, glb_cpu = b.build(dev), b.build("cpu")
+    n = scene_arrays_equal("phase 19b .glb scene", glb_scene, glb_cpu)
+    assert glb_scene["num_instances"] == len(GLB_NODES) + 1
+    log(f"phase 19b .glb scene: {glb_scene['num_instances']} instances (4 knots and the world), "
+        f"{glb_scene['num_tris']} triangles, loaded and built in {time.time() - t:.1f} s; on the "
+        f"card and on this machine's CPU: {n} arrays bitwise equal")
+    assert prims == [(0, n_knot)], prims
+    del glb_cpu
+    gcam = dataclasses.replace(cam, width=RES19 // 2, height=RES19 // 2)
+    render_image(glb_scene, gcam, **GLB_KW)  # warm-up
+    img, wall, launches, peak, held = timed_render(
+        lambda: render_image(glb_scene, gcam, **GLB_KW))
+    got = only_kernels(launches, tlas_cuda.KERNELS, "phase 19b .glb render")
+    img = img.cpu().numpy()
+    assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 1e-3, img.mean()
+    log(f"phase 19b .glb scene {gcam.width}x{gcam.height} 4 spp depth 5 RR 3 through K5: wall "
+        f"{wall * 1e3:.1f} ms, {gcam.width * gcam.height * 4 / wall / 1e6:.3f} Mpaths/s, mean {img.mean():.5f}, launches {got}, "
+        f"{peak_text(peak, held)} [{card}]")
+    small = dataclasses.replace(cam, width=SMALL19, height=SMALL19)
+    ik = render_image(glb_scene, small, **SMALL19_KW)
+    ip = render_image(glb_scene, small, impl="plain", **SMALL19_KW)
+    same = bool(torch.equal(ik, ip))
+    log(f"phase 19b .glb {SMALL19}x{SMALL19} render through K5 bitwise its plain version's {same}")
+    assert same
+    del glb_scene
+    torch.cuda.empty_cache()
+
+
+def bvh_cache_builds(card, dev, out_dir):
+    """Phase 19c (see phase19)."""
+    import torch
+
+    from aten_tpu_torch.scene.scene import SceneBuilder, save_bvh_cache
+    from aten_tpu_torch.scene.scenedefs import populate_procedural_mesh_scene
+
+    cache = os.path.join(out_dir, "large_mesh_bvh.npz")
+    built = {}
+    b = SceneBuilder()
+    populate_procedural_mesh_scene(b, RES19, RES19, *LARGE_UV)
+    for name, kw in (("built", {}), ("from the cache", {"bvh_cache": cache})):
+        t = time.time()
+        built[name] = b.build(dev, **kw)
+        torch.cuda.synchronize()
+        built[name, "s"] = time.time() - t
+        if name == "built":
+            save_bvh_cache(built[name], cache)
+    a, c = built["built"], built["from the cache"]
+    n = scene_arrays_equal("phase 19c", a, c)
+    assert a["num_tris"] == 2 * LARGE_UV[0] * LARGE_UV[1] + 4, a.static
+    assert a.get("traversal") == c.get("traversal"), (a.static, c.static)
+    log(f"phase 19c large_mesh_scene ({a['num_tris']} prims, traversal {a.get('traversal')!r}): "
+        f"set-up {built['built', 's']:.2f} s building its BVH, {built['from the cache', 's']:.2f} s "
+        f"from the cache ({os.path.getsize(cache)} B); {n} arrays bitwise equal [{card}]")
+    del built, a, c
+    torch.cuda.empty_cache()
+
+
 def main():
     sys.path.insert(0, ROOT)
     if not os.path.isdir(os.path.join(ROOT, "aten_tpu_torch")):
@@ -3093,6 +3655,7 @@ def main():
     kernels += window_phase(card, dev)
     phase17(card, dev)
     phase18(card, dev)
+    phase19(card, dev)
 
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
