@@ -7,6 +7,7 @@ primitives use the C++ builder `native/bvh_builder.cpp`, compiled with
 the reference's g++ flags into `build/aten_tpu_torch/` and loaded with
 ctypes; a failed build raises.  Smaller scenes take the NumPy build below,
 exactly as the reference does, so both packages hold the same tree.
+`build_sbvh` runs the same library's spatial-split builder.
 """
 from __future__ import annotations
 
@@ -49,6 +50,12 @@ def _load_native():
         fp, fp, ctypes.c_int64, ctypes.c_int32,
         fp, fp, ip, ip, ip, ip, ip,
     ]
+    lib.aten_build_sbvh.restype = ctypes.c_int64
+    lib.aten_build_sbvh.argtypes = [
+        fp, fp, ctypes.c_int64, ctypes.c_int32, ctypes.c_float,
+        ctypes.c_int64, ctypes.c_int64,
+        fp, fp, ip, ip, ip, ip, ip, ctypes.POINTER(ctypes.c_int64),
+    ]
     return lib
 
 
@@ -85,6 +92,57 @@ def _build_bvh_native(bmin, bmax, leaf_max):
         "nodes_prim_start": ps[:K].copy(),
         "nodes_prim_count": pc[:K].copy(),
         "prim_order": order,
+    }
+
+
+def build_sbvh(bmin, bmax, leaf_max: int = LEAF_MAX, alpha: float = 1e-5):
+    """Spatial-split BVH (the reference's sbvh.cpp:278-324) from the C++
+    builder's `aten_build_sbvh`: a prim's reference may be duplicated
+    into both children with clipped boxes where that lowers the SAH
+    cost, which tightens trees over large, axis-spanning triangles.  The
+    schema is build_bvh's, with prim_order [R] (R >= P) repeating ids.
+    Below 4 prims, or where the duplicates outgrow the builder's
+    capacity (2P references, 4P nodes: it returns K < 0), this is
+    build_bvh's tree, as in the reference; a native library that fails
+    to build raises."""
+    bmin = np.ascontiguousarray(bmin, np.float32)
+    bmax = np.ascontiguousarray(bmax, np.float32)
+    P = bmin.shape[0]
+    if P < 4:
+        return build_bvh(bmin, bmax, leaf_max)
+    lib = _load_native()
+    cap_prims = 2 * P
+    cap_nodes = 4 * P
+    nbmin = np.empty((cap_nodes, 3), np.float32)
+    nbmax = np.empty((cap_nodes, 3), np.float32)
+    hit = np.empty(cap_nodes, np.int32)
+    miss = np.empty(cap_nodes, np.int32)
+    ps = np.empty(cap_nodes, np.int32)
+    pc = np.empty(cap_nodes, np.int32)
+    order = np.empty(cap_prims, np.int32)
+    nrefs = np.zeros(1, np.int64)
+    fp = ctypes.POINTER(ctypes.c_float)
+    ip = ctypes.POINTER(ctypes.c_int32)
+    K = lib.aten_build_sbvh(
+        bmin.ctypes.data_as(fp), bmax.ctypes.data_as(fp),
+        ctypes.c_int64(P), ctypes.c_int32(leaf_max), ctypes.c_float(alpha),
+        ctypes.c_int64(cap_nodes), ctypes.c_int64(cap_prims),
+        nbmin.ctypes.data_as(fp), nbmax.ctypes.data_as(fp),
+        hit.ctypes.data_as(ip), miss.ctypes.data_as(ip),
+        ps.ctypes.data_as(ip), pc.ctypes.data_as(ip),
+        order.ctypes.data_as(ip), nrefs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+    )
+    if K < 0:
+        return build_bvh(bmin, bmax, leaf_max)
+    R = int(nrefs[0])
+    return {
+        "nodes_bmin": nbmin[:K].copy(),
+        "nodes_bmax": nbmax[:K].copy(),
+        "nodes_hit": hit[:K].copy(),
+        "nodes_miss": miss[:K].copy(),
+        "nodes_prim_start": ps[:K].copy(),
+        "nodes_prim_count": pc[:K].copy(),
+        "prim_order": order[:R].copy(),
     }
 
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+EPS = 1e-6
 INF = float(np.float32(3.4e38))
 
 
@@ -88,6 +89,58 @@ def ipow(x, y: int):
         if y > 0:
             x = x * x
     return acc
+
+
+# Intersection primitives (the reference's math/intersect.h and aabb.h),
+# batched: rays are [N, 3] tensors and primitives may broadcast.
+
+
+def intersect_aabb(ro, rd_inv, bmin, bmax, t_max):
+    """Slab test: hit mask [N].  rd_inv = 1 / rd (inf where rd is 0)."""
+    t0 = (bmin - ro) * rd_inv
+    t1 = (bmax - ro) * rd_inv
+    t_enter = torch.amax(torch.minimum(t0, t1), dim=-1)
+    t_exit = torch.amin(torch.maximum(t0, t1), dim=-1)
+    return (t_enter <= t_exit) & (t_exit > 0.0) & (t_enter < t_max)
+
+
+def intersect_tri(ro, rd, v0, e1, e2, t_min=EPS):
+    """Moller-Trumbore over [..., 3] tensors: (t, u, v, hit mask)."""
+    pvec = cross(rd, e2)
+    det = dot(e1, pvec, keepdims=False)
+    ok = torch.abs(det) > 1e-12
+    inv_det = torch.where(ok, 1.0 / det, 0.0)
+    tvec = ro - v0
+    u = dot(tvec, pvec, keepdims=False) * inv_det
+    qvec = cross(tvec, e1)
+    v = dot(rd, qvec, keepdims=False) * inv_det
+    t = dot(e2, qvec, keepdims=False) * inv_det
+    hit = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min)
+    return t, u, v, hit
+
+
+def intersect_sphere(ro, rd, center, radius, t_min=EPS):
+    """(t, hit mask): the nearest root beyond t_min."""
+    oc = ro - center
+    b = dot(oc, rd, keepdims=False)
+    c = dot(oc, oc, keepdims=False) - radius * radius
+    disc = b * b - c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t0 = -b - sq
+    t1 = -b + sq
+    t = torch.where(t0 > t_min, t0, t1)
+    return t, (disc > 0.0) & (t > t_min)
+
+
+def transform_point(m, p):
+    """[..., 4, 4] matrices applied to [..., 3] points."""
+    ph = torch.cat([p, torch.ones_like(p[..., :1])], dim=-1)
+    return torch.einsum("...ij,...j->...i", m, ph)[..., :3]
+
+
+def transform_vector(m, v):
+    """[..., 4, 4] matrices' linear part applied to [..., 3] vectors."""
+    return torch.einsum("...ij,...j->...i", m[..., :3, :3], v)
 
 
 def look_at(eye, center, up):

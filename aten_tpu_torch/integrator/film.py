@@ -2,7 +2,8 @@
 
 Counterpart of aten_tpu/integrator/film.py (the reference's
 FilmProgressive): a running average `(n*cur + v)/(n+1)` with an explicit
-sample counter, on the device of the images it accumulates.
+sample counter, on the device of the images it accumulates; `state` and
+`load_state` checkpoint it (utils/checkpoint.py).
 """
 from __future__ import annotations
 
@@ -29,6 +30,16 @@ class Film:
 
     def image(self):
         return self.buf
+
+    def state(self):
+        """The accumulation state to checkpoint: {"buf", "count"}."""
+        return {"buf": self.buf, "count": torch.tensor(self.count, dtype=torch.int32)}
+
+    def load_state(self, st):
+        """Resume from `state()`'s dict; the buffer moves to the film's
+        device."""
+        self.buf = torch.as_tensor(st["buf"], dtype=torch.float32).to(self.device)
+        self.count = int(st["count"])
 
 
 def tonemap_gamma(img, gamma=2.2):

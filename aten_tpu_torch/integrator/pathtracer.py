@@ -63,6 +63,7 @@ from aten_tpu_torch.scene import textures as tex_mod
 from aten_tpu_torch.scene.envmap import eval_env
 from aten_tpu_torch.scene.materials import MaterialType, gather_material
 from aten_tpu_torch.shading import brdf as brdf_mod
+from aten_tpu_torch.shading import dispatch as disp_mod
 from aten_tpu_torch.shading import nee
 from aten_tpu_torch.shading.toon import toon_term
 
@@ -393,7 +394,7 @@ def _trace_paths(scene, cam_arrays, width, height, frame, sample, spp,
             u1 = bn.sample(px, py, fkey, base)
             u2 = bn.sample(px, py, fkey, base + 1)
             u3 = bn.sample(px, py, fkey, base + 2)
-        samp = brdf_mod.sample_brdf(mat, h["ns"], wo, u1, u2, u3, used)
+        samp = disp_mod.sample_brdf(scene, mat, h["ns"], wo, u1, u2, u3, used)
         n_or = brdf_mod.orient_normal(h["ns"], wo)
         cos_wi = torch.abs(vm.dot(n_or, samp["wi"], keepdims=False))
         good = (samp["pdf"] > 1e-9) & (cos_wi > 1e-9)

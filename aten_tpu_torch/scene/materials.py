@@ -30,6 +30,11 @@ class MaterialType(enum.IntEnum):
     STYLIZED_BRDF = 13
 
 
+# types with delta (singular) BSDFs, and those that carry light through
+# the surface
+SINGULAR_TYPES = (MaterialType.SPECULAR, MaterialType.REFRACTION)
+TRANSMISSIVE_TYPES = (MaterialType.REFRACTION, MaterialType.MICROFACET_REFRACTION)
+
 _SCALAR_FIELDS = dict(
     alpha=1.0,
     stencil=0.0,

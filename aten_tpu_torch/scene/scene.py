@@ -51,6 +51,10 @@ A tree rebuilt on the device for a posed mesh (accel/lbvh.py) is not in
 preorder; it carries K1's records from the rebuild, and
 `with_plk_layout`, `with_trl_layout` and `with_bvh_layout` refuse it.
 
+`Scene.replace` swaps arrays or statics; a new tree or new geometry
+drops every layout of the old one and attaches K1's records of the new
+tree (an SBVH's duplicated references included, accel/build.py).
+
 `add_medium` registers a participating medium (volume/medium.py), which
 a transmissive material carries by its `medium` id; the build adds the
 medium rows (`med_*`) and, with a density grid, its stack, box and
@@ -107,13 +111,64 @@ class Scene:
     def static(self):
         return self._static
 
+    def replace(self, **kw):
+        """A new Scene with the named statics, or arrays (tensors, numpy
+        arrays or nested dicts of them, moved to the scene's device),
+        replaced: the reference's SceneData.replace.  Where a value
+        changes the tree (BVH_KEYS) or the geometry K1's prim records copy
+        (GEOMETRY_KEYS), what was built from the old values goes: every
+        kernel layout (KERNEL_PREFIXES) and its statics, and with a new
+        tree the voxel-LOD annotation of the old one.  K1's records of the
+        new tree are attached (`with_bvh_layout`), so the scene runs K1
+        and no kernel walks a layout of the old tree.  A two-level scene's
+        tree and geometry are not replaced (its K5 records would go
+        stale): that raises."""
+        static = {**self._static, **{k: v for k, v in kw.items() if k in self._static}}
+        arrays = {**self._arrays, **to_tensors(
+            {k: v for k, v in kw.items() if k not in self._static}, self.device)}
+        changed = {k for k in BVH_KEYS + GEOMETRY_KEYS
+                   if k in kw and not _same_tensor(self._arrays.get(k), arrays[k])}
+        if not changed:
+            return Scene(arrays, static, self.device)
+        if static["num_instances"]:
+            raise ValueError(f"replace: {sorted(changed)} of a two-level scene; rebuild it "
+                             "with SceneBuilder")
+        drop_arrays, drop_static = (), KERNEL_STATICS
+        if changed & set(BVH_KEYS):
+            from aten_tpu_torch.accel import voxel
+
+            drop_arrays, drop_static = voxel.ARRAY_KEYS, KERNEL_STATICS + VOXEL_STATICS
+        scene = Scene({k: v for k, v in arrays.items()
+                       if not k.startswith(KERNEL_PREFIXES) and k not in drop_arrays},
+                      {k: v for k, v in static.items() if k not in drop_static}, self.device)
+        return with_bvh_layout(scene)
+
+
+_INT_OF_SIZE = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _same_tensor(a, b):
+    """a and b have the same shape, dtype and bits."""
+    if a is b:
+        return True
+    if not (torch.is_tensor(a) and torch.is_tensor(b)):
+        return False
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        a, b = (x.contiguous().view(_INT_OF_SIZE[x.element_size()]) for x in (a, b))
+    return bool(torch.equal(a, b))
+
 
 def to_tensors(arrays: dict, device):
-    """numpy (possibly nested) dict -> the same dict of tensors on device."""
+    """A (possibly nested) dict of numpy arrays, scalars or tensors -> the
+    same dict of tensors on device."""
     out = {}
     for k, v in arrays.items():
         if isinstance(v, dict):
             out[k] = to_tensors(v, device)
+        elif torch.is_tensor(v):
+            out[k] = v.to(device)
         else:
             out[k] = torch.tensor(np.asarray(v), device=device)
     return out
@@ -125,6 +180,10 @@ BVH_KEYS = (
     "nodes_prim_start", "nodes_prim_count", "prim_order",
 )
 _BVH_DTYPES = {"nodes_bmin": np.float32, "nodes_bmax": np.float32}
+# the geometry K1's prim records copy (ops/bvh_layout.py::prim_records)
+GEOMETRY_KEYS = ("tri_v0", "tri_e1", "tri_e2", "sph_center", "sph_radius")
+# the statics of a voxel-LOD annotation (accel/voxel.py)
+VOXEL_STATICS = ("has_voxel_lod", "lod_bake_depth")
 
 # the kernels' layouts, which a scene carries one of (besides K1's
 # records where `with_bvh_layout` attached them), and their statics
@@ -145,8 +204,7 @@ def host_bvh(scene: Scene, what: str) -> dict:
     as numpy, to build `what` from."""
     if scene["num_instances"]:
         raise ValueError(f"{what}: only single-level scenes have one; this one has instances")
-    return {k: scene[k].cpu().numpy()
-            for k in BVH_KEYS + ("tri_v0", "tri_e1", "tri_e2", "sph_center", "sph_radius")}
+    return {k: scene[k].detach().cpu().numpy() for k in BVH_KEYS + GEOMETRY_KEYS}
 
 
 def _layout_tree(scene: Scene, what: str):

@@ -7,9 +7,10 @@ STYLIZED_BRDF lanes take the diffuse lobe here, as in the reference: the
 path tracer ends them at their toon term (shading/toon.py) before they
 scatter.  As in the reference, every family present in the scene is
 evaluated on the whole batch and the per-lane material type selects the
-result; the static used-type set prunes absent families (`_need`).  An
-unknown used-type set, or a type id that is no MaterialType, raises
-NotImplementedError.
+result; the static used-type set prunes absent families (`_need`), and
+`used=None` evaluates every family, as the reference's default does.  A
+type id that is no MaterialType raises NotImplementedError.
+`eval_bsdf` and `eval_pdf` are the two halves of `eval_bsdf_pdf`.
 
 Conventions: `wo` points away from the surface toward the viewer, `wi`
 toward the next vertex; `ns` is the shading normal as stored.  Singular
@@ -39,18 +40,19 @@ PORTED_TYPES = frozenset(int(t) for t in MaterialType)
 
 
 def check_used_types(used):
-    """Raise for a used-type set the port cannot shade."""
+    """Raise for a used-type set the port cannot shade (None: every
+    family, as in the reference)."""
     if used is None:
-        raise NotImplementedError(
-            "shading needs the scene's static used_mtl_types")
+        return
     missing = sorted(set(int(t) for t in used) - PORTED_TYPES)
     if missing:
         raise NotImplementedError(f"material type ids the port does not know: {missing}")
 
 
 def _need(used, *types):
-    """Static dispatch pruning by the scene's used-material-type set."""
-    return any(int(t) in used for t in types)
+    """Static dispatch pruning by the scene's used-material-type set
+    (None: every family)."""
+    return used is None or any(int(t) in used for t in types)
 
 
 def orient_normal(ns, wo):
@@ -619,7 +621,19 @@ def _carpaint_sample(mat, n, wo, u1, u2, u3):
 # --- fused evaluation and sampling --------------------------------------------
 
 
-def eval_bsdf_pdf(mat, ns, wo, wi, used):
+def eval_bsdf(mat, ns, wo, wi, used=None):
+    """f(wo, wi) [N,3] of the non-singular lobes, zero for singular and
+    emissive materials: eval_bsdf_pdf's first half."""
+    return eval_bsdf_pdf(mat, ns, wo, wi, used)[0]
+
+
+def eval_pdf(mat, ns, wo, wi, used=None):
+    """The solid-angle pdf [N] of sample_brdf proposing wi, zero for
+    singular and emissive materials: eval_bsdf_pdf's second half."""
+    return eval_bsdf_pdf(mat, ns, wo, wi, used)[1]
+
+
+def eval_bsdf_pdf(mat, ns, wo, wi, used=None):
     """f(wo, wi) [N,3] and the solid-angle pdf [N] of sample_brdf
     proposing wi; both zero for singular and emissive materials."""
     check_used_types(used)
@@ -654,7 +668,7 @@ def eval_bsdf_pdf(mat, ns, wo, wi, used):
     return f, pdf
 
 
-def sample_brdf(mat, ns, wo, u1, u2, u3, used):
+def sample_brdf(mat, ns, wo, u1, u2, u3, used=None):
     """Sample wi ~ p(wi | wo).  Returns {wi [N,3], pdf [N], bsdf [N,3],
     singular [N], transmission [N]}."""
     check_used_types(used)

@@ -15,6 +15,7 @@ from aten_tpu_torch.core import vecmath as vm
 from aten_tpu_torch.scene.envmap import pdf_env
 from aten_tpu_torch.scene.lights import sample_light
 from aten_tpu_torch.shading import brdf as brdf_mod
+from aten_tpu_torch.shading import dispatch as disp_mod
 
 
 def mis_balance(pdf_a, pdf_b):
@@ -51,7 +52,7 @@ def nee_contribution(scene, mat, p, ns, wo, state, occluded_fn, used):
     wi = ls["dir"]
     n_or = brdf_mod.orient_normal(ns, wo)
     cos_s = vm.dot(n_or, wi, keepdims=False)
-    f, pdf_b = brdf_mod.eval_bsdf_pdf(mat, ns, wo, wi, used)
+    f, pdf_b = disp_mod.eval_bsdf_pdf(scene, mat, ns, wo, wi, used)
     cos_l = vm.dot(ls["nml"], -wi, keepdims=False)
 
     dist2 = torch.clamp(ls["dist"] * ls["dist"], min=1e-8)

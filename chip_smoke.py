@@ -47,7 +47,7 @@ LOD oracle walk on 4,194,304 camera and bounce rays each, timed in turns
 beside their non-LOD instantiations, and the three LOD scenes (the
 102,404-prim mesh at lod_depth 9 and 15, the 512,004-prim mesh at 18)
 rendered at 512x512 x 16 spp through them, each against the oracle
-walk's render at 256x256, depth 2.  Phase 15 holds the kStats instantiations of K1 and K3
+walk's render at 256x256, depth 1.  Phase 15 holds the kStats instantiations of K1 and K3
 (per-ray work counts) bitwise against their plain instantiations' hits
 and their plain versions' counts on 4,194,304 camera and bounce rays,
 timed in turns with them, runs the traversal-stats tool
@@ -83,7 +83,7 @@ within statistical bounds; the 102,404-prim knot in a homogeneous fog
 box and in a smoke_plume grid through K1 at 256x256 x 2 spp, each
 bitwise the render through K1's plain version at 64x64; render_npr and
 the sample-ray feature lines on the knot at 512x512 through K1, and at
-128x128 against the oracle walk.  Phase 19 runs scene files and
+64x64 against the oracle walk.  Phase 19 runs scene files and
 skinned animation: the 102,404-prim knot skinned to a chain of 8 joints,
 8 frames of its clip, each the pose step (palette, skinning, the LBVH and
 K1's preorder records built on the card, with 0 host syncs) and a
@@ -95,7 +95,21 @@ pose's LBVH against its SAH tree; the knot scene as OBJ + MTL, a sky as
 .hdr and 4 knot instances as .glb, each loaded and built on the card and
 on this machine's CPU, the OBJ scene rendered through K1 and the .glb
 through K5 (bitwise its plain version at 64x64); and the 512,004-prim
-scene built with and without a BVH cache.  Each
+scene built with and without a BVH cache.  Phase 20 runs the last
+modules: aten_tpu_torch.cli.render on the knot written as OBJ at
+512x512 x 16 spp with --stats and a checkpoint, then resumed, the
+resumed film bitwise the same 32 render_sample calls (K1 5 + 0 a
+sample), and at 64x64 against the same call on this machine's CPU;
+cli.bvh_builder --spatial-splits on the knot and on 65,536 slivers,
+each SBVH put on its scene with Scene.replace and walked by K1 on
+4,194,304 camera rays against the SAH tree (and bitwise K1's plain
+version), timed in turns with it; visible_prims on the knot, the card's
+masks the CPU's and a superset of K1's hit prims; compact and
+scatter_back on 4,194,304 lanes bitwise the CPU's, with
+bench_compaction at live fractions 0.1, 0.5 and 0.9; the zoo+IBL render
+at 512x512 x 8 spp with the partitioned dispatch off, and on in a child
+process under ATEN_TPU_PARTITION=1; and entry()'s step on the card
+against the CPU.  Each
 main-path render and step is profiled, with its ten costliest device
 ops and each traversal kernel's summed device time. It prints the
 measured times and each kernel's bound (the least time the card could
@@ -836,7 +850,7 @@ LOD_IMPL = {"K1-lod": "cuda", "K3-lod": "plk", "K4-lod": "smt"}
 # the depth of phase 14's renders against the LOD oracle walk and of
 # phase 15's against the plain walk (host-bound walks: each bounce is
 # seconds of host time)
-LOD_PLAIN_DEPTH = 2
+LOD_PLAIN_DEPTH = 1
 PLAIN_DEPTH = 1
 
 
@@ -968,7 +982,7 @@ def lod_phase(card, dev):
     K3-lod, the 102k at 15 through K4-lod (the K4 layout attached and
     traverse's impl="smt", the kernel and layout of a build under
     ATEN_TPU_KERNEL=smt), each profiled and held to the oracle walk's
-    render at 256x256, depth 2.  Returns the kernels' JSON entries."""
+    render at 256x256, depth 1.  Returns the kernels' JSON entries."""
     import numpy as np
     import torch
 
@@ -1074,7 +1088,7 @@ def lod_phase(card, dev):
             f"{img.mean():.5f} std {img.std():.5f} wall {wall * 1e3:.1f} ms, "
             f"{n_main / wall / 1e6:.3f} Mpaths/s [{card}]")
         log_profile(f"phase 14 {name}", card, profile_render(lambda: render_image(scene, c, **kw)))
-        # against the oracle walk at 256x256, depth 2: its host-bound walk
+        # against the oracle walk at 256x256, depth 1: its host-bound walk
         # takes a time set by its steps, not its rays (16-24 s a scene at
         # 512x512, depth 5)
         t = time.time()
@@ -1984,7 +1998,7 @@ FOG_KW = {"spp": 2, "max_depth": 5, "rr_depth": 3}  # 18c, through K1
 # (the plain walk is host-bound, its time set by its walks, ~0.8 s each)
 FOG_SMALL = 64
 FOG_SMALL_KW = {"spp": 2, "max_depth": 2, "rr_depth": 1}
-NPR_SMALL = 128  # 18d's renders against the oracle walk
+NPR_SMALL = 64  # 18d's renders against the oracle walk
 LINE_SAMPLES = 8
 LINE_AGREE = 0.999
 
@@ -2049,7 +2063,7 @@ def phase18(card, dev):
     the render through K1's plain version.  18d: render_npr on the 102k
     mesh at 512x512 through K1 (2 closest-hit, 3 any-hit launches) and
     feature_lines_sample_rays at 512x512 with 8 samples (9 closest-hit),
-    and both at 128x128 against the oracle walk."""
+    and both at 64x64 against the oracle walk."""
     from aten_tpu_torch.scene.scenedefs import hetero_volume_scene, homogeneous_volume_scene
 
     t18 = time.time()
@@ -2993,6 +3007,33 @@ def add_floor_and_light(b):
     b.add_area_light_tris(ls, lc, le=(26.0, 25.0, 23.0))
 
 
+def write_knot_obj(out_dir, res):
+    """procedural_mesh_scene's knot scene (102,404 prims: the knot, its
+    floor and light quads) as knot.obj + knot.mtl in out_dir: (the .obj's
+    path, the scene's camera at res x res)."""
+    import numpy as np
+
+    from aten_tpu_torch.io.obj_writer import write_mtl, write_obj
+    from aten_tpu_torch.scene.scene import SceneBuilder
+    from aten_tpu_torch.scene.scenedefs import populate_procedural_mesh_scene, torus_knot_mesh
+
+    src = SceneBuilder()
+    cam = populate_procedural_mesh_scene(src, res, res, *KNOT_UV)
+    corners, face_mtl = src._positions()[src._face_array()[:, :3]], src._face_array()[:, 3]
+    n_knot = 2 * KNOT_UV[0] * KNOT_UV[1]
+    names = ["gold", "floor", "light"]
+    obj_path, mtl_path = (os.path.join(out_dir, f"knot.{e}") for e in ("obj", "mtl"))
+    pos, _, _, faces = torus_knot_mesh(*KNOT_UV)
+    # the knot indexed, the floor's and the light's quads as corner triangles
+    quad = corners[n_knot:].reshape(-1, 3)
+    all_pos = np.concatenate([pos, quad])
+    all_faces = np.concatenate([faces, len(pos) + np.arange(quad.shape[0]).reshape(-1, 3)])
+    write_mtl(mtl_path, src.materials, names=names)
+    write_obj(obj_path, all_pos, all_faces, face_mtl=face_mtl, mtl_names=names,
+              mtl_path=mtl_path)
+    return obj_path, cam
+
+
 def scene_files(card, dev, out_dir):
     """Phase 19b (see phase19)."""
     import numpy as np
@@ -3002,33 +3043,17 @@ def scene_files(card, dev, out_dir):
     from aten_tpu_torch.io.gltf import load_gltf
     from aten_tpu_torch.io.hdr import read_hdr, write_hdr
     from aten_tpu_torch.io.image import load_image
-    from aten_tpu_torch.io.obj_writer import write_mtl, write_obj
     from aten_tpu_torch.ops import tlas_cuda, traverse_cuda
     from aten_tpu_torch.scene.materials import MaterialType
     from aten_tpu_torch.scene.objloader import _mtl_to_material, load_obj
     from aten_tpu_torch.scene.scene import SceneBuilder
-    from aten_tpu_torch.scene.scenedefs import (
-        populate_procedural_mesh_scene, sky_envmap, torus_knot_mesh)
+    from aten_tpu_torch.scene.scenedefs import sky_envmap, torus_knot_mesh
 
     t = time.time()
-    # the knot scene's geometry and materials as OBJ + MTL
-    src = SceneBuilder()
-    cam = populate_procedural_mesh_scene(src, RES19, RES19, *KNOT_UV)
-    arrays, _ = src.numpy_arrays()
+    obj_path, cam = write_knot_obj(out_dir, RES19)
     n_knot = 2 * KNOT_UV[0] * KNOT_UV[1]
     nt = n_knot + 4
-    corners = np.stack([arrays["tri_v0"], arrays["tri_v0"] + arrays["tri_e1"],
-                        arrays["tri_v0"] + arrays["tri_e2"]], 1)[:nt]
-    names = ["gold", "floor", "light"]
-    obj_path, mtl_path = (os.path.join(out_dir, f"knot.{e}") for e in ("obj", "mtl"))
     pos, nml, _, faces = torus_knot_mesh(*KNOT_UV)
-    # the knot indexed, the floor's and the light's quads as corner triangles
-    quad = corners[n_knot:].reshape(-1, 3)
-    all_pos = np.concatenate([pos, quad])
-    all_faces = np.concatenate([faces, len(pos) + np.arange(quad.shape[0]).reshape(-1, 3)])
-    write_mtl(mtl_path, src.materials, names=names)
-    write_obj(obj_path, all_pos, all_faces, face_mtl=arrays["tri_mtl"][:nt], mtl_names=names,
-              mtl_path=mtl_path)
     hdr_path = os.path.join(out_dir, "sky.hdr")
     write_hdr(hdr_path, sky_envmap(64, 128))
     glb_path = os.path.join(out_dir, "knots.glb")
@@ -3134,6 +3159,424 @@ def bvh_cache_builds(card, dev, out_dir):
         f"from the cache ({os.path.getsize(cache)} B); {n} arrays bitwise equal [{card}]")
     del built, a, c
     torch.cuda.empty_cache()
+
+
+# -- phase 20: the CLI, SBVH, frustum culling, compaction, dispatch, entry()
+P20_RES = 512
+CLI_SPP = 16
+CLI_SMALL, CLI_SMALL_SPP = 64, 2
+SLIVERS = 65536
+SBVH_SUBSAMPLES = 16           # 512x512 x 16 = 4,194,304 camera rays
+SBVH_TURNS, SBVH_REPS = 3, 5
+PLAIN20 = 256                  # 20b's plain-version check: 256x256 pixel centres (knot)
+COMPACT_N = 1 << 22
+COMPACT_FRACS = (0.1, 0.5, 0.9)
+COMPACT_ITERS = 10
+ZOO_KW = {"spp": 8, "max_depth": 5, "rr_depth": 3}
+
+CHILD_PARTITION = """
+import json, sys, time
+sys.path.insert(0, {root!r})
+import numpy as np, torch
+from aten_tpu_torch.integrator.pathtracer import render_image
+from aten_tpu_torch.scene.scenedefs import material_test_scene, sky_envmap
+from aten_tpu_torch.shading import dispatch
+scene, cam = material_test_scene({res}, {res}, envmap=sky_envmap(), device="cuda")
+torch.cuda.synchronize()
+sys.stdin.readline()  # the parent's go, once its own renders are done
+kw = {kw!r}
+render_image(scene, cam, **kw)  # warm-up
+torch.cuda.synchronize()
+calls = []
+real = dispatch._dispatch
+dispatch._dispatch = lambda *a: calls.append(1) or real(*a)
+t = time.time()
+img = render_image(scene, cam, **kw)
+torch.cuda.synchronize()
+wall = time.time() - t
+np.save({out!r}, img.cpu().numpy())
+print(json.dumps({{"partition": dispatch._ENV_PARTITION, "wall_ms": wall * 1e3,
+                  "partitioned_calls": len(calls)}}))
+"""
+
+
+def sliver_triangles(n, seed):
+    """[n, 3, 3] float32: n/2 long slivers along x and n/2 small triangles,
+    tests/test_sbvh.py's sliver generator vectorized, from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h = n // 2
+    y, z = rng.uniform(-3, 3, (2, h))
+    x0 = rng.uniform(-5, 0, h)
+    l1, l2 = rng.uniform(4, 8, h), rng.uniform(2, 4, h)
+    sl = np.stack([np.stack([x0, y, z], -1), np.stack([x0 + l1, y + 0.05, z], -1),
+                   np.stack([x0 + l2, y, z + 0.05], -1)], 1)
+    small = rng.uniform(-4, 4, (n - h, 1, 3)) + rng.uniform(-0.2, 0.2, (n - h, 3, 3))
+    return np.concatenate([sl, small]).astype(np.float32)
+
+
+def phase20(card, dev):
+    """Phase 20: the last modules.  20a: aten_tpu_torch.cli.render on the
+    102,404-prim knot written as OBJ, 512x512 x 16 spp with --stats and a
+    checkpoint, then again resuming it; the resumed film bitwise the same
+    32 render_sample calls accumulated here; K1 5 + 0 launches a sample
+    (the CLI's OBJ scene has no light table entry, so no shadow ray);
+    the 64x64 CLI render on the card against the same call with --device
+    cpu.  20b: cli.bvh_builder --spatial-splits on the knot OBJ and on
+    65,536 slivers (sliver_triangles), each SBVH put on its scene with
+    Scene.replace (K1's records attached); K1 on 4,194,304 camera rays on
+    the SBVH against K1 on the SAH tree (hits; prims, but for ties at an
+    edge two triangles share; t within 1e-5), on the knot's SBVH bitwise
+    its plain version on the 256x256 pixel centres, and timed in turns
+    with the SAH tree's,
+    the bound from its kStats counts.  20c:
+    visible_prims on the knot from its camera, the card's masks the
+    CPU's, every prim K1 hits through the 512x512 pixel centres inside.
+    20d: compact and scatter_back on 4,194,304 lanes bitwise the CPU's,
+    and bench_compaction at live fractions 0.1, 0.5, 0.9.  20e: zoo+IBL
+    at 512x512 x 8 spp with the partitioned dispatch off, then on in a
+    child process under ATEN_TPU_PARTITION=1 (started with the phase, it
+    renders once the parent's renders are done), within the full-image
+    bounds.  20f: entry()'s step on the card against the CPU."""
+    import shutil
+
+    t20 = time.time()
+    out_dir = os.path.join(ROOT, "build", "phase20")
+    os.makedirs(out_dir, exist_ok=True)
+    # 20e's child under ATEN_TPU_PARTITION=1 starts now and waits for its
+    # go, so its start-up overlaps 20a-20d and its render runs alone
+    npy = os.path.join(out_dir, "partition_on.npy")
+    child = subprocess.Popen(
+        [sys.executable, "-c", CHILD_PARTITION.format(root=ROOT, res=P20_RES, kw=ZOO_KW, out=npy)],
+        cwd=ROOT, env={**os.environ, "ATEN_TPU_PARTITION": "1"}, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        obj_path, cam = write_knot_obj(out_dir, P20_RES)
+        knot = cli_runs(card, dev, obj_path, cam, out_dir)
+        t = phase_clock("20a", t20)
+        sbvh_walks(card, dev, knot, obj_path, cam, out_dir)
+        t = phase_clock("20b", t)
+        frustum_check(card, dev, knot, cam)
+        del knot
+        t = phase_clock("20c", t)
+        compaction_check(card, dev)
+        t = phase_clock("20d", t)
+        dispatch_check(card, dev, child, npy)
+        t = phase_clock("20e", t)
+        entry_check(card, dev)
+        phase_clock("20f", t)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"phase 20 took {time.time() - t20:.1f} s (budget 45 s) [{card}]")
+
+
+def cli_args(obj, cam, res, spp, out, checkpoint, device):
+    return ["--obj", obj, "--width", str(res), "--height", str(res), "--spp", str(spp),
+            "--camera", *map(str, cam.origin), *map(str, cam.lookat),
+            "--vfov", str(cam.vfov_deg), "--stats", "--checkpoint", checkpoint, "-o", out,
+            "--device", device]
+
+
+def run_cli(args):
+    """(the --stats dict, wall s) of cli.render.main(args), with its
+    launch counts reset just before and read just after."""
+    import contextlib
+    import io
+
+    import torch
+
+    from aten_tpu_torch.cli import render
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = render.main(args)
+    wall = time.time() - t
+    launches = nonzero(read_counts())
+    assert rc == 0, rc
+    stats = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+    return stats[-1], wall, launches
+
+
+def cli_runs(card, dev, obj_path, cam, out_dir):
+    """Phase 20a (see phase20); returns the CLI's knot scene (SAH tree)."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.cli import render
+    from aten_tpu_torch.integrator.film import Film
+    from aten_tpu_torch.integrator.pathtracer import render_sample
+    from aten_tpu_torch.ops import traverse_cuda
+
+    ck = os.path.join(out_dir, "st.npz")
+    args = cli_args(obj_path, cam, P20_RES, CLI_SPP, os.path.join(out_dir, "out.hdr"), ck,
+                    dev.type)
+    # one closest-hit walk a bounce; an OBJ loaded by the CLI registers no
+    # light (its emitters shine when hit, and the background lights it),
+    # so NEE casts no shadow ray, as in the reference's CLI
+    want = {traverse_cuda.KERNELS[0]: 5 * CLI_SPP}
+    n_prims = 2 * KNOT_UV[0] * KNOT_UV[1] + 4
+    for call in ("first", "resumed"):
+        stats, wall, launches = run_cli(args)
+        log(f"phase 20a cli.render {call} call, --obj knot.obj ({n_prims} prims) {P20_RES}x"
+            f"{P20_RES} {CLI_SPP} spp depth 5 RR 3: --stats {json.dumps(stats)}; wall of the call "
+            f"{wall * 1e3:.1f} ms (load, build, render, checkpoint); launches {launches} [{card}]")
+        assert launches == want, (call, launches, want)
+    # the same 32 samples accumulated directly on the CLI's own scene
+    scene, ccam = render.make_scene(render.build_parser().parse_args(args))
+    ca = ccam.arrays(dev)
+    film = Film(P20_RES, P20_RES, dev)
+    for s in range(2 * CLI_SPP):
+        film.accumulate(render_sample(scene, ca, P20_RES, P20_RES, s // CLI_SPP, s, CLI_SPP, 5, 3))
+    with np.load(ck) as z:
+        buf, count, frame = z["film/buf"], int(z["film/count"]), int(z["frame"])
+    same = bits_equal(torch.from_numpy(buf), film.image().cpu())
+    log(f"phase 20a resumed film: {count} samples, frame {frame}, mean {buf.mean():.5f}; bitwise "
+        f"the {2 * CLI_SPP} render_sample calls accumulated directly: {same}")
+    assert same and count == 2 * CLI_SPP and frame == 2 and np.isfinite(buf).all()
+    del film
+    # the CLI at 64x64 on the card against the same call on this machine's CPU
+    films = {}
+    for d in (dev.type, "cpu"):
+        small_ck = os.path.join(out_dir, f"small_{d}.npz")
+        _, wall, _ = run_cli(cli_args(obj_path, cam, CLI_SMALL, CLI_SMALL_SPP,
+                                      os.path.join(out_dir, f"small_{d}.hdr"), small_ck, d))
+        with np.load(small_ck) as z:
+            films[d] = z["film/buf"]
+        log(f"phase 20a cli.render {CLI_SMALL}x{CLI_SMALL} {CLI_SMALL_SPP} spp --device {d}: "
+            f"wall {wall:.2f} s")
+    check_image_bounds(f"phase 20a CLI {CLI_SMALL}x{CLI_SMALL} card vs CPU", films[dev.type],
+                       films["cpu"])
+    torch.cuda.empty_cache()
+    return scene
+
+
+def sbvh_walks(card, dev, knot, obj_path, cam, out_dir):
+    """Phase 20b (see phase20); `knot`: the knot OBJ's scene (SAH)."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.accel.traverse import _t0_of, _traverse_plain
+    from aten_tpu_torch.cli import bvh_builder
+    from aten_tpu_torch.core.camera import PinholeCamera
+    from aten_tpu_torch.io.obj_writer import write_obj
+    from aten_tpu_torch.ops import traverse_cuda
+    from aten_tpu_torch.scene.objloader import load_obj
+    from aten_tpu_torch.scene.scene import SceneBuilder, with_bvh_layout
+
+    rng = np.random.default_rng(SEED)
+    tris = sliver_triangles(SLIVERS, SEED)
+    sl_obj = os.path.join(out_dir, "slivers.obj")
+    write_obj(sl_obj, tris.reshape(-1, 3), np.arange(3 * SLIVERS).reshape(-1, 3))
+    scam = PinholeCamera(origin=(1.5, 0.0, 14.0), lookat=(1.5, 0.0, 0.0), vfov_deg=45.0,
+                         width=P20_RES, height=P20_RES)
+    # the plain version's walk is host-bound and its steps follow the
+    # longest ray's: the knot's SBVH (2,328 repeated references) is held to
+    # it; the slivers' (~460 node steps a ray, 11 s for 16,384 rays) only
+    # to K1 on their SAH tree
+    for name, obj, c, kinds in (
+            ("knot", obj_path, cam, ((False, 1e-4), (True, 1e-3))),
+            ("slivers", sl_obj, scam, ())):
+        npz = os.path.join(out_dir, f"{name}.sbvh.npz")
+        t = time.time()
+        assert bvh_builder.main([obj, "-o", npz, "--spatial-splits"]) == 0
+        build_s = time.time() - t
+        with np.load(npz) as z:
+            tree = {k: z[k] for k in z.files}
+        if name == "knot":
+            sah = knot
+        else:
+            b = SceneBuilder()
+            load_obj(b, obj)
+            sah = b.build(dev)
+        if "bvh_nodes" not in sah:
+            sah = with_bvh_layout(sah)
+        t = time.time()
+        sb = sah.replace(**tree)
+        torch.cuda.synchronize()
+        replace_s = time.time() - t
+        n_prims, refs = sah["num_tris"] + sah["num_spheres"], tree["prim_order"].shape[0]
+        log(f"phase 20b {name}: bvh_builder --spatial-splits {build_s:.2f} s (OBJ load and "
+            f"build, host): {n_prims} prims -> {refs} references (ratio {refs / n_prims:.4f}), "
+            f"{tree['nodes_hit'].shape[0]} nodes against the SAH tree's "
+            f"{sah['nodes_hit'].shape[0]}; Scene.replace with K1's records {replace_s:.2f} s")
+        assert sb["bvh_prims"].shape[0] == refs and "traversal" not in sb
+        if name == "slivers":
+            assert refs > n_prims, "the slivers' SBVH has no duplicated reference"
+        ro, rd = (x.contiguous() for x in camera_rays(c, dev, jitter_rng=rng,
+                                                      subsamples=SBVH_SUBSAMPLES))
+        n = ro.shape[0]
+        t0 = _t0_of(None, n, dev)
+        hs = traverse_cuda.bvh_traverse(sah, ro, rd, t0)
+        hb = traverse_cuda.bvh_traverse(sb, ro, rd, t0)
+        hit = hs[1] >= 0
+        same_hit = bool(torch.equal(hit, hb[1] >= 0))
+        other = hs[1] != hb[1]
+        # a ray through an edge two triangles share meets both at the same
+        # t, and each tree keeps the one it tests first: a tie, not a miss
+        ties = int((other & (hs[0] == hb[0])).sum())
+        t_err = float((torch.abs(hb[0] - hs[0]) / torch.abs(hs[0]))[hit].max()) if bool(
+            hit.any()) else 0.0
+        log(f"phase 20b {name}: K1 on {n} camera rays, SBVH against the SAH tree: hit masks "
+            f"equal {same_hit} ({int(hit.sum())} hits), prims differ on {int(other.sum())} "
+            f"rays, {ties} of them ties at a bitwise-equal t; max t rel err {t_err:.3e}")
+        assert same_hit and int(other.sum()) == ties <= n * 1e-5 and t_err <= 1e-5
+        # K1 on the SBVH records against its plain version, pixel centres
+        cro, crd = (x.contiguous() for x in camera_rays(
+            dataclasses.replace(c, width=PLAIN20, height=PLAIN20), dev))
+        ct0 = _t0_of(None, cro.shape[0], dev)
+        t = time.time()
+        for any_hit, t_min in kinds:
+            k = traverse_cuda.bvh_traverse(sb, cro, crd, ct0, any_hit=any_hit, t_min=t_min)
+            p = _traverse_plain(sb, cro, crd, ct0, any_hit, t_min, baked=True)
+            same = all(bits_equal(a, p[key]) for a, key in zip(k, ("t", "prim", "u", "v")))
+            if any_hit:  # the plain walk keeps testing a leaf after its first hit
+                same = bool(torch.equal(k[1] >= 0, p["prim"] >= 0))
+            log(f"phase 20b {name}: K1 on the SBVH records, {cro.shape[0]} pixel-centre rays, "
+                f"{'any' if any_hit else 'closest'}-hit, {'verdicts' if any_hit else 'bitwise'} "
+                f"equal to its plain version: {same} ({time.time() - t:.1f} s)")
+            assert same, (name, any_hit)
+            t = time.time()
+        # times in turns, and each tree's bound from K1's kStats counts
+        ms = {"SBVH": [], "SAH": []}
+        for _ in range(SBVH_TURNS):
+            for tag, sc in (("SBVH", sb), ("SAH", sah)):
+                ms[tag].append(cuda_ms(lambda: traverse_cuda.bvh_traverse(sc, ro, rd, t0),
+                                       reps=SBVH_REPS))
+        for tag, sc in (("SBVH", sb), ("SAH", sah)):
+            counts = traverse_cuda.bvh_traverse(sc, ro, rd, t0, stats=True)[4]
+            work = {k: int(v.sum()) for k, v in counts.items()}
+            bd = bound(n, 16, array_bytes(sc, BVH_ARRAYS), work)
+            mean = sum(ms[tag]) / len(ms[tag])
+            log(f"phase 20b {name}: K1 closest on the {tag} tree, {n} rays: "
+                f"{', '.join(f'{x:.3f}' for x in ms[tag])} ms in turns (mean {mean:.3f}); work "
+                f"{work}; bound {bd[0]:.4f} ms by {bd[1]} ({bd[2]} B, {bd[3]} ops), "
+                f"{mean / bd[0]:.1f}x [{card}]")
+        log(f"phase 20b {name}: SBVH / SAH time {sum(ms['SBVH']) / sum(ms['SAH']):.3f}")
+        del sb, sah, ro, rd, t0, hs, hb
+        torch.cuda.empty_cache()
+
+
+def frustum_check(card, dev, scene, cam):
+    """Phase 20c (see phase20)."""
+    import torch
+
+    from aten_tpu_torch.accel.frustum import frustum_planes_from_camera, visible_prims
+    from aten_tpu_torch.accel.traverse import _t0_of
+    from aten_tpu_torch.ops import traverse_cuda
+
+    planes = frustum_planes_from_camera(cam)
+    nt = scene["num_tris"]
+    p0 = scene["tri_v0"][:nt]
+    corners = torch.stack([p0, p0 + scene["tri_e1"][:nt], p0 + scene["tri_e2"][:nt]], 1)
+    boxes = (corners.amin(1), corners.amax(1))
+    tree = ("nodes_bmin", "nodes_bmax", "nodes_prim_start", "nodes_prim_count", "prim_order")
+    host = {k: scene[k].cpu() for k in tree}
+    got = {}
+    for refine, bx in (("leaf", ()), ("prim boxes", boxes)):
+        mask, nodes = visible_prims(scene, planes, *bx)
+        cmask, cnodes = visible_prims(host, planes, *(b.cpu() for b in bx))
+        same = bits_equal(mask, cmask) and bits_equal(nodes, cnodes)
+        ms = cuda_ms(lambda: visible_prims(scene, planes, *bx), reps=10)
+        log(f"phase 20c visible_prims ({refine}) on the knot ({nt} prims, "
+            f"{nodes.shape[0]} nodes): {int(mask.sum())} prims, {int(nodes.sum())} nodes in "
+            f"the frustum; card bitwise the CPU's {same}; {ms:.3f} ms [{card}]")
+        assert same
+        got[refine] = mask
+    ro, rd = (x.contiguous() for x in camera_rays(cam, dev))
+    prim = traverse_cuda.bvh_traverse(scene, ro, rd, _t0_of(None, ro.shape[0], dev))[1]
+    hit = torch.unique(prim[prim >= 0].long())
+    inside = {k: bool(m[hit].all()) for k, m in got.items()}
+    log(f"phase 20c K1's {ro.shape[0]} pixel-centre rays hit {hit.numel()} distinct prims, all "
+        f"in the visible set: {inside}")
+    assert all(inside.values()) and hit.numel() > nt // 20
+
+
+def compaction_check(card, dev):
+    """Phase 20d (see phase20)."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.ops.compaction import bench_compaction, compact, scatter_back
+
+    rng = np.random.default_rng(SEED)
+    alive = torch.from_numpy(rng.uniform(size=COMPACT_N) < 0.5)
+    x = torch.from_numpy(rng.normal(size=(COMPACT_N, 3)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 1 << 30, COMPACT_N).astype(np.int32))
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        perm, count, g = compact(alive.to(d), x.to(d), ids.to(d))
+        outs[d.type] = (perm, count, *g, *scatter_back(perm, *g))
+    same = all(bits_equal(a, b) for a, b in zip(outs[dev.type], outs["cpu"]))
+    back = bits_equal(outs["cpu"][4], x) and bits_equal(outs["cpu"][5], ids)
+    log(f"phase 20d compact + scatter_back, {COMPACT_N} lanes, {int(outs['cpu'][1])} live: "
+        f"card bitwise the CPU's {same}; scatter_back(compact) the identity {back}")
+    assert same and back
+    for frac in COMPACT_FRACS:
+        r = bench_compaction(COMPACT_N, frac, COMPACT_ITERS, device=dev)
+        log(f"phase 20d bench_compaction n={COMPACT_N} live {frac}: compact_ms "
+            f"{r['compact_ms']:.4f}, masked_ms {r['masked_ms']:.4f} (CUDA events, mean of "
+            f"{COMPACT_ITERS}) [{card}]")
+
+
+def dispatch_check(card, dev, child, npy):
+    """Phase 20e (see phase20): `child` the process of CHILD_PARTITION,
+    waiting for its go; it writes its image to `npy`."""
+    import numpy as np
+    import torch
+
+    from aten_tpu_torch.integrator.pathtracer import render_image
+    from aten_tpu_torch.scene.scenedefs import material_test_scene, sky_envmap
+    from aten_tpu_torch.shading import dispatch
+
+    assert not dispatch._ENV_PARTITION, "the partition is off by default"
+    scene, cam = material_test_scene(P20_RES, P20_RES, envmap=sky_envmap(), device=dev)
+    render_image(scene, cam, **ZOO_KW)  # warm-up
+    torch.cuda.synchronize()
+    t = time.time()
+    off = render_image(scene, cam, **ZOO_KW)
+    torch.cuda.synchronize()
+    wall_off = time.time() - t
+    off = off.cpu().numpy()
+    del scene
+    torch.cuda.empty_cache()
+    out, err = child.communicate("go\n", timeout=300)
+    if child.returncode != 0:
+        log(out[-4000:], err[-4000:])
+        raise RuntimeError(f"phase 20e child process exited {child.returncode}")
+    got = json.loads(out.strip().splitlines()[-1])
+    on = np.load(npy)
+    log(f"phase 20e zoo+IBL {P20_RES}x{P20_RES} {ZOO_KW['spp']} spp depth 5 RR 3: partition off "
+        f"{wall_off * 1e3:.1f} ms; on (child under ATEN_TPU_PARTITION=1) {got['wall_ms']:.1f} ms, "
+        f"{got['partitioned_calls']} partitioned BSDF calls; the images bitwise equal "
+        f"{bool(np.array_equal(on, off))} [{card}]")
+    assert got["partition"] and got["partitioned_calls"] > 0, got
+    assert np.isfinite(on).all()
+    check_image_bounds("phase 20e zoo+IBL partition on vs off", on, off)
+
+
+def entry_check(card, dev):
+    """Phase 20f (see phase20)."""
+    import torch
+
+    from aten_tpu_torch.entry import entry
+
+    fn, args = entry()  # the card by default
+    assert args[0].device == dev, args[0].device
+    fn(*args)  # warm-up
+    img, ms = timed_ms(lambda: fn(*args))
+    cfn, cargs = entry("cpu")
+    ref = cfn(*cargs)
+    log(f"phase 20f entry(): the Cornell box 64x64, 1 spp, depth 3, RR 2 on the card "
+        f"{ms:.2f} ms, mean {float(img.mean()):.5f} (CPU {float(ref.mean()):.5f}) [{card}]")
+    assert bool(torch.isfinite(img).all())
+    check_image_bounds("phase 20f entry() card vs CPU", img.cpu().numpy(), ref.numpy())
 
 
 def main():
@@ -3656,6 +4099,7 @@ def main():
     phase17(card, dev)
     phase18(card, dev)
     phase19(card, dev)
+    phase20(card, dev)
 
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -113,12 +113,21 @@ def test_unported_families_raise():
     _, mat_t = _both(_materials(rng, 8))
     ns, wo = torch.tensor(_unit(rng, 8)), torch.tensor(_unit(rng, 8))
     u = torch.rand(8)
-    # no used-type set, or a type id that is no MaterialType (every
-    # family is ported, so an unknown id is the one left to refuse)
+    # a type id that is no MaterialType (every family is ported, so an
+    # unknown id is the one left to refuse)
     unknown = max(int(t) for t in MaterialType) + 1
-    for used in (None, USED + (unknown,)):
-        with pytest.raises(NotImplementedError):
-            tbrdf.sample_brdf(mat_t, ns, wo, u, u, u, used)
+    with pytest.raises(NotImplementedError):
+        tbrdf.sample_brdf(mat_t, ns, wo, u, u, u, USED + (unknown,))
+    # no used-type set is the reference's default: every family, the same
+    # result as naming them all (on rows with every field the zoo reads)
+    from test_torch_materials import _materials as zoo_materials
+
+    _, mat_t = _both(zoo_materials(rng, 8))
+    every = tuple(int(t) for t in MaterialType)
+    got, want = tbrdf.sample_brdf(mat_t, ns, wo, u, u, u), tbrdf.sample_brdf(
+        mat_t, ns, wo, u, u, u, every)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 def _populate_light_scene(b, mt):
