@@ -76,6 +76,7 @@ from aten_tpu_torch.ops.bvh_layout import LEAF_COUNT, LEAF_SHIFT
 from aten_tpu_torch.ops.lod_layout import VOXEL_WORD
 from aten_tpu_torch.ops.plk_layout import MAX_WINDOW
 from aten_tpu_torch.ops.smt_cuda import CHAIN_COUNTS, DEFAULT_CHAINS
+from aten_tpu_torch.utils import spans
 
 # Below this primitive count every ray tests every prim (reference :34).
 DENSE_MAX_PRIMS = 512
@@ -804,7 +805,13 @@ def traverse(scene, ro, rd, t_max=None, any_hit=False, t_min=1e-4, impl="auto"):
     reads scene["lod_depth"]), "cuda" (K1), "plk"
     (K3), "plk_plain" (K3's plain version), "smt" (K4) and "smt_plain"
     (K4's plain version) force one; the last four need their layouts.
+    Recorded as the "traverse" span.
     """
+    with spans.span("traverse"):
+        return _traverse(scene, ro, rd, t_max, any_hit, t_min, impl)
+
+
+def _traverse(scene, ro, rd, t_max, any_hit, t_min, impl):
     if impl not in IMPLS:
         raise ValueError(f"unknown traversal impl {impl!r}")
     if "tl_bmin" in scene:

@@ -6,11 +6,17 @@ or divisions for torch.uint32 on the CPU, so every value here is an
 int64 tensor holding a uint32, reduced with `& 0xFFFFFFFF` after each
 multiply, add and shift.  Products are split into 16-bit halves
 (`_mul32`) so no intermediate leaves the int64 range.
+
+The public entry points `wang_hash`, `make_state`, `next_1d` and
+`next_2d` each record a "sampler" span (utils/spans.py); they call the
+unspanned `_wang_hash` inside, so one draw is one span.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from aten_tpu_torch.utils import spans
 
 CMJ_DIM = 16  # 16x16 grid, as the reference (cmj.h:9)
 CMJ_N = CMJ_DIM * CMJ_DIM
@@ -28,6 +34,11 @@ def _mul32(a, m):
 
 def wang_hash(seed):
     """Wang integer hash (reference fallback sampler, sampler/wanghash.h:8)."""
+    with spans.span("sampler"):
+        return _wang_hash(seed)
+
+
+def _wang_hash(seed):
     seed = (seed ^ 61) ^ (seed >> 16)
     seed = _mul32(seed, 9)
     seed = seed ^ (seed >> 4)
@@ -42,7 +53,7 @@ def _permute_pow2(i, l, p):
     bits = int(l).bit_length() - 1
     s = max(1, bits // 2)
     i = i & w
-    k = wang_hash(p ^ 0x55555555)
+    k = _wang_hash(p ^ 0x55555555)
     for r, mul in enumerate(_ROUND_MULS):
         i = _mul32(i, mul) & w
         i = i ^ (i >> s)
@@ -108,29 +119,32 @@ def cmj_1d(s, p):
 def make_state(pixel_seed, frame, sample, spp, bounce=0):
     """Batched sampler state.  pixel_seed: int64 tensor of uint32 values;
     frame, spp, bounce: ints; sample: int or int64 tensor."""
-    idx = (_mul32(frame & _M32, spp & _M32) + sample) & _M32
-    if not torch.is_tensor(idx):
-        idx = torch.full_like(pixel_seed, idx)
-    epoch = idx >> 8  # pattern exhausted every 256 samples -> new pattern
-    scramble = wang_hash(pixel_seed ^ wang_hash(_mul32(epoch, 0x9E3779B9)))
-    dim = (_mul32(bounce & _M32, 300) + 4) & _M32
-    shape = scramble.shape
-    return {
-        "idx": torch.broadcast_to(idx & (CMJ_N - 1), shape),
-        "dim": torch.full(shape, dim, dtype=torch.int64, device=scramble.device),
-        "scramble": scramble,
-    }
+    with spans.span("sampler"):
+        idx = (_mul32(frame & _M32, spp & _M32) + sample) & _M32
+        if not torch.is_tensor(idx):
+            idx = torch.full_like(pixel_seed, idx)
+        epoch = idx >> 8  # pattern exhausted every 256 samples -> new pattern
+        scramble = _wang_hash(pixel_seed ^ _wang_hash(_mul32(epoch, 0x9E3779B9)))
+        dim = (_mul32(bounce & _M32, 300) + 4) & _M32
+        shape = scramble.shape
+        return {
+            "idx": torch.broadcast_to(idx & (CMJ_N - 1), shape),
+            "dim": torch.full(shape, dim, dtype=torch.int64, device=scramble.device),
+            "scramble": scramble,
+        }
 
 
 def next_1d(state):
-    p = state["scramble"] ^ wang_hash(state["dim"])
-    u = cmj_1d(state["idx"], p)
-    state = dict(state, dim=(state["dim"] + 1) & _M32)
-    return u, state
+    with spans.span("sampler"):
+        p = state["scramble"] ^ _wang_hash(state["dim"])
+        u = cmj_1d(state["idx"], p)
+        state = dict(state, dim=(state["dim"] + 1) & _M32)
+        return u, state
 
 
 def next_2d(state):
-    p = state["scramble"] ^ wang_hash(state["dim"])
-    x, y = cmj_2d(state["idx"], p)
-    state = dict(state, dim=(state["dim"] + 2) & _M32)
-    return x, y, state
+    with spans.span("sampler"):
+        p = state["scramble"] ^ _wang_hash(state["dim"])
+        x, y = cmj_2d(state["idx"], p)
+        state = dict(state, dim=(state["dim"] + 2) & _M32)
+        return x, y, state

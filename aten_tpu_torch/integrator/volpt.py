@@ -39,6 +39,7 @@ from aten_tpu_torch.scene.lights import sample_light
 from aten_tpu_torch.scene.materials import MaterialType, gather_material
 from aten_tpu_torch.shading import brdf as brdf_mod
 from aten_tpu_torch.shading import nee
+from aten_tpu_torch.utils import spans
 from aten_tpu_torch.volume.medium import hg_phase, hg_sample, sample_medium_distance, transmittance
 
 SHADOW_PUNCH_MAX = 10  # reference max_lookups (pathtracing_impl.h:290)
@@ -48,9 +49,6 @@ T_FAR = 1e8
 _EMISSIVE = int(MaterialType.EMISSIVE)
 _SPECULAR = int(MaterialType.SPECULAR)
 _REFRACTION = int(MaterialType.REFRACTION)
-
-# host syncs of the shadow walks: each reads its live count once a walk
-HOST_SYNCS = {"shadow": 0}
 
 
 def _stack_top(mstack, msize):
@@ -84,11 +82,13 @@ def _update_medium(mstack, msize, transmitted, entering, mat, active):
 
 def _shadow_transmittance(scene, ro, rd, dist, mstack, msize, seed, impl="auto"):
     """RGB transmittance along shadow segments [N] of length dist (0: no
-    shadow ray), through the medium stack's boundaries."""
+    shadow ray), through the medium stack's boundaries.  Each walk reads
+    its live count once, a host sync counted in "host_sync.shadow"
+    (utils/spans.py)."""
     N = ro.shape[0]
     tr = torch.ones((N, 3), dtype=torch.float32, device=ro.device)
     lane = torch.nonzero(dist > 0.0).squeeze(1)
-    HOST_SYNCS["shadow"] += 1
+    spans.count("host_sync.shadow")
     o, d, rem, ms, mz, sd = ro[lane], rd[lane], dist[lane], mstack[lane], msize[lane], seed[lane]
     trl = tr[lane]
     for k in range(SHADOW_PUNCH_MAX):
@@ -113,7 +113,7 @@ def _shadow_transmittance(scene, ro, rd, dist, mstack, msize, seed, impl="auto")
         keep = torch.nonzero(cont & (rem > 0.0)).squeeze(1)  # the walk's one sync
         lane, o, d, rem, ms, mz, sd, trl = (
             lane[keep], o[keep], d[keep], rem[keep], ms[keep], mz[keep], sd[keep], trl[keep])
-        HOST_SYNCS["shadow"] += 1
+        spans.count("host_sync.shadow")
     return tr
 
 

@@ -29,6 +29,7 @@ from aten_tpu_torch.ops.lod_layout import lod_of
 from aten_tpu_torch.ops.plk_layout import RECORD, k3_window
 from aten_tpu_torch.ops.traverse_cuda import (
     _checked, _packed, count_tensors, load_library, next_ray_counter)
+from aten_tpu_torch.utils import spans
 
 # the drain windows of the instantiations; a name without a window
 # suffix is the default window's, 64
@@ -50,15 +51,9 @@ VARIANTS = ("", "lod_", "stats_", "lod_stats_")
 # the per-ray counts of the kStats instantiations
 COUNTS = ("node_steps", "leaves", "slot_tests")
 
-# Launches per kernel instantiation since the last reset: the one place
-# that adds to a count is the line after a successful launch below.
-launch_counts = dict.fromkeys(
-    [k for w in WINDOWS for v in VARIANTS for k in kernel_names(v, w)], 0)
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
+# Every instantiation's name.  A launch adds 1 to the counter
+# "launch.<name>" (utils/spans.py) on the line after it succeeds.
+INSTANTIATIONS = tuple(k for w in WINDOWS for v in VARIANTS for k in kernel_names(v, w))
 
 
 # (name, dtype, trailing shape) of each scene array the kernel reads
@@ -114,5 +109,5 @@ def plk_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4, stats=False):
                 else lib.aten_cuda_error_string(rc).decode())
         raise RuntimeError(f"plk_traverse launch failed ({rc}): {what}")
     variant = ("lod_" if lod else "") + ("stats_" if stats else "")
-    launch_counts[kernel_names(variant, window)[int(any_hit)]] += 1
+    spans.count("launch." + kernel_names(variant, window)[int(any_hit)])
     return out

@@ -27,6 +27,7 @@ from aten_tpu_torch.ops.lod_layout import lod_of
 from aten_tpu_torch.ops.traverse_cuda import _checked, load_library, next_ray_counter
 from aten_tpu_torch.ops.plk_layout import k4_window
 from aten_tpu_torch.ops.trl_layout import ORDERINGS, RECORD, TRL_NODE
+from aten_tpu_torch.utils import spans
 
 CHAIN_COUNTS = (1, 2, 4, 8)
 # The rays per lane that the card ran fastest (PERF.md §6: every count
@@ -47,15 +48,10 @@ def drain_of(window):
     return next(d for d in DRAINS if k4_window(window) <= d)
 
 
-# Launches per kernel instantiation since the last reset: the one place
-# that adds to a count is the line after a successful launch below.
-launch_counts = dict.fromkeys(
-    [f"{k}{'' if d == 64 else f'_w{d}'}" for d in DRAINS for k in KERNELS + LOD_KERNELS], 0)
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
+# Every instantiation's name.  A launch adds 1 to the counter
+# "launch.<name>" (utils/spans.py) on the line after it succeeds.
+INSTANTIATIONS = tuple(f"{k}{'' if d == 64 else f'_w{d}'}"
+                       for d in DRAINS for k in KERNELS + LOD_KERNELS)
 
 
 def kernel_name(any_hit, chains, lod=False, window=64):
@@ -123,5 +119,5 @@ def smt_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4, chains=DEFAULT_CH
         what = ("bad arguments" if rc < 0
                 else lib.aten_cuda_error_string(rc).decode())
         raise RuntimeError(f"smt_traverse launch failed ({rc}): {what}")
-    launch_counts[kernel_name(any_hit, chains, lod, window)] += 1
+    spans.count("launch." + kernel_name(any_hit, chains, lod, window))
     return t, prim

@@ -20,17 +20,11 @@ import torch
 from aten_tpu_torch.ops.bvh_layout import NODE_WORDS, PRIM_WORDS
 from aten_tpu_torch.ops.tlas_layout import INST_WORDS
 from aten_tpu_torch.ops.traverse_cuda import _checked, _packed, load_library, next_ray_counter
+from aten_tpu_torch.utils import spans
 
+# Every instantiation's name.  A launch adds 1 to the counter
+# "launch.<name>" (utils/spans.py) on the line after it succeeds.
 KERNELS = ("tlas_traverse_closest", "tlas_traverse_any")
-
-# Launches per kernel instantiation since the last reset: the one place
-# that adds to a count is the line after a successful launch below.
-launch_counts = dict.fromkeys(KERNELS, 0)
-
-
-def reset_launch_counts():
-    for k in KERNELS:
-        launch_counts[k] = 0
 
 
 # (name, dtype, trailing shape) of each scene array the kernel reads
@@ -99,5 +93,5 @@ def tlas_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4):
         what = ("bad arguments" if rc < 0
                 else lib.aten_cuda_error_string(rc).decode())
         raise RuntimeError(f"tlas_traverse launch failed ({rc}): {what}")
-    launch_counts[KERNELS[1] if any_hit else KERNELS[0]] += 1
+    spans.count("launch." + KERNELS[int(any_hit)])
     return t, prim, inst, u, v

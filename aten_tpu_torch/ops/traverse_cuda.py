@@ -40,6 +40,7 @@ import torch
 from aten_tpu_torch import native
 from aten_tpu_torch.ops.bvh_layout import NODE_WORDS, PRIM_WORDS
 from aten_tpu_torch.ops.lod_layout import lod_of
+from aten_tpu_torch.utils import spans
 
 KERNEL_DIR = os.path.join(native.REPO_ROOT, "aten_tpu_torch", "kernels")
 SOURCES = (os.path.join(KERNEL_DIR, "bvh_traverse.cu"),
@@ -57,16 +58,11 @@ LOD_STATS_KERNELS = ("bvh_traverse_lod_stats_closest", "bvh_traverse_lod_stats_a
 # the per-ray counts of the kStats instantiations
 COUNTS = ("node_steps", "prim_tests")
 
-# Launches per kernel instantiation since the last reset: the one place
-# that adds to a count is the line after a successful launch below.
-launch_counts = dict.fromkeys(KERNELS + LOD_KERNELS + STATS_KERNELS + LOD_STATS_KERNELS, 0)
+# Every instantiation's name.  A launch adds 1 to the counter
+# "launch.<name>" (utils/spans.py) on the line after it succeeds.
+INSTANTIATIONS = KERNELS + LOD_KERNELS + STATS_KERNELS + LOD_STATS_KERNELS
 
 _lib = None
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def load_library(verbose=False):
@@ -206,5 +202,5 @@ def bvh_traverse(scene, ro, rd, t0, any_hit=False, t_min=1e-4, stats=False):
         raise RuntimeError(f"bvh_traverse launch failed ({rc}): {what}")
     names = ((LOD_STATS_KERNELS if lod else STATS_KERNELS) if stats
              else (LOD_KERNELS if lod else KERNELS))
-    launch_counts[names[int(any_hit)]] += 1
+    spans.count("launch." + names[int(any_hit)])
     return out

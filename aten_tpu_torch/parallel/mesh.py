@@ -32,6 +32,7 @@ import torch.distributed as dist
 
 from aten_tpu_torch.integrator.pathtracer import _trace_paths, check_scene
 from aten_tpu_torch.scene.scene import Scene
+from aten_tpu_torch.utils import spans
 
 # the backend a group needs for tensors of each device type
 BACKEND_OF = {"cpu": "gloo", "cuda": "nccl"}
@@ -161,15 +162,19 @@ def band_loss_and_grads(scene, cam_arrays, target, frame, width, height, spp, ma
     """The train step's forward and backward pass: this process's band of
     sample 0 against the same rows of `target` [height, width, 3], L2
     loss, gradients of the scene's live `fields`, each averaged over the
-    group.  Returns (loss, {spec: grad}), detached."""
+    group.  Returns (loss, {spec: grad}), detached.  The render and the
+    loss are the "forward" span, `torch.autograd.grad` the "backward"
+    span (utils/spans.py)."""
     y0, tile_h = _band(height, group, scene.device)
     live = [k for k in fields if _has_param(scene, k)]
     params = {k: _get_param(scene, k).detach().requires_grad_(True) for k in live}
-    rad = _trace_paths(_set_params(scene, params), cam_arrays, width, height, frame, 0, spp,
-                       max_depth, rr_depth, y0=y0, tile_h=tile_h)
-    img = rad.reshape(tile_h, width, 3)
-    loss = torch.mean((img - target[y0:y0 + tile_h]) ** 2)
-    grads = torch.autograd.grad(loss, [params[k] for k in live], allow_unused=True)
+    with spans.span("forward"):
+        rad = _trace_paths(_set_params(scene, params), cam_arrays, width, height, frame, 0,
+                           spp, max_depth, rr_depth, y0=y0, tile_h=tile_h)
+        img = rad.reshape(tile_h, width, 3)
+        loss = torch.mean((img - target[y0:y0 + tile_h]) ** 2)
+    with spans.span("backward"):
+        grads = torch.autograd.grad(loss, [params[k] for k in live], allow_unused=True)
     grads = [torch.zeros_like(params[k]) if g is None else g for k, g in zip(live, grads)]
     loss = loss.detach()
     if group is not None:
@@ -207,13 +212,15 @@ def make_train_step(width, height, spp=1, max_depth=3, rr_depth=2, group=None, l
     over `group`, then an RMS-normalised update (no optimizer state, as in
     the reference).  Returns step(scene, cam_arrays, target, frame) ->
     (loss, new scene), both detached; target is the whole [height, width,
-    3] image on the scene's device."""
+    3] image on the scene's device.  A step is the "step" root span
+    (utils/spans.py)."""
     fields = tuple(fields)
 
     def step(scene, cam_arrays, target, frame):
-        check_scene(scene)
-        loss, grads = band_loss_and_grads(scene, cam_arrays, target, frame, width, height,
-                                          spp, max_depth, rr_depth, fields, group)
-        return loss, rms_update(scene, grads, lr)
+        with spans.span("step", scene.device):
+            check_scene(scene)
+            loss, grads = band_loss_and_grads(scene, cam_arrays, target, frame, width,
+                                              height, spp, max_depth, rr_depth, fields, group)
+            return loss, rms_update(scene, grads, lr)
 
     return step

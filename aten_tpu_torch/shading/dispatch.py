@@ -10,7 +10,8 @@ sorted by material type (a stable sort), each family runs once over
 exactly its contiguous segment (`used={family}`, so brdf.py's pruning
 leaves that family's code alone), and the results are gathered back into
 lane order.  The segment bounds come from one `bincount` read on the
-host per call (a device-to-host sync).  The reference's fixed-size
+host per call (a device-to-host sync, counted in "host_sync.dispatch",
+utils/spans.py).  The reference's fixed-size
 chunks under a `lax.scan` of `lax.switch` were XLA's static-shape form
 of the same partition and are not kept: every segment here is pure, so
 no mixed chunk falls back to the branchless path.  Every lane computes
@@ -25,6 +26,7 @@ import torch
 
 from aten_tpu_torch.scene.materials import MaterialType
 from aten_tpu_torch.shading import brdf as brdf_mod
+from aten_tpu_torch.utils import spans
 
 # families whose branchless cost is trivial: partitioning pays only when
 # at least two expensive families share the wavefront
@@ -58,6 +60,7 @@ def _dispatch(mat, lane_arrs, run_family):
     n = mtype.shape[0]
     perm = torch.sort(mtype, stable=True).indices
     counts = torch.bincount(mtype.long()).tolist()  # the call's one host read
+    spans.count("host_sync.dispatch")
     smat = {k: v[perm] for k, v in mat.items()}
     slanes = [a[perm] for a in lane_arrs]
     outs, start = [], 0

@@ -16,6 +16,7 @@ from aten_tpu_torch.scene.envmap import pdf_env
 from aten_tpu_torch.scene.lights import sample_light
 from aten_tpu_torch.shading import brdf as brdf_mod
 from aten_tpu_torch.shading import dispatch as disp_mod
+from aten_tpu_torch.utils import spans
 
 
 def mis_balance(pdf_a, pdf_b):
@@ -35,8 +36,13 @@ def nee_contribution(scene, mat, p, ns, wo, state, occluded_fn, used):
 
     occluded_fn(ro, rd, dist) -> [N] occlusion: a bool (the binary shadow
     traversal) or a float in [0, 1] (accel/traverse.py::occlusion_alpha).
-    Returns (rgb [N,3], new sampler state).
+    Returns (rgb [N,3], new sampler state).  Recorded as the "nee" span.
     """
+    with spans.span("nee"):
+        return _nee_contribution(scene, mat, p, ns, wo, state, occluded_fn, used)
+
+
+def _nee_contribution(scene, mat, p, ns, wo, state, occluded_fn, used):
     num_lights = scene["num_lights"]
     if num_lights == 0:
         return torch.zeros_like(p), state

@@ -50,21 +50,16 @@ import time
 import numpy as np
 import torch
 
+from aten_tpu_torch.utils import spans
+
 K = 1 << 14
 LANES = 128
 STEPS = int(os.environ.get("STEPS", 8192))
 VARIANTS = ("chase", "reduce", "extracts", "smt4", "scalar", "cond", "smt4cond",
             "vec2scalar", "red_kd", "red_11", "fori", "unroll8")
+# A launch adds 1 to the counter "launch.<name>" (utils/spans.py) on the
+# line after it succeeds in `run`.
 KERNELS = tuple(f"chase_lab_{v}" for v in VARIANTS)
-
-# Launches per variant since the last reset: the one place that adds to
-# a count is the line after a successful launch in `run`.
-launch_counts = dict.fromkeys(KERNELS, 0)
-
-
-def reset_launch_counts():
-    for k in KERNELS:
-        launch_counts[k] = 0
 
 
 def chases(variant):
@@ -163,7 +158,7 @@ def run(rows, x, variant, steps=None):
         rc = lib.aten_chase_lab(rows.data_ptr(), x.data_ptr(), out.data_ptr(),
                                 steps, VARIANTS.index(variant), stream)
     check(lib, rc, f"chase_lab {variant}")
-    launch_counts[f"chase_lab_{variant}"] += 1
+    spans.count(f"launch.chase_lab_{variant}")
     return out
 
 

@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from aten_tpu_torch.ops.plk_layout import PACK
+from aten_tpu_torch.utils import spans
 
 LANES = 128
 T_MIN = 1e-4
@@ -74,20 +75,13 @@ PLK_SLOTS = 64  # slots of a Plücker block (kernels/kernel_lab.cu: kWindow)
 TILE_ROWS = (8, 16)
 VARIANTS = ("v3", "nodes", "nodir", "leafu", "wide<R>[_nc][_t<N>]", "spec<R>", "plk")
 KINDS = ("nodes", "nodir", "leafu", "wide", "spec", "plk")  # the kernels' order
+# A launch adds 1 to the counter "launch.<name>" (utils/spans.py) on the
+# line after it succeeds in `run`.
 KERNELS = ("kernel_lab_nodes", "kernel_lab_nodir", "kernel_lab_leafu",
            "kernel_lab_wide8", "kernel_lab_wide16", "kernel_lab_wide8_nc",
            "kernel_lab_wide16_nc", "kernel_lab_spec8", "kernel_lab_spec16", "kernel_lab_plk")
 # (lane, slot) pairs or (lane, column) products the plain drains hold at once
 _PAIRS = 1 << 25
-
-# Launches per kernel instantiation since the last reset: the one place
-# that adds to a count is the line after a successful launch in `run`.
-launch_counts = dict.fromkeys(KERNELS, 0)
-
-
-def reset_launch_counts():
-    for k in KERNELS:
-        launch_counts[k] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -558,7 +552,7 @@ def run(tab, ro, rd, t0, variant):
             *(tab[k].data_ptr() for k, _, _ in _TABLES), tab["recs"].shape[0],
             ro.data_ptr(), rd.data_ptr(), t0.data_ptr(), t.data_ptr(), prim.data_ptr(), n, stream)
     check(lib, rc, f"kernel_lab {v.kernel}")
-    launch_counts[v.kernel] += 1
+    spans.count("launch." + v.kernel)
     return t, prim
 
 

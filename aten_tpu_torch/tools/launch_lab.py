@@ -24,21 +24,17 @@ import time
 
 import torch
 
+from aten_tpu_torch.utils import spans
+
 LANES = 128
+# Launches, in the counter "launch.launch_lab" (utils/spans.py): `run`
+# adds one after each launch it makes outside a graph capture (a captured
+# launch runs only when the graph is replayed), and `timeit` adds the
+# chain's `nlaunch` at each replay.
 KERNELS = ("launch_lab",)
 # (steps, nlaunch, grid) of the reference's tables, base first
 CONFIGS = ((1, 1, 1), (1, 2, 1), (1, 4, 1), (1, 8, 1), (1, 1, 64), (1, 1, 256),
            (1, 1, 1024), (1024, 1, 1), (8192, 1, 1))
-
-# Launches since the last reset: `run` adds one after each launch it
-# makes outside a graph capture (a captured launch runs only when the
-# graph is replayed), and `timeit` adds the chain's `nlaunch` at each
-# replay.
-launch_counts = dict.fromkeys(KERNELS, 0)
-
-
-def reset_launch_counts():
-    launch_counts["launch_lab"] = 0
 
 
 def lcg(steps):
@@ -87,7 +83,7 @@ def run(x, steps, nlaunch, grid):
             check(lib, lib.aten_launch_lab(x.data_ptr(), out.data_ptr(), steps, grid,
                                            stream), "launch_lab")
             if not captured:
-                launch_counts["launch_lab"] += 1
+                spans.count("launch.launch_lab")
             x = out
     return x
 
@@ -108,7 +104,7 @@ def timeit(x, steps, nlaunch, grid, graph, reps=3):
 
         def fn():
             g.replay()
-            launch_counts["launch_lab"] += nlaunch
+            spans.count("launch.launch_lab", nlaunch)
     else:
         def fn():
             return run(x, steps, nlaunch, grid)

@@ -23,8 +23,8 @@ that stop when no lane is live or after MAX_TRACKING_STEPS; here each
 iteration takes only the live lanes (`torch.nonzero` once, then the
 lanes that did not finish).  A lane's key advances once per iteration
 while it is live, as in the masked loop, so each lane's result is the
-masked loop's.  Each iteration costs one host sync (the live count);
-`HOST_SYNCS` counts them.
+masked loop's.  Each iteration costs one host sync (the live count),
+counted in "host_sync.tracking" (utils/spans.py).
 
 Media attach to materials (the material's `medium` id): crossing a
 transmissive surface whose material carries a medium switches the
@@ -38,15 +38,13 @@ import torch
 
 from aten_tpu_torch.core import vecmath as vm
 from aten_tpu_torch.core.sampler import _M32, _mul32
+from aten_tpu_torch.utils import spans
 
 PI = float(np.float32(np.pi))
 MAX_TRACKING_STEPS = 64
 BRICK = 4  # voxels per brick edge (brick-majorant empty-space skipping)
 _LCG_MUL, _LCG_ADD = 747796405, 2891336453
 _DELTA_SEED_MUL, _RATIO_SEED_MUL = 0x9E3779B9, 0x85157AF5
-
-# host syncs of the tracking loops: each reads its live count once an iteration
-HOST_SYNCS = {"tracking": 0}
 
 ARRAY_KEYS = ("med_sigma_a", "med_sigma_s", "med_g", "med_le", "med_grid")
 GRID_KEYS = ("grid_density", "grid_bmin", "grid_bmax", "grid_dim", "grid_majorant",
@@ -342,7 +340,7 @@ def _delta_track(scene, med, ro, rd, t_surf, seed, active=None):
     o, d, ts, gl, sb, mj = ro[lane], rd[lane], t_surf[lane], gid[lane], s_bar[lane], maj[lane]
     tl = t[lane]
     for _ in range(MAX_TRACKING_STEPS):
-        HOST_SYNCS["tracking"] += 1  # the live count: the nonzero, then each keep
+        spans.count("host_sync.tracking")  # the live count: the nonzero, then each keep
         if not lane.numel():
             break
         key = lcg_next(key)
@@ -399,7 +397,7 @@ def _ratio_track(scene, med, ro, rd, dist, seed, active=None):
     tl = torch.zeros_like(ds)
     trl = tr[lane]
     for _ in range(MAX_TRACKING_STEPS):
-        HOST_SYNCS["tracking"] += 1  # the live count: the nonzero, then each keep
+        spans.count("host_sync.tracking")  # the live count: the nonzero, then each keep
         if not lane.numel():
             break
         key = lcg_next(key)

@@ -105,8 +105,7 @@ each SBVH put on its scene with Scene.replace and walked by K1 on
 4,194,304 camera rays against the SAH tree (and bitwise K1's plain
 version), timed in turns with it; visible_prims on the knot, the card's
 masks the CPU's and a superset of K1's hit prims; compact and
-scatter_back on 4,194,304 lanes bitwise the CPU's, with
-bench_compaction at live fractions 0.1, 0.5 and 0.9; the zoo+IBL render
+scatter_back on 4,194,304 lanes bitwise the CPU's; the zoo+IBL render
 at 512x512 x 8 spp with the partitioned dispatch off, and on in a child
 process under ATEN_TPU_PARTITION=1; and entry()'s step on the card
 against the CPU.  Each
@@ -384,20 +383,30 @@ BVH_ARRAYS = ("nodes_bmin", "nodes_bmax", "nodes_hit", "nodes_miss", "nodes_prim
               "sph_radius")
 
 
+# Launches and host syncs are host counters of the port's registry
+# (aten_tpu_torch/utils/spans.py), which always count.
 def reset_counts():
-    from aten_tpu_torch.ops import plk_cuda, smt_cuda, tlas_cuda, traverse_cuda
+    from aten_tpu_torch.utils import spans
 
-    traverse_cuda.reset_launch_counts()
-    tlas_cuda.reset_launch_counts()
-    plk_cuda.reset_launch_counts()
-    smt_cuda.reset_launch_counts()
+    spans.reset()
 
 
 def read_counts():
+    """{instantiation: launches} of every traversal kernel since
+    reset_counts()."""
     from aten_tpu_torch.ops import plk_cuda, smt_cuda, tlas_cuda, traverse_cuda
 
-    return {**traverse_cuda.launch_counts, **tlas_cuda.launch_counts,
-            **plk_cuda.launch_counts, **smt_cuda.launch_counts}
+    return counts_of(traverse_cuda.INSTANTIATIONS + tlas_cuda.KERNELS
+                     + plk_cuda.INSTANTIATIONS + smt_cuda.INSTANTIATIONS)
+
+
+def counts_of(names):
+    """{name: launches} of the kernel instantiations `names` since
+    reset_counts()."""
+    from aten_tpu_torch.utils import spans
+
+    c = spans.counters()
+    return {k: c.get("launch." + k, 0) for k in names}
 
 
 def nonzero(counts):
@@ -700,13 +709,14 @@ from aten_tpu_torch.accel import traverse
 from aten_tpu_torch.integrator.pathtracer import render_image
 from aten_tpu_torch.ops import plk_cuda, smt_cuda, tlas_cuda, traverse_cuda
 from aten_tpu_torch.scene.scenedefs import large_mesh_scene
+from aten_tpu_torch.utils import spans
 scene, cam = large_mesh_scene(64, 64, device="cuda")
-for m in (plk_cuda, smt_cuda, tlas_cuda, traverse_cuda):
-    m.reset_launch_counts()
+spans.reset()
 img = render_image(scene, cam, spp=4, max_depth=5, rr_depth=3)
 torch.cuda.synchronize()
-counts = {{**traverse_cuda.launch_counts, **tlas_cuda.launch_counts,
-          **plk_cuda.launch_counts, **smt_cuda.launch_counts}}
+c = spans.counters()
+counts = {{k: c.get("launch." + k, 0) for k in traverse_cuda.INSTANTIATIONS
+          + tlas_cuda.KERNELS + plk_cuda.INSTANTIATIONS + smt_cuda.INSTANTIATIONS}}
 print(json.dumps({{"kernel": traverse.KERNEL, "chains": traverse.CHAINS,
                   "traversal": scene.get("traversal"), "plk": "plk_consts" in scene,
                   "finite": bool(torch.isfinite(img).all()), "mean": float(img.mean()),
@@ -750,13 +760,13 @@ def lab_phase(card, scene, cam, dev):
     n = ro.shape[0]
     assert n == 1 << 20
     # the lab's main path: each variant's first run, then its timing
-    kl.reset_launch_counts()
+    reset_counts()
     outs, times = {}, {}
     for v in LAB_VARIANTS:
         outs[v] = kl.run(tab, ro, rd, t0, v)
         times[v] = kl.measure(tab, ro, rd, t0, v)
     torch.cuda.synchronize()
-    launches = dict(kl.launch_counts)
+    launches = counts_of(kl.KERNELS)
     log(f"phase 11 lab launches: {launches}")
     assert all(launches[kl.parse(v).kernel] > 0 for v in LAB_VARIANTS), launches
     v3 = kl.run(tab, ro, rd, t0, "v3")
@@ -2003,21 +2013,26 @@ LINE_SAMPLES = 8
 LINE_AGREE = 0.999
 
 
-def reset_syncs():
-    from aten_tpu_torch.integrator import volpt
-    from aten_tpu_torch.volume import medium
+SYNC_SITES = ("tracking", "shadow")
+_SYNC_ZERO = {}
 
-    medium.HOST_SYNCS["tracking"] = 0
-    volpt.HOST_SYNCS["shadow"] = 0
+
+def _syncs():
+    from aten_tpu_torch.utils import spans
+
+    c = spans.counters()
+    return {k: c.get("host_sync." + k, 0) for k in SYNC_SITES}
+
+
+def reset_syncs():
+    """Take the volume tracer's host-sync counters as zero from here."""
+    _SYNC_ZERO.update(_syncs())
 
 
 def read_syncs():
     """The volume tracer's host syncs since reset_syncs: the tracking
     loops' and the shadow walks' live counts."""
-    from aten_tpu_torch.integrator import volpt
-    from aten_tpu_torch.volume import medium
-
-    return {"tracking": medium.HOST_SYNCS["tracking"], "shadow": volpt.HOST_SYNCS["shadow"]}
+    return {k: v - _SYNC_ZERO[k] for k, v in _syncs().items()}
 
 
 def volume_image_stats(img, ref):
@@ -3170,8 +3185,6 @@ SBVH_SUBSAMPLES = 16           # 512x512 x 16 = 4,194,304 camera rays
 SBVH_TURNS, SBVH_REPS = 3, 5
 PLAIN20 = 256                  # 20b's plain-version check: 256x256 pixel centres (knot)
 COMPACT_N = 1 << 22
-COMPACT_FRACS = (0.1, 0.5, 0.9)
-COMPACT_ITERS = 10
 ZOO_KW = {"spp": 8, "max_depth": 5, "rr_depth": 3}
 
 CHILD_PARTITION = """
@@ -3233,8 +3246,8 @@ def phase20(card, dev):
     the bound from its kStats counts.  20c:
     visible_prims on the knot from its camera, the card's masks the
     CPU's, every prim K1 hits through the 512x512 pixel centres inside.
-    20d: compact and scatter_back on 4,194,304 lanes bitwise the CPU's,
-    and bench_compaction at live fractions 0.1, 0.5, 0.9.  20e: zoo+IBL
+    20d: compact and scatter_back on 4,194,304 lanes bitwise the CPU's.
+    20e: zoo+IBL
     at 512x512 x 8 spp with the partitioned dispatch off, then on in a
     child process under ATEN_TPU_PARTITION=1 (started with the phase, it
     renders once the parent's renders are done), within the full-image
@@ -3503,7 +3516,7 @@ def compaction_check(card, dev):
     import numpy as np
     import torch
 
-    from aten_tpu_torch.ops.compaction import bench_compaction, compact, scatter_back
+    from aten_tpu_torch.ops.compaction import compact, scatter_back
 
     rng = np.random.default_rng(SEED)
     alive = torch.from_numpy(rng.uniform(size=COMPACT_N) < 0.5)
@@ -3518,11 +3531,6 @@ def compaction_check(card, dev):
     log(f"phase 20d compact + scatter_back, {COMPACT_N} lanes, {int(outs['cpu'][1])} live: "
         f"card bitwise the CPU's {same}; scatter_back(compact) the identity {back}")
     assert same and back
-    for frac in COMPACT_FRACS:
-        r = bench_compaction(COMPACT_N, frac, COMPACT_ITERS, device=dev)
-        log(f"phase 20d bench_compaction n={COMPACT_N} live {frac}: compact_ms "
-            f"{r['compact_ms']:.4f}, masked_ms {r['masked_ms']:.4f} (CUDA events, mean of "
-            f"{COMPACT_ITERS}) [{card}]")
 
 
 def dispatch_check(card, dev, child, npy):
@@ -4024,16 +4032,15 @@ def main():
     rows = torch.from_numpy(chase_lab.build_chain(0)).to(dev)
     x = torch.ones((8, 128), dtype=torch.float32, device=dev)
     steps = chase_lab.STEPS
-    chase_lab.reset_launch_counts()
-    launch_lab.reset_launch_counts()
+    reset_counts()
     lab = {v: chase_lab.measure(rows, x, v) for v in chase_lab.VARIANTS}
     tables, table_launches = {}, {}
     for g in (False, True):
-        before = launch_lab.launch_counts["launch_lab"]
+        before = counts_of(launch_lab.KERNELS)["launch_lab"]
         tables[g] = launch_lab.tables(x, g)
-        table_launches[g] = launch_lab.launch_counts["launch_lab"] - before
+        table_launches[g] = counts_of(launch_lab.KERNELS)["launch_lab"] - before
     launch_ms = cuda_ms(lambda: launch_lab.run(x, 1, 1, 1), reps=100)
-    launches10 = {**chase_lab.launch_counts, **launch_lab.launch_counts}
+    launches10 = counts_of(chase_lab.KERNELS + launch_lab.KERNELS)
     # each table runs every chain 4 times (a warm-up and 3 timed); the
     # graph table also runs it once eagerly before the capture, and the
     # captured launches count only when a replay runs them

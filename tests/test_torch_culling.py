@@ -103,11 +103,6 @@ def test_compaction_matches_reference(live):
     _same(bx, jbx)
 
 
-def test_bench_compaction_runs_on_the_cpu():
-    got = compaction.bench_compaction(n=1 << 12, live_frac=0.5, iters=2, device="cpu")
-    assert set(got) == {"compact_ms", "masked_ms"} and min(got.values()) > 0
-
-
 def test_take_rows_matches_reference():
     rng = np.random.default_rng(0)
     K, D, N = 1024, 24, 333

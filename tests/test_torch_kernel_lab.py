@@ -39,6 +39,7 @@ from aten_tpu_torch.scene import bridge
 from aten_tpu_torch.scene import scenedefs as tdefs
 from aten_tpu_torch.scene.scene import with_trl_layout
 from aten_tpu_torch.tools import kernel_lab as kl
+from aten_tpu_torch.utils import spans
 from test_torch_bvh_scene import reference_native  # noqa: F401  (the one guard)
 
 torch.set_num_threads(1)
@@ -236,6 +237,7 @@ def test_plk_products_and_its_den_term(reference_native):
 def test_plain_tile_subset_and_run_on_cpu(reference_native):
     """`run` on CPU tensors is `run_plain`; a tile subset is those tiles'
     rows of the whole run; v3 is the oracle walk; tile walks count work."""
+    spans.reset()
     _, _, tab, ro, rd, t0 = _setup()
     args = (tab, torch.from_numpy(ro), torch.from_numpy(rd), torch.from_numpy(t0))
     for v in ("wide8", "plk"):
@@ -250,7 +252,7 @@ def test_plain_tile_subset_and_run_on_cpu(reference_native):
     assert bool((p3 >= 0).any())
     nodes = kl.ray_walk_steps(*args)
     assert 0 < nodes < kl.run_plain(*args, "nodes", stats=True)[2]["ray_steps"]
-    assert all(v == 0 for v in kl.launch_counts.values())
+    assert not [k for k in spans.counters() if k.startswith("launch.")]
 
 
 @pytest.mark.parametrize("window", [32, 128])
@@ -258,6 +260,7 @@ def test_tables_follow_the_layout_window(reference_native, window):
     """`tables` carry the layout's window; the MT variants drain it (a
     `_t<N>` at the window is the same walk, and every variant still finds
     the oracle's hits); plk's 64-slot blocks take layouts up to 64."""
+    spans.reset()
     js, _, tab, ro, rd, t0 = _setup()
     tw = kl.tables(with_trl_layout(tab["scene"], window=window))
     assert tw["window"] == window and tw["recs"].shape[0] != tab["recs"].shape[0]
@@ -274,10 +277,11 @@ def test_tables_follow_the_layout_window(reference_native, window):
     else:
         assert tw["emat"].shape[1:] == (4 * kl.PLK_SLOTS,) and tw["pids"].shape[0] > 0
         assert bool((kl.run(*args, "plk")[1] >= 0).any())
-    assert all(v == 0 for v in kl.launch_counts.values())
+    assert not [k for k in spans.counters() if k.startswith("launch.")]
 
 
 def test_kernel_lab_rejects_bad_arguments(reference_native):
+    spans.reset()
     _, _, tab, ro, rd, t0 = _setup()
     args = (tab, torch.from_numpy(ro), torch.from_numpy(rd), torch.from_numpy(t0))
     for bad in ("noext", "wide12", "wide16_x", "spec4", "v4"):
@@ -301,7 +305,7 @@ def test_kernel_lab_rejects_bad_arguments(reference_native):
                *(a.to("meta") for a in args[1:]), "wide8")
     with pytest.raises(ValueError, match="whole tiles"):
         kl.run(tab, *(a[:1000] for a in args[1:]), "wide8")
-    assert all(v == 0 for v in kl.launch_counts.values())
+    assert not [k for k in spans.counters() if k.startswith("launch.")]
     with pytest.raises(ValueError, match="unknown kernel_lab variant"):
         kl.main(["kernel_lab", "noext"])
     if not torch.cuda.is_available():  # the CLI measures on a card only

@@ -17,6 +17,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from aten_tpu_torch.tools import chase_lab, launch_lab
+from aten_tpu_torch.utils import spans
 
 torch.set_num_threads(1)
 
@@ -88,6 +89,7 @@ def test_chase_vote_flags_vary():
 
 
 def test_chase_lab_rejects_bad_arguments():
+    spans.reset()
     rows = torch.from_numpy(chase_lab.build_chain(0))
     x = torch.ones((8, 128))
     with pytest.raises(ValueError, match="variant"):
@@ -98,19 +100,20 @@ def test_chase_lab_rejects_bad_arguments():
         chase_lab.run(rows, x.double(), "chase")
     with pytest.raises(ValueError, match="unsupported device"):
         chase_lab.run(rows.to("meta"), x.to("meta"), "chase")
-    assert all(v == 0 for v in chase_lab.launch_counts.values())
+    assert not [k for k in spans.counters() if k.startswith("launch.")]
 
 
 @pytest.mark.parametrize("steps,nlaunch,grid", [(1, 1, 1), (1, 4, 1), (1, 1, 64),
                                                 (STEPS, 2, 3), (1024, 1, 1)])
 def test_launch_lab_matches_reference(steps, nlaunch, grid):
+    spans.reset()
     ref = _ref("launch_lab")
     x = _x("random")
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(ref.run(jnp.asarray(x), steps, nlaunch, grid))
     got = launch_lab.run(torch.from_numpy(x), steps, nlaunch, grid).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
-    assert launch_lab.launch_counts["launch_lab"] == 0
+    assert not [k for k in spans.counters() if k.startswith("launch.")]
 
 
 def test_launch_lab_rejects_bad_arguments():

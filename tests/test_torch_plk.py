@@ -38,10 +38,11 @@ from aten_tpu.ops import traverse_pallas as jtp
 from aten_tpu.scene.scene import SceneBuilder as JaxSceneBuilder
 from aten_tpu_torch.accel import traverse as ttrav
 from aten_tpu_torch.integrator.pathtracer import render_image
-from aten_tpu_torch.ops import bvh_layout, plk_cuda, plk_layout, traverse_cuda
+from aten_tpu_torch.ops import bvh_layout, plk_cuda, plk_layout
 from aten_tpu_torch.scene import bridge
 from aten_tpu_torch.scene import scenedefs as tdefs
 from aten_tpu_torch.scene.scene import Scene, SceneBuilder, with_plk_layout
+from aten_tpu_torch.utils import spans
 from test_torch_bvh_scene import reference_native  # noqa: F401  (the one guard)
 
 # Tier-1 runs these files in parallel workers; torch's default of one
@@ -254,19 +255,19 @@ def test_pool_rule_picks_k3_where_reference_does(reference_native, n_u, n_v, pic
 
 
 def test_large_mesh_scene_runs_k3():
+    spans.reset()
     scene, cam = tdefs.large_mesh_scene(16, 16, device="cpu")
     assert scene["num_tris"] + scene["num_spheres"] == 512004
     assert scene["traversal"] == "plk" and scene["num_spheres"] == 0
     ro = torch.tensor(np.tile(np.asarray([[0.0, 4.0, 14.0]], np.float32), (4, 1)))
     rd = torch.nn.functional.normalize(torch.tensor([[0.0, -0.2, -1.0], [0.1, -0.3, -1.0],
                                                      [0.0, 1.0, 0.0], [0.0, -0.25, -1.0]]), dim=1)
-    plk_cuda.reset_launch_counts()
     a = ttrav.traverse(scene, ro, rd)
     b = ttrav.traverse(scene, ro, rd, impl="plk_plain")
     for k in a:
         assert torch.equal(a[k], b[k]), k
     assert a["hit"].tolist() == [True, True, False, True]
-    assert all(v == 0 for v in plk_cuda.launch_counts.values())
+    assert not [k for k in spans.counters() if k.startswith("launch.")]
 
 
 # -- traversal ------------------------------------------------------------------
@@ -378,10 +379,9 @@ def test_dispatch(reference_native):
     """impl "auto" takes K3 on a scene that names it; "plk" and
     "plk_plain" need the layout; the wrapper's CPU path is the plain
     version and counts no launch."""
+    spans.reset()
     js, _, ps, _ = _setup()
     ro, rd = (torch.tensor(a) for a in _rays("surface"))
-    plk_cuda.reset_launch_counts()
-    traverse_cuda.reset_launch_counts()
     auto = ttrav.traverse(ps, ro, rd)
     forced = ttrav.traverse(ps, ro, rd, impl="plk_plain")
     for k in auto:
@@ -391,8 +391,7 @@ def test_dispatch(reference_native):
         t, prim = plk_cuda.plk_traverse(ps, ro, rd, t0, any_hit=any_hit)
         h = ttrav._traverse_plk_plain(ps, ro, rd, t0, any_hit, 1e-4)
         assert torch.equal(t, h["t"]) and torch.equal(prim, h["prim"])
-    assert all(v == 0 for v in plk_cuda.launch_counts.values())
-    assert all(v == 0 for v in traverse_cuda.launch_counts.values())
+    assert not [k for k in spans.counters() if k.startswith("launch.")]
     plain = bridge.from_numpy(jax.tree_util.tree_map(np.asarray, js.arrays), js.static, "cpu")
     for impl in ("plk", "plk_plain"):
         with pytest.raises(ValueError, match="Plücker layout"):

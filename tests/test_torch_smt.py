@@ -48,6 +48,7 @@ from aten_tpu_torch.ops import plk_cuda, plk_layout, smt_cuda, traverse_cuda, tr
 from aten_tpu_torch.scene import bridge
 from aten_tpu_torch.scene import scenedefs as tdefs
 from aten_tpu_torch.scene.scene import Scene, SceneBuilder, with_trl_layout
+from aten_tpu_torch.utils import spans
 from test_torch_bvh_scene import reference_native  # noqa: F401  (the one guard)
 
 torch.set_num_threads(1)
@@ -518,9 +519,9 @@ def test_kernel_policy_is_read_once_at_import():
 
 
 def test_dispatch_needs_the_layout(reference_native):
+    spans.reset()
     js, _, ps, _ = _setup("knot")
     ro, rd = (torch.tensor(a) for a in _rays("surface"))
-    smt_cuda.reset_launch_counts()
     auto = ttrav.traverse(ps, ro, rd)
     forced = ttrav.traverse(ps, ro, rd, impl="smt_plain")
     for k in auto:
@@ -531,7 +532,7 @@ def test_dispatch_needs_the_layout(reference_native):
             t, prim = smt_cuda.smt_traverse(ps, ro, rd, t0, any_hit=any_hit, chains=c)
             h = ttrav._traverse_trl_plain(ps, ro, rd, t0, any_hit, 1e-4)
             assert torch.equal(t, h["t"]) and torch.equal(prim, h["prim"])
-    assert all(v == 0 for v in smt_cuda.launch_counts.values())
+    assert not [k for k in spans.counters() if k.startswith("launch.")]
     plain = bridge.from_numpy(jax.tree_util.tree_map(np.asarray, js.arrays), js.static, "cpu")
     for impl in ("smt", "smt_plain"):
         with pytest.raises(ValueError, match="treelet layout"):

@@ -46,11 +46,12 @@ from aten_tpu.scene.scene import SceneBuilder as JaxSceneBuilder
 from aten_tpu_torch.accel import tlas as ttlas
 from aten_tpu_torch.accel import traverse as ttrav
 from aten_tpu_torch.integrator.pathtracer import eval_hit, render_image
-from aten_tpu_torch.ops import bvh_layout, tlas_cuda, tlas_layout, traverse_cuda
+from aten_tpu_torch.ops import bvh_layout, tlas_cuda, tlas_layout
 from aten_tpu_torch.scene import bridge
 from aten_tpu_torch.scene import scenedefs as tdefs
 from aten_tpu_torch.scene.materials import MaterialType
 from aten_tpu_torch.scene.scene import Scene, SceneBuilder
+from aten_tpu_torch.utils import spans
 from test_torch_bvh_scene import reference_native  # noqa: F401  (the one guard)
 
 # Tier-1 runs these files in parallel workers; torch's default of one
@@ -532,15 +533,13 @@ def test_instanced_scene_matches_reference_render(reference_native):
 def test_instanced_render_plain_and_cuda_impls_agree(reference_native):
     """impl "plain" and "cuda" (whose CPU path is the plain walk) render
     the same image and the wrapper counts no launch on the CPU."""
+    spans.reset()
     _, ts, cam = _fixture()
     small = dataclasses.replace(cam, width=24, height=24)
-    tlas_cuda.reset_launch_counts()
-    traverse_cuda.reset_launch_counts()
     a = render_image(ts, small, spp=2, max_depth=3, impl="plain").numpy()
     b = render_image(ts, small, spp=2, max_depth=3, impl="cuda").numpy()
     np.testing.assert_array_equal(a, b)
-    assert all(v == 0 for v in tlas_cuda.launch_counts.values())
-    assert all(v == 0 for v in traverse_cuda.launch_counts.values())
+    assert not [k for k in spans.counters() if k.startswith("launch.")]
 
 
 # -- the kernel wrapper --------------------------------------------------------

@@ -32,6 +32,7 @@ from aten_tpu_torch.accel import traverse as ttrav
 from aten_tpu_torch.ops import traverse_cuda
 from aten_tpu_torch.scene import bridge
 from aten_tpu_torch.scene import scenedefs as tdefs
+from aten_tpu_torch.utils import spans
 from test_torch_bvh_scene import reference_native  # noqa: F401  (the one guard)
 
 pytestmark = pytest.mark.usefixtures("reference_native")
@@ -207,16 +208,16 @@ def test_dead_lanes_never_hit():
 def test_cuda_wrapper_runs_plain_version_on_cpu():
     """On CPU tensors the kernel wrapper returns the plain walk's result
     bit for bit and counts no launch."""
+    spans.reset()
     js, ts, cam = _scenes("mesh1536")
     ro, rd = (torch.tensor(a) for a in _rays(js, cam, "random", seed=3))
-    traverse_cuda.reset_launch_counts()
     for any_hit in (False, True):
         t0 = torch.full((ro.shape[0],), 7.5)
         a = traverse_cuda.bvh_traverse(ts, ro, rd, t0, any_hit=any_hit)
         b = ttrav._traverse_plain(ts, ro, rd, t0, any_hit, 1e-4)
         for x, k in zip(a, ("t", "prim", "u", "v")):
             assert torch.equal(x, b[k]), k
-    assert all(v == 0 for v in traverse_cuda.launch_counts.values())
+    assert not [k for k in spans.counters() if k.startswith("launch.")]
 
 
 def test_unknown_impl_raises():

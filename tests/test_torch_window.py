@@ -200,9 +200,9 @@ def test_kernel_wrappers_take_the_layout_window(reference_native):
     assert smt_cuda.kernel_name(True, 4, True, 128) == "smt_traverse_lod_any_c4_w128"
     assert smt_cuda.kernel_name(False, 1, window=64) == "smt_traverse_closest_c1"
     assert smt_cuda.kernel_name(False, 1, window=40) == "smt_traverse_closest_c1"
-    assert all(k in plk_cuda.launch_counts for w in plk_cuda.WINDOWS
+    assert all(k in plk_cuda.INSTANTIATIONS for w in plk_cuda.WINDOWS
                for v in plk_cuda.VARIANTS for k in plk_cuda.kernel_names(v, w))
-    assert all(smt_cuda.kernel_name(a, c, lod, w) in smt_cuda.launch_counts
+    assert all(smt_cuda.kernel_name(a, c, lod, w) in smt_cuda.INSTANTIATIONS
                for a in (False, True) for c in smt_cuda.CHAIN_COUNTS
                for lod in (False, True) for w in range(8, 129, 8))
     s3 = with_plk_layout(ts, window=32)
